@@ -1,0 +1,411 @@
+#!/usr/bin/env python
+"""Drive the PyTorch port's main path on one CUDA card and check it.
+
+    python3 chip_smoke.py
+
+Phases (each prints its own lines; any failure exits non-zero):
+  1. device: the card's name and power limit (nvidia-smi), then the LK
+     level kernel is built from ops/csrc/lk_level.cu with nvcc;
+  2. kernel against its plain PyTorch version at the bench shapes
+     (4 cameras, 576x768 and 288x384 levels, 6912 and 9216 feature slots,
+     ~25% active): valid agrees on >= 99.9% of slots; on slots valid in
+     both, |d tracked| <= 1e-3 px and |d resid| <= 1e-4; times are CUDA
+     event medians of 20 calls;
+  3. main path: TrackingEngine(pipelined=True) at the bench.py config and
+     scene (37 frames, 7 of warmup), with exactly 8 LK kernel launches per
+     processed frame and no LK work on the CPU; frames/s, stage medians,
+     tracks_peak, pool_dropped and the MOTA triple at w0/w3/w6;
+  4. checks: sequential and pipelined modes agree on 8 frames of the same
+     scene with the same random fields, and the 2D stage on the card
+     agrees with the same stage on the CPU (plain LK version) on a small
+     scene.
+
+The line before the last is a JSON summary of the kernels; the last line
+is {"ok": true, "device": {...}}.
+"""
+
+import json
+import subprocess
+import sys
+import time
+
+WARMUP = 7
+MEASURED = 30
+WINDOWS = (0, 3, 6)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def fail(msg):
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    if out.returncode != 0:
+        fail(f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def bench_config():
+    from mcmtt_opticalflow_tpu_torch.config import (Associator3DConfig,
+                                                    EngineConfig,
+                                                    SolverConfig,
+                                                    Tracker2DConfig)
+    return EngineConfig(
+        num_cameras=4, image_width=768, image_height=576,
+        tracker2d=Tracker2DConfig(lk_pyramid_levels=2, lk_iterations=8,
+                                  max_detections=48, max_trackers=64,
+                                  max_features=36),
+        assoc3d=Associator3DConfig(k_best_size=30),
+        solver=SolverConfig(num_replicas=8, max_vertices=1024,
+                            max_iterations=150))
+
+
+def bench_scene(num_frames):
+    from mcmtt_opticalflow_tpu_torch.data import make_scenario
+    import numpy as np
+    sc = make_scenario(num_cameras=4, num_frames=num_frames, num_people=22,
+                       image_size=(768, 576), arena=9000.0, noise_px=1.0,
+                       fp_rate=0.10, fn_rate=0.05, seed=0)
+    frames = [(np.clip(np.stack(sc.frames(t)), 0, 1) * 255 + 0.5)
+              .astype(np.uint8) for t in range(num_frames)]
+    return sc, frames
+
+
+class CpuDrawnFields:
+    """Solver field source drawing on the CPU from a seeded generator and
+    moving the fields to the solve's device: two engines given equal
+    seeds consume equal fields wherever they run."""
+
+    def __init__(self, seed):
+        import torch
+        from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields
+        self._src = GeneratorFields(torch.Generator().manual_seed(seed))
+
+    def draw(self, r, v, iters_pad, device):
+        f = self._src.draw(r, v, iters_pad, "cpu")
+        return type(f)(*[x.to(device) for x in f])
+
+
+def time_ms(fn, reps=20):
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    times.sort()
+    return times[len(times) // 2]
+
+
+def phase_kernel(frames, cfg):
+    """Kernel against the plain version at the bench shapes."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops.pyramid import build_pyramid
+
+    dev = torch.device("cuda")
+    t2 = cfg.tracker2d
+    g0 = torch.tensor(frames[WARMUP].mean(-1) / 255.0, dtype=torch.float32,
+                      device=dev)
+    g1 = torch.tensor(frames[WARMUP + 1].mean(-1) / 255.0,
+                      dtype=torch.float32, device=dev)
+    p0 = build_pyramid(g0, t2.lk_pyramid_levels)
+    p1 = build_pyramid(g1, t2.lk_pyramid_levels)
+    c = cfg.num_cameras
+    rng = np.random.RandomState(0)
+    n_back = c * t2.max_detections * t2.max_features      # 6912
+    n_fwd = c * t2.max_trackers * t2.max_features         # 9216
+    worst_tr = worst_res = 0.0
+    total_ms = total_plain = 0.0
+    for n, calls in ((n_back, t2.backtrack_interval - 1), (n_fwd, 1)):
+        for lvl in range(t2.lk_pyramid_levels):
+            prev, nxt = p0[lvl], p1[lvl]
+            _, h, w = prev.shape
+            pts = np.stack([rng.uniform(0, w, n), rng.uniform(0, h, n)], -1)
+            guess = pts + rng.normal(0, 1.5, (n, 2))
+            args = (prev, nxt,
+                    torch.tensor(np.repeat(np.arange(c), n // c),
+                                 dtype=torch.int32, device=dev),
+                    torch.tensor(pts, dtype=torch.float32, device=dev),
+                    torch.tensor(guess, dtype=torch.float32, device=dev),
+                    torch.tensor(rng.rand(n) < 0.25, device=dev))
+            kw = dict(window=t2.lk_window, iters=t2.lk_iterations)
+            tr_k, ok_k, res_k = lk_kernel.lk_level(*args, **kw)
+            torch.cuda.synchronize()
+            tr_r, ok_r, res_r = lk_kernel.lk_level_reference(*args, **kw)
+            agree = (ok_k == ok_r).float().mean().item()
+            both = ok_k & ok_r
+            d_tr = (tr_k - tr_r)[both].abs().max().item() if both.any() \
+                else 0.0
+            d_res = (res_k - res_r)[both].abs().max().item() if both.any() \
+                else 0.0
+            ms = time_ms(lambda: lk_kernel.lk_level(*args, **kw))
+            plain = time_ms(lambda: lk_kernel.lk_level_reference(*args, **kw))
+            log(f"kernel lk_level [{c},{h},{w}] N={n} active="
+                f"{int(args[5].sum())}: valid-agree={agree:.6f} "
+                f"valid={int(ok_k.sum())} max|dtracked|={d_tr:.3e} px "
+                f"max|dresid|={d_res:.3e} kernel={ms:.4f} ms "
+                f"plain={plain:.4f} ms")
+            if agree < 0.999 or d_tr > 1e-3 or d_res > 1e-4:
+                fail(f"lk_level disagrees with its plain version at "
+                     f"[{c},{h},{w}] N={n}")
+            if not both.any():
+                fail("kernel check exercised no valid feature")
+            worst_tr, worst_res = max(worst_tr, d_tr), max(worst_res, d_res)
+            total_ms += calls * ms
+            total_plain += calls * plain
+    log(f"kernel lk_level per frame (8 launches): kernel={total_ms:.4f} ms "
+        f"plain={total_plain:.4f} ms")
+    return worst_tr, worst_res, total_ms, total_plain
+
+
+def phase_main_path(cfg, sc, frames, card):
+    """TrackingEngine(pipelined=True) at the bench config and scene."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.eval.clearmot import ClearMotAccumulator
+    from mcmtt_opticalflow_tpu_torch.models import tracker2d
+    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+    from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
+
+    total = WARMUP + MEASURED
+    gx, gy = sc.gt_matrices()
+    zone = (-9000.0, -9000.0, 9000.0, 9000.0)
+    accs = {w: ClearMotAccumulator(gx, gy, zone, 1000.0) for w in WINDOWS}
+    harvested = -1
+
+    def harvest(eng):
+        nonlocal harvested
+        while harvested < eng.assoc.completed_frame:
+            harvested += 1
+            for w in WINDOWS:
+                td = harvested - w
+                if td >= 0:
+                    r = eng.deferred_result(td)
+                    accs[w].set_result(td, [(i, p[0], p[1]) for i, p in
+                                            zip(r.ids, r.points)])
+
+    # count any LK work that runs on the CPU during the main path
+    cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0}
+
+    def counting(mod, name):
+        fn = getattr(mod, name)
+
+        def wrapped(*a, **k):
+            cpu_calls[name] += 1
+            return fn(*a, **k)
+        setattr(mod, name, wrapped)
+        return fn
+
+    orig_ref = counting(lk_kernel, "lk_level_reference")
+    orig_pts = counting(lk, "lk_track_points")
+    # host time of the 2D stage's assignment (numpy JV), per frame
+    jv_s = []
+    orig_jv = tracker2d.solve_assignment
+
+    def timed_jv(*a):
+        t0 = time.perf_counter()
+        out = orig_jv(*a)
+        jv_s.append(time.perf_counter() - t0)
+        return out
+    tracker2d.solve_assignment = timed_jv
+    eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
+    lk_kernel.lk_level.launches = 0
+    try:
+        per_frame, tracks_peak = [], 0
+        for t in range(total):
+            if t == WARMUP:
+                eng.assoc.timer.reset()
+            f0 = time.perf_counter()
+            eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+            if t >= WARMUP:
+                per_frame.append(time.perf_counter() - f0)
+                tracks_peak = max(tracks_peak,
+                                  len(eng.assoc.registry.tracks))
+            harvest(eng)
+        while eng.flush() is not None:
+            harvest(eng)
+        torch.cuda.synchronize()
+    finally:
+        lk_kernel.lk_level_reference = orig_ref
+        lk.lk_track_points = orig_pts
+        tracker2d.solve_assignment = orig_jv
+    launches = lk_kernel.lk_level.launches
+    log(f"main path: {total} frames, lk_level launches={launches} "
+        f"(expected {8 * total}), CPU LK calls={cpu_calls}")
+    if launches != 8 * total:
+        fail(f"expected {8 * total} LK kernel launches, got {launches}")
+    if any(cpu_calls.values()):
+        fail(f"LK ran on the CPU during the main path: {cpu_calls}")
+    for w in WINDOWS:
+        for td in range(max(harvested - w + 1, 0), harvested + 1):
+            r = eng.deferred_result(td)
+            accs[w].set_result(td, [(i, p[0], p[1]) for i, p in
+                                    zip(r.ids, r.points)])
+    evals = {w: accs[w].evaluate() for w in WINDOWS}
+    for r in eng.results:
+        pts = np.asarray(r.points)
+        if len(r.ids) != len(pts) or (pts.size and (
+                pts.shape[1] != 3 or not np.isfinite(pts).all())):
+            fail(f"malformed result at frame {r.frame_idx}")
+    fps = 1.0 / float(np.median(per_frame))
+    timer = eng.assoc.timer
+    stage_ms = {name: round(1e3 * sorted(timer.samples[name])
+                            [timer.counts[name] // 2], 3)
+                for name in sorted(timer.totals,
+                                   key=lambda n: -timer.totals[n])
+                if not name.startswith("_")}
+    quality = {f"mota_w{w}": evals[w].mota for w in WINDOWS}
+    log(f"main path: {fps:.4f} frames/s median over {len(per_frame)} "
+        f"frames on {card}")
+    log(f"main path: per-frame s {[round(x, 4) for x in per_frame]}")
+    log(f"main path: stage medians ms {json.dumps(stage_ms)}")
+    log(f"main path: host solve_assignment median "
+        f"{1e3 * float(np.median(jv_s[WARMUP:])):.3f} ms/frame "
+        f"(max {1e3 * max(jv_s[WARMUP:]):.3f})")
+    log(f"main path: tracks_peak={tracks_peak} "
+        f"pool_dropped={eng.assoc.pool_dropped_total} "
+        f"{json.dumps(quality)}")
+    for w in WINDOWS:
+        log(f"main path: w{w}: {evals[w].summary()}")
+    if not all(np.isfinite(list(quality.values()))) or quality["mota_w0"] \
+            <= 0.5:
+        fail(f"MOTA out of range: {quality}")
+    return launches
+
+
+def phase_modes_agree(cfg, sc, frames):
+    import numpy as np
+    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+
+    n = 8
+    seq = TrackingEngine(cfg, sc.cameras, device="cuda")
+    pipe = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
+    seq.assoc.field_source = CpuDrawnFields(1)
+    pipe.assoc.field_source = CpuDrawnFields(1)
+    rs, rp = [], []
+    for t in range(n):
+        rs.append(seq.process_frame(frames[t], sc.detections[t],
+                                    frame_idx=t))
+        r = pipe.process_frame(frames[t], sc.detections[t], frame_idx=t)
+        if r is not None:
+            rp.append(r)
+    while True:
+        r = pipe.flush()
+        if r is None:
+            break
+        rp.append(r)
+    if len(rs) != len(rp):
+        fail(f"modes: {len(rs)} sequential vs {len(rp)} pipelined results")
+    for a, b in zip(rs, rp):
+        if a.frame_idx != b.frame_idx or a.ids != b.ids or \
+                not np.array_equal(a.points, b.points):
+            fail(f"modes disagree at frame {a.frame_idx}")
+    log(f"modes agree: sequential == pipelined over {n} frames "
+        f"({sum(len(r.ids) for r in rs)} tracked objects)")
+
+
+def phase_cpu_reference():
+    """The 2D stage on the card (LK kernel) against the same stage on the
+    CPU (LK plain version) on a small scene."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.config import Tracker2DConfig
+    from mcmtt_opticalflow_tpu_torch.data import make_scenario
+    from mcmtt_opticalflow_tpu_torch.geometry.tsai import stack_cameras
+    from mcmtt_opticalflow_tpu_torch.models.tracker2d import (
+        init_tracker2d_state, tracker2d_step)
+
+    cfg = Tracker2DConfig(max_detections=16, max_trackers=32,
+                          max_features=16, lk_window=8,
+                          lk_pyramid_levels=2, lk_iterations=8)
+    sc = make_scenario(num_cameras=2, num_frames=8, num_people=4,
+                       image_size=(256, 192), arena=4000.0, seed=3)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        cams = stack_cameras(sc.cameras, dev)
+        state = init_tracker2d_state(cfg, 192, 256, 2, device=dev)
+        seq = []
+        for t in range(8):
+            gray = torch.tensor(np.stack(sc.frames(t)).mean(-1),
+                                dtype=torch.float32, device=dev)
+            det = np.zeros((2, 16, 4), np.float32)
+            mask = np.zeros((2, 16), bool)
+            for c in range(2):
+                k = min(len(sc.detections[t][c]), 16)
+                det[c, :k] = sc.detections[t][c][:k]
+                mask[c, :k] = True
+            state, out = tracker2d_step(state, gray,
+                                        torch.tensor(det, device=dev),
+                                        torch.tensor(mask, device=dev),
+                                        cams, t, cfg)
+            seq.append([x.cpu().numpy() for x in
+                        (out.ids, out.mask, out.det_mask, out.boxes)])
+        outs[dev] = seq
+    n_obj = 0
+    for t, (g, c) in enumerate(zip(outs["cuda"], outs["cpu"])):
+        if not all(np.array_equal(a, b) for a, b in zip(g[:3], c[:3])) or \
+                np.abs(g[3] - c[3]).max() > 1e-3:
+            fail(f"2D stage on the card differs from the CPU at frame {t}")
+        n_obj += int(g[1].sum())
+    log(f"2D stage card == CPU over 8 frames ({n_obj} tracklet outputs)")
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script measures the port on a GPU")
+    try:
+        from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    except ImportError as e:
+        fail(f"run from the repository root: {e}")
+    t_start = time.perf_counter()
+    card = card_line()
+    log(card)          # name, power limit — as nvidia-smi prints them
+    name = torch.cuda.get_device_name(0)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
+
+    t0 = time.perf_counter()
+    lk_kernel.build()
+    log(f"build: lk_level.cu built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for line in lk_kernel._Kernel.build_log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"build: {line.strip()}")
+
+    cfg = bench_config()
+    sc, frames = bench_scene(WARMUP + MEASURED)
+    d_tr, d_res, ms, plain_ms = phase_kernel(frames, cfg)
+    launches = phase_main_path(cfg, sc, frames, card)
+    phase_modes_agree(cfg, sc, frames)
+    phase_cpu_reference()
+    torch.cuda.synchronize()
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": [{
+        "name": "lk_level", "route": "cuda",
+        "source": "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu",
+        "replaces": "mcmtt_opticalflow_tpu/ops/lk_pallas.py:250",
+        "launches": launches, "max_abs_err": d_tr,
+        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

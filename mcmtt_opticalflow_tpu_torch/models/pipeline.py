@@ -1,0 +1,190 @@
+"""Top-level tracking engine (port of
+mcmtt_opticalflow_tpu/models/pipeline.py; the redesign of the reference
+orchestrator CPSNWhere, psn_where/PSNWhere.cpp:243-283).
+
+Per frame:
+  1. the 2D tracklet step over all cameras (models/tracker2d.py)
+  2. the 3D MHT association step (models/associator3d.py)
+  3. optional deferred CLEAR-MOT evaluation by the caller
+
+The whole 8-bit gray frame goes up from pinned memory with a non-blocking
+copy; the 2D result comes down as one packed f32 tensor through a
+`DeviceFetch` (a non-blocking copy behind a CUDA event).
+"""
+
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from mcmtt_opticalflow_tpu_torch.config import EngineConfig
+from mcmtt_opticalflow_tpu_torch.geometry.tsai import TsaiCamera, stack_cameras
+from mcmtt_opticalflow_tpu_torch.models.associator3d import (Associator3D,
+                                                             Track3DResult)
+from mcmtt_opticalflow_tpu_torch.models.tracker2d import (
+    init_tracker2d_state, tracker2d_step)
+from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
+
+
+def _unpack2d(arr):
+    """Host inverse of TrackingEngine._pack2d."""
+    a = np.asarray(arr)
+    return (a[..., 0].astype(np.int64), a[..., 2:6], a[..., 1] > 0.5)
+
+
+def _pack2d(out2d):
+    """(ids, boxes, mask) -> one [C, T, 6] f32 tensor: a single download
+    (ids are exact in f32 below 2^24)."""
+    return torch.cat([out2d.ids.float()[..., None],
+                      out2d.mask.float()[..., None], out2d.boxes], -1)
+
+
+class TrackingEngine:
+    def __init__(self, cfg: EngineConfig, cameras: Sequence[TsaiCamera],
+                 pipelined: bool = False, sidemaps=None, device=None):
+        """pipelined=True pipelines the engine three frames deep: the 2D
+        stage runs TWO frames ahead of the host-side 3D association, and
+        the 3D hypothesis solve of frame t runs while the host enumerates
+        frame t+1 (the associator's deferred_solve).  Results then trail
+        the input by THREE frames: process_frame(t) returns the frame t-3
+        result (None for the first three); call flush() until it returns
+        None to drain the tail.  Results are identical to the sequential
+        mode, only delayed.
+
+        cameras: host (CPU) TsaiCameras; the engine keeps a stacked copy
+        on `device` (default: the first CUDA card when there is one, else
+        the CPU).
+
+        sidemaps: optional per-camera (sensitivity, boundary, stride)
+        triples (see Associator3D)."""
+        assert len(cameras) == cfg.num_cameras
+        if device is None:
+            device = "cuda" if torch.cuda.is_available() else "cpu"
+        self.device = torch.device(device)
+        self.cfg = cfg
+        self.cameras = list(cameras)
+        self.cams = stack_cameras(cameras, self.device)
+        self.state2d = init_tracker2d_state(
+            cfg.tracker2d, cfg.image_height, cfg.image_width,
+            num_cameras=cfg.num_cameras, device=self.device)
+        self.assoc = Associator3D(cfg, cameras, sidemaps=sidemaps,
+                                  deferred_solve=pipelined,
+                                  device=self.device)
+        from mcmtt_opticalflow_tpu_torch import native
+        self._native_gray = native.available()
+        self.frame_idx = -1
+        self.results: List[Track3DResult] = []
+        self.timing: List[float] = []
+        self.pipelined = pipelined
+        # queue of up to 2 in-flight 2D frames:
+        # (frame_idx, DeviceFetch of the packed 2D outputs, host rgb u8)
+        self._pending: List[tuple] = []
+
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _upload_gray(self, gray_u8: np.ndarray) -> torch.Tensor:
+        """[C, H, W] u8 gray -> [C, H, W] f32 in [0, 1] on the device."""
+        return self._upload(gray_u8).float() * (1.0 / 255.0)
+
+    def _pad_detections(self, detections):
+        c = self.cfg.num_cameras
+        d = self.cfg.tracker2d.max_detections
+        boxes = np.zeros((c, d, 4), np.float32)
+        mask = np.zeros((c, d), bool)
+        for ci in range(c):
+            det = np.asarray(detections[ci], np.float32).reshape(-1, 4)
+            n = min(len(det), d)
+            boxes[ci, :n] = det[:n]
+            mask[ci, :n] = True
+        return boxes, mask
+
+    def _step2d(self, gray, boxes, mask):
+        self.state2d, out2d = tracker2d_step(
+            self.state2d, gray, self._upload(boxes), self._upload(mask),
+            self.cams, self.frame_idx, self.cfg.tracker2d)
+        return out2d
+
+    def process_frame(self, frames_rgb: np.ndarray,
+                      detections: Sequence[np.ndarray],
+                      frame_idx: Optional[int] = None) -> Track3DResult:
+        """Args:
+          frames_rgb: [C, H, W, 3] images — uint8 in [0, 255] (preferred;
+            this is what dataset JPEGs decode to) or float in [0, 1]
+            (quantised to uint8 on the host before upload).
+          detections: per camera [K_c, 4] (x, y, w, h) arrays.
+        """
+        t0 = time.perf_counter()
+        self.frame_idx = self.frame_idx + 1 if frame_idx is None else frame_idx
+        boxes, mask = self._pad_detections(detections)
+        f = np.asarray(frames_rgb)
+        with self.assoc.timer.stage("gray"):
+            if f.dtype != np.uint8:
+                f = (np.clip(f, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
+            if self._native_gray:
+                from mcmtt_opticalflow_tpu_torch import native
+                gray_u8 = native.rgb_to_gray_u8(f)
+            else:
+                gray_u8 = ((f[..., 0].astype(np.uint16) + f[..., 1]
+                            + f[..., 2]) // 3).astype(np.uint8)
+        with self.assoc.timer.stage("upload"):
+            gray = self._upload_gray(gray_u8)
+
+        if self.pipelined:
+            # the associator's phase 1 for frame t-2 runs first, so this
+            # frame's 2D work is enqueued after the previous frame's
+            # hypothesis solve
+            result = None
+            if len(self._pending) == 2:
+                prev_idx, prev_fetch, prev_rgb = self._pending.pop(0)
+                with self.assoc.timer.stage("get2d"):
+                    ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get()[0])
+                result = self.assoc.step_begin(prev_idx, ids_np, boxes_np,
+                                               mask_np, prev_rgb)
+                self.assoc.step_finish(prev_idx)
+            with self.assoc.timer.stage("tracker2d"):
+                out2d = self._step2d(gray, boxes, mask)
+            self._pending.append((self.frame_idx,
+                                  DeviceFetch([_pack2d(out2d)]), f))
+            if result is None:       # pipeline still filling
+                return None
+        else:
+            with self.assoc.timer.stage("tracker2d"):
+                out2d = self._step2d(gray, boxes, mask)
+            result = self._associate(self.frame_idx, out2d, f)
+        result.processing_time = time.perf_counter() - t0
+        self.timing.append(result.processing_time)
+        self.results.append(result)
+        return result
+
+    def _associate(self, frame_idx, out2d, rgb) -> Track3DResult:
+        with self.assoc.timer.stage("get2d"):
+            ids_np, boxes_np, mask_np = _unpack2d(
+                DeviceFetch([_pack2d(out2d)]).get()[0])
+        return self.assoc.step(frame_idx, ids_np, boxes_np, mask_np, rgb)
+
+    def flush(self) -> Optional[Track3DResult]:
+        """Drain one stage of the pipelined tail: first the not-yet-
+        associated 2D frame, then the associator's in-flight hypothesis
+        solve.  Call until it returns None."""
+        result = None
+        if self._pending:
+            prev_idx, prev_fetch, prev_rgb = self._pending.pop(0)
+            with self.assoc.timer.stage("get2d"):
+                ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get()[0])
+            result = self.assoc.step(prev_idx, ids_np, boxes_np, mask_np,
+                                     prev_rgb)
+        if result is None:
+            result = self.assoc.collect()
+        if result is not None:
+            self.results.append(result)
+        return result
+
+    def deferred_result(self, frame_idx: int) -> Track3DResult:
+        return self.assoc.result_at(frame_idx)

@@ -1,0 +1,123 @@
+"""Package-level checks of the port: it imports no jax, its carried
+host modules have not drifted from the JAX package's, its config
+dataclasses equal the JAX package's field by field, and its synthetic
+scenes are identical to the JAX package's."""
+
+import ast
+import dataclasses
+import inspect
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import mcmtt_opticalflow_tpu as jpkg
+import mcmtt_opticalflow_tpu_torch as tpkg
+from mcmtt_opticalflow_tpu import config as jcfg
+from mcmtt_opticalflow_tpu.data import make_scenario as jax_make_scenario
+from mcmtt_opticalflow_tpu_torch import config as tcfg
+from mcmtt_opticalflow_tpu_torch.data import make_scenario
+
+torch.set_num_threads(2)
+
+JROOT = os.path.dirname(jpkg.__file__)
+TROOT = os.path.dirname(tpkg.__file__)
+
+# every module of the port: one run of the main path imports them all
+_NO_JAX = r"""
+import pkgutil, importlib, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
+import mcmtt_opticalflow_tpu_torch as pkg
+for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(m.name)
+from mcmtt_opticalflow_tpu_torch.config import (EngineConfig, SolverConfig,
+                                                Tracker2DConfig)
+from mcmtt_opticalflow_tpu_torch.data import make_scenario
+from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+sc = make_scenario(num_cameras=2, num_frames=2, num_people=2,
+                   image_size=(256, 192), arena=3000.0, seed=2)
+cfg = EngineConfig(num_cameras=2, image_width=256, image_height=192,
+    tracker2d=Tracker2DConfig(max_detections=8, max_trackers=16,
+                              max_features=16, lk_window=8,
+                              lk_pyramid_levels=2, lk_iterations=4),
+    solver=SolverConfig(num_replicas=2, max_vertices=32, max_iterations=20))
+eng = TrackingEngine(cfg, sc.cameras, device="cpu")
+for t in range(2):
+    eng.process_frame(np.stack(sc.frames(t)), sc.detections[t])
+bad = sorted(m for m in sys.modules
+             if m in ("jax", "mcmtt_opticalflow_tpu")
+             or m.startswith(("jax.", "jaxlib", "mcmtt_opticalflow_tpu.")))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_never_imports_jax():
+    env = dict(os.environ)
+    env.pop("XLA_FLAGS", None)
+    proc = subprocess.run([sys.executable, "-c", _NO_JAX], capture_output=True,
+                          text=True, timeout=300, env=env,
+                          cwd=os.path.dirname(TROOT))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def _body_without_imports(path):
+    """Source lines of a module minus its import statements."""
+    with open(path) as f:
+        src = f.read()
+    lines = src.splitlines()
+    drop = set()
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            drop.update(range(node.lineno - 1, node.end_lineno))
+    return [l for i, l in enumerate(lines) if i not in drop]
+
+
+@pytest.mark.parametrize("rel", ["config.py", "geometry/tsai_np.py",
+                                 "models/trees.py", "eval/clearmot.py"])
+def test_carried_module_has_not_drifted(rel):
+    assert (_body_without_imports(os.path.join(TROOT, rel))
+            == _body_without_imports(os.path.join(JROOT, rel)))
+
+
+@pytest.mark.parametrize("mod,name", [("utils.timing", "StageTimer"),
+                                      ("ops.histogram", "host_rgb_histogram")])
+def test_carried_definition_has_not_drifted(mod, name):
+    import importlib
+    ours = getattr(importlib.import_module(f"{tpkg.__name__}.{mod}"), name)
+    ref = getattr(importlib.import_module(f"{jpkg.__name__}.{mod}"), name)
+    assert inspect.getsource(ours) == inspect.getsource(ref)
+
+
+@pytest.mark.parametrize("cls", ["Tracker2DConfig", "Associator3DConfig",
+                                 "SolverConfig", "EvalConfig",
+                                 "EngineConfig"])
+def test_config_fields_equal(cls):
+    ours, ref = getattr(tcfg, cls), getattr(jcfg, cls)
+    fo = [(f.name, f.type) for f in dataclasses.fields(ours)]
+    fr = [(f.name, f.type) for f in dataclasses.fields(ref)]
+    assert fo == fr
+    assert dataclasses.asdict(ours()) == dataclasses.asdict(ref())
+
+
+def test_make_scenario_identical():
+    kw = dict(num_cameras=3, num_frames=4, num_people=5,
+              image_size=(256, 192), arena=4000.0, noise_px=1.0,
+              fp_rate=0.3, fn_rate=0.1, enter_exit=True, seed=7)
+    ours, ref = make_scenario(**kw), jax_make_scenario(**kw)
+    np.testing.assert_array_equal(ours.gt_xy, ref.gt_xy)
+    np.testing.assert_array_equal(ours.heights, ref.heights)
+    for t in range(kw["num_frames"]):
+        for a, b in zip(ours.detections[t], ref.detections[t]):
+            np.testing.assert_array_equal(a, b)
+        for a, b in zip(ours.frames(t), ref.frames(t)):
+            np.testing.assert_array_equal(a, b)
+    for a, b in zip(ours.cameras, ref.cameras):
+        for f in b._fields:
+            np.testing.assert_array_equal(getattr(a, f).numpy(),
+                                          np.asarray(getattr(b, f)))
