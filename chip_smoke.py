@@ -6,7 +6,7 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), then the LK
      level kernel is built from ops/csrc/lk_level.cu with nvcc;
-  2. kernel against its plain PyTorch version at the bench shapes
+  2. the LK kernel against its plain PyTorch version at the bench shapes
      (4 cameras, 576x768 and 288x384 levels, 6912 and 9216 feature slots,
      ~25% active): valid agrees on >= 99.9% of slots; on slots valid in
      both, |d tracked| <= 1e-3 px and |d resid| <= 1e-4; times are CUDA
@@ -18,10 +18,22 @@ Phases (each prints its own lines; any failure exits non-zero):
   4. checks: sequential and pipelined modes agree on 8 frames of the same
      scene with the same random fields, and the 2D stage on the card
      agrees with the same stage on the CPU (plain LK version) on a small
-     scene.
+     scene;
+  5. the serial LK kernel (lk_level(variant="serial"), the JAX package's
+     lk_level_pallas(variant="serial")) against its plain version at the
+     shapes of phase 2, plus one call with guesses 10-20 px off so the
+     working-subpatch clamp binds; same limits as phase 2; counts its own
+     launches;
+  6. the dataset CLI: the bench scene (12 frames) written in the
+     reference's layout (Tsai XML, detection files, .ppm frames, ground
+     truth, parameters.txt), run through `main.py <parameters.txt>` in
+     process at the default EngineConfig (3 pyramid levels: 12 LK kernel
+     launches per frame, none on the CPU, no flat-gray frame), MOTA at
+     w0/w3/w6 from the printed table's results.
 
-The line before the last is a JSON summary of the kernels; the last line
-is {"ok": true, "device": {...}}.
+The whole script takes about 2 minutes on the card.  The line before the
+last is a JSON summary of the kernels; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -32,6 +44,8 @@ import time
 WARMUP = 7
 MEASURED = 30
 WINDOWS = (0, 3, 6)
+CLI_FRAMES = 12
+CLI_CAM_IDS = (1, 5, 6, 8)
 
 
 def log(msg):
@@ -111,11 +125,37 @@ def time_ms(fn, reps=20):
     return times[len(times) // 2]
 
 
-def phase_kernel(frames, cfg):
-    """Kernel against the plain version at the bench shapes."""
-    import numpy as np
+def compare(args, kw, variant, label):
+    """One kernel launch against the plain version on the same inputs;
+    fails beyond the limits.  Returns (max |d tracked| on slots valid in
+    both, the line to log)."""
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    tr_k, ok_k, res_k = lk_kernel.lk_level(*args, **kw, variant=variant)
+    torch.cuda.synchronize()
+    tr_r, ok_r, res_r = lk_kernel.lk_level_reference(*args, **kw,
+                                                     variant=variant)
+    agree = (ok_k == ok_r).float().mean().item()
+    both = ok_k & ok_r
+    if not both.any():
+        fail(f"{label}: the check exercised no valid feature")
+    d_tr = (tr_k - tr_r)[both].abs().max().item()
+    d_res = (res_k - res_r)[both].abs().max().item()
+    msg = (f"{label}: valid-agree={agree:.6f} valid={int(ok_k.sum())} "
+           f"max|dtracked|={d_tr:.3e} px max|dresid|={d_res:.3e}")
+    if agree < 0.999 or d_tr > 1e-3 or d_res > 1e-4:
+        fail(f"kernel disagrees with its plain version: {msg}")
+    return d_tr, msg
+
+
+def bench_level_calls(frames, cfg, guess_px=None):
+    """The LK level calls of one bench frame, at its shapes: per pyramid
+    level, backtrack_interval - 1 backward calls of N=6912 slots and one
+    forward call of N=9216, ~25% active, on two consecutive frames'
+    pyramids.  Yields (calls per frame, args, kwargs, label); guesses are
+    1.5 px off, or `guess_px` (lo, hi) px off in a random direction."""
+    import numpy as np
+    import torch
     from mcmtt_opticalflow_tpu_torch.ops.pyramid import build_pyramid
 
     dev = torch.device("cuda")
@@ -130,48 +170,93 @@ def phase_kernel(frames, cfg):
     rng = np.random.RandomState(0)
     n_back = c * t2.max_detections * t2.max_features      # 6912
     n_fwd = c * t2.max_trackers * t2.max_features         # 9216
-    worst_tr = worst_res = 0.0
-    total_ms = total_plain = 0.0
+    kw = dict(window=t2.lk_window, iters=t2.lk_iterations)
     for n, calls in ((n_back, t2.backtrack_interval - 1), (n_fwd, 1)):
         for lvl in range(t2.lk_pyramid_levels):
             prev, nxt = p0[lvl], p1[lvl]
             _, h, w = prev.shape
             pts = np.stack([rng.uniform(0, w, n), rng.uniform(0, h, n)], -1)
-            guess = pts + rng.normal(0, 1.5, (n, 2))
+            if guess_px is None:
+                guess = pts + rng.normal(0, 1.5, (n, 2))
+            else:
+                ang = rng.uniform(0, 2 * np.pi, n)
+                r = rng.uniform(*guess_px, n)
+                guess = pts + np.stack([r * np.cos(ang), r * np.sin(ang)], -1)
             args = (prev, nxt,
                     torch.tensor(np.repeat(np.arange(c), n // c),
                                  dtype=torch.int32, device=dev),
                     torch.tensor(pts, dtype=torch.float32, device=dev),
                     torch.tensor(guess, dtype=torch.float32, device=dev),
                     torch.tensor(rng.rand(n) < 0.25, device=dev))
-            kw = dict(window=t2.lk_window, iters=t2.lk_iterations)
-            tr_k, ok_k, res_k = lk_kernel.lk_level(*args, **kw)
-            torch.cuda.synchronize()
-            tr_r, ok_r, res_r = lk_kernel.lk_level_reference(*args, **kw)
-            agree = (ok_k == ok_r).float().mean().item()
-            both = ok_k & ok_r
-            d_tr = (tr_k - tr_r)[both].abs().max().item() if both.any() \
-                else 0.0
-            d_res = (res_k - res_r)[both].abs().max().item() if both.any() \
-                else 0.0
-            ms = time_ms(lambda: lk_kernel.lk_level(*args, **kw))
-            plain = time_ms(lambda: lk_kernel.lk_level_reference(*args, **kw))
-            log(f"kernel lk_level [{c},{h},{w}] N={n} active="
-                f"{int(args[5].sum())}: valid-agree={agree:.6f} "
-                f"valid={int(ok_k.sum())} max|dtracked|={d_tr:.3e} px "
-                f"max|dresid|={d_res:.3e} kernel={ms:.4f} ms "
-                f"plain={plain:.4f} ms")
-            if agree < 0.999 or d_tr > 1e-3 or d_res > 1e-4:
-                fail(f"lk_level disagrees with its plain version at "
-                     f"[{c},{h},{w}] N={n}")
-            if not both.any():
-                fail("kernel check exercised no valid feature")
-            worst_tr, worst_res = max(worst_tr, d_tr), max(worst_res, d_res)
-            total_ms += calls * ms
-            total_plain += calls * plain
-    log(f"kernel lk_level per frame (8 launches): kernel={total_ms:.4f} ms "
+            yield calls, args, kw, f"[{c},{h},{w}] N={n} active=" \
+                f"{int(args[5].sum())}"
+
+
+def check_kernel(frames, cfg, variant, extra=()):
+    """A kernel against its plain version at every bench shape and on the
+    `extra` (args, kwargs, label) calls: (worst |d tracked|, launches
+    made)."""
+    name = "lk_level" if variant == "batched" else "lk_level_serial"
+    calls = [c[1:] for c in bench_level_calls(frames, cfg)] + list(extra)
+    worst = 0.0
+    for args, kw, label in calls:
+        d_tr, msg = compare(args, kw, variant, f"kernel {name} {label}")
+        log(msg)
+        worst = max(worst, d_tr)
+    return worst, len(calls)
+
+
+def time_kernel(frames, cfg, variant):
+    """A kernel's time and its plain version's per bench frame
+    (8 launches), from CUDA-event medians of 20 calls at each shape."""
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+
+    name = "lk_level" if variant == "batched" else "lk_level_serial"
+    total_ms = total_plain = 0.0
+    for calls, args, kw, label in bench_level_calls(frames, cfg):
+        ms = time_ms(lambda: lk_kernel.lk_level(*args, **kw,
+                                                variant=variant))
+        plain = time_ms(lambda: lk_kernel.lk_level_reference(
+            *args, **kw, variant=variant))
+        log(f"kernel {name} {label}: kernel={ms:.4f} ms "
+            f"plain={plain:.4f} ms")
+        total_ms += calls * ms
+        total_plain += calls * plain
+    log(f"kernel {name} per frame (8 launches): kernel={total_ms:.4f} ms "
         f"plain={total_plain:.4f} ms")
-    return worst_tr, worst_res, total_ms, total_plain
+    return total_ms, total_plain
+
+
+def phase_serial(frames, cfg):
+    """The serial kernel's own path, lk_level(variant="serial"), driven
+    with the counts at 0: the bench shapes, and the finest level's
+    forward call with guesses 10-20 px off, where the working-subpatch
+    clamp must bind (slots whose result differs from the batched
+    variant's); then its times against the plain version's."""
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+
+    _, args, kw, label = list(bench_level_calls(
+        frames, cfg, guess_px=(10.0, 20.0)))[2]
+    lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
+    worst, calls = check_kernel(
+        frames, cfg, "serial",
+        extra=[(args, kw, label + " guesses 10-20 px off")])
+    launches = lk_kernel.lk_level.serial_launches
+    log(f"serial path: lk_level serial launches={launches} (expected "
+        f"{calls}), batched launches={lk_kernel.lk_level.launches} "
+        f"(expected 0)")
+    if launches != calls or lk_kernel.lk_level.launches:
+        fail("the serial path did not launch the serial kernel once per "
+             "call")
+    tr_s = lk_kernel.lk_level_reference(*args, **kw, variant="serial")[0]
+    tr_b = lk_kernel.lk_level_reference(*args, **kw)[0]
+    binds = int(((tr_s - tr_b).abs().amax(-1) > 1e-2)[args[5]].sum())
+    log(f"serial path: guesses 10-20 px off: {binds} of "
+        f"{int(args[5].sum())} active slots end more than 0.01 px from the "
+        f"batched variant's result (the subpatch clamp binds)")
+    if not binds:
+        fail("the far-guess call never made the subpatch clamp bind")
+    return (launches, worst) + time_kernel(frames, cfg, "serial")
 
 
 def phase_main_path(cfg, sc, frames, card):
@@ -366,6 +451,161 @@ def phase_cpu_reference():
     log(f"2D stage card == CPU over 8 frames ({n_obj} tracklet outputs)")
 
 
+def write_dataset(root, sc, frames):
+    """The scene in the reference's dataset layout under `root`, written
+    by the port's writers; returns the parameters.txt path."""
+    import math
+    import os
+    from mcmtt_opticalflow_tpu_torch.data import (write_detection_file,
+                                                  write_ground_truth,
+                                                  write_image)
+    from mcmtt_opticalflow_tpu_torch.data.pets import write_tsai_xml
+
+    for ci, cid in enumerate(CLI_CAM_IDS):
+        cam = sc.cameras[ci]
+        # Euler angles recovered from the rotation (ZYX, as built)
+        write_tsai_xml(os.path.join(root, "calibrationInfos",
+                                    f"View_{cid:03d}.xml"), cam,
+                       rx=math.atan2(float(cam.r32), float(cam.r33)),
+                       ry=math.asin(-float(cam.r31)),
+                       rz=math.atan2(float(cam.r21), float(cam.r11)))
+        for t in range(CLI_FRAMES):
+            write_detection_file(
+                os.path.join(root, f"View_{cid:03d}", "detectionResult",
+                             f"frame_{t:04d}.txt"), sc.detections[t][ci])
+            # .ppm: the card's machine has no PIL or cv2 to decode jpeg
+            write_image(os.path.join(root, f"View_{cid:03d}",
+                                     f"frame_{t:04d}.ppm"), frames[t][ci])
+    gx, gy = sc.gt_matrices()
+    write_ground_truth(os.path.join(root, "groundTruth", "cropped.txt"),
+                       gx, gy)
+    params = os.path.join(root, "parameters.txt")
+    with open(params, "w") as f:
+        f.write(f"DATASET_PATH={root}\n"
+                f"CAM_IDS={','.join(str(c) for c in CLI_CAM_IDS)}\n"
+                f"START_FRAME_IDX=0\nEND_FRAME_IDX={CLI_FRAMES - 1}\n"
+                "SIZE_OF_KS=10\nNUM_EXPERIMENTS=1\n"
+                "CROP_ZONE=-9000,-9000,9000,9000\n")
+    return params
+
+
+def phase_cli(card):
+    """`python -m mcmtt_opticalflow_tpu_torch.main <parameters.txt>` in
+    process on the bench scene in the reference layout, at the default
+    EngineConfig; the only cut is the sequence length."""
+    import contextlib
+    import io
+    import tempfile
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch import main as cli
+    from mcmtt_opticalflow_tpu_torch.config import EngineConfig
+    from mcmtt_opticalflow_tpu_torch.data import images
+    from mcmtt_opticalflow_tpu_torch.eval import experiment
+    from mcmtt_opticalflow_tpu_torch.models import pipeline
+    from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
+
+    sc, frames = bench_scene(CLI_FRAMES)
+    engines, per_frame, sweeps, missing = [], [], [], []
+    cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0}
+
+    class Engine(pipeline.TrackingEngine):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            engines.append(self)
+
+        def process_frame(self, *a, **k):
+            t0 = time.perf_counter()
+            out = super().process_frame(*a, **k)
+            per_frame.append(time.perf_counter() - t0)
+            return out
+
+    def k_sweep(*a, **k):
+        sweeps.append(orig["k_sweep"](*a, **k))
+        return sweeps[-1]
+
+    def find_frame(*a):
+        p = orig["find_frame"](*a)
+        if p is None:
+            missing.append(a)
+        return p
+
+    def counting(name, fn):
+        def wrapped(*a, **k):
+            cpu_calls[name] += 1
+            return fn(*a, **k)
+        return wrapped
+
+    patches = [(pipeline, "TrackingEngine", Engine),
+               (experiment, "k_sweep", k_sweep),
+               (images, "find_frame", find_frame),
+               (lk_kernel, "lk_level_reference",
+                counting("lk_level_reference", lk_kernel.lk_level_reference)),
+               (lk, "lk_track_points",
+                counting("lk_track_points", lk.lk_track_points))]
+    orig = {name: getattr(mod, name) for mod, name, _ in patches}
+    out = io.StringIO()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        params = write_dataset(root, sc, frames)
+        log(f"cli: wrote the {CLI_FRAMES}-frame dataset in "
+            f"{time.perf_counter() - t0:.1f} s")
+        argv = sys.argv
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        sys.argv = ["mcmtt_opticalflow_tpu_torch.main", params]
+        lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stdout(out):
+                cli.main()
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+            for mod, name, _ in patches:
+                setattr(mod, name, orig[name])
+        wall = time.perf_counter() - t0
+    launches = lk_kernel.lk_level.launches
+    table = out.getvalue()
+    for line in table.splitlines():
+        log(f"cli| {line}")
+    levels = EngineConfig().tracker2d.lk_pyramid_levels
+    lk_per_frame = 4 * levels      # backtrack_interval - 1 backward + 1
+    log(f"cli: {len(engines)} engine(s) on "
+        f"{sorted({str(e.device) for e in engines})}, lk_level launches="
+        f"{launches} (expected {lk_per_frame * CLI_FRAMES}), serial="
+        f"{lk_kernel.lk_level.serial_launches}, CPU LK calls={cpu_calls}, "
+        f"frames without an image={len(missing)}")
+    if not engines or any(e.device.type != "cuda" for e in engines):
+        fail("cli: an engine did not run on the card")
+    if launches != lk_per_frame * CLI_FRAMES:
+        fail(f"cli: expected {lk_per_frame * CLI_FRAMES} LK kernel "
+             f"launches, got {launches}")
+    if any(cpu_calls.values()):
+        fail(f"cli: LK ran on the CPU: {cpu_calls}")
+    if missing:
+        fail(f"cli: FrameSource fell back to flat gray for {missing[:3]}")
+    if "== K=10 repeat=0" not in table or table.count("window=") != 11:
+        fail("cli: the CLEAR-MOT table was not printed")
+    (res,), = sweeps
+    mota = {f"mota_w{w}": res.per_window[w].mota for w in WINDOWS}
+    if not all(np.isfinite(list(mota.values()))) or mota["mota_w0"] <= 0.5:
+        fail(f"cli: MOTA out of range: {mota}")
+    timer = engines[0].assoc.timer
+    stage_ms = {name: round(1e3 * sorted(timer.samples[name])
+                            [timer.counts[name] // 2], 3)
+                for name in sorted(timer.totals,
+                                   key=lambda n: -timer.totals[n])
+                if not name.startswith("_")}
+    log(f"cli: {CLI_FRAMES} frames in {wall:.1f} s on {card}, k_sweep "
+        f"{res.fps:.4f} frames/s, median process_frame "
+        f"{float(np.median(per_frame)):.4f} s")
+    log(f"cli: per-frame s {[round(x, 4) for x in per_frame]}")
+    log(f"cli: stage medians ms {json.dumps(stage_ms)}")
+    log(f"cli: pool_dropped={engines[0].assoc.pool_dropped_total} "
+        f"{json.dumps(mota)}")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -382,7 +622,7 @@ def main():
 
     t0 = time.perf_counter()
     lk_kernel.build()
-    log(f"build: lk_level.cu built and loaded in "
+    log(f"build: lk_level.cu (batched + serial kernels) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for line in lk_kernel._Kernel.build_log.splitlines():
         if "registers" in line or "spill" in line:
@@ -390,18 +630,25 @@ def main():
 
     cfg = bench_config()
     sc, frames = bench_scene(WARMUP + MEASURED)
-    d_tr, d_res, ms, plain_ms = phase_kernel(frames, cfg)
+    d_tr, _ = check_kernel(frames, cfg, "batched")
+    ms, plain_ms = time_kernel(frames, cfg, "batched")
     launches = phase_main_path(cfg, sc, frames, card)
     phase_modes_agree(cfg, sc, frames)
     phase_cpu_reference()
+    s_launches, s_tr, s_ms, s_plain = phase_serial(frames, cfg)
+    phase_cli(card)
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "lk_level", "route": "cuda",
-        "source": "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu",
-        "replaces": "mcmtt_opticalflow_tpu/ops/lk_pallas.py:250",
-        "launches": launches, "max_abs_err": d_tr,
-        "ms": ms, "plain_ms": plain_ms}]}), flush=True)
+    src = "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu"
+    print(json.dumps({"kernels": [
+        {"name": "lk_level", "route": "cuda", "source": src,
+         "replaces": "mcmtt_opticalflow_tpu/ops/lk_pallas.py:250",
+         "launches": launches, "max_abs_err": d_tr,
+         "ms": ms, "plain_ms": plain_ms},
+        {"name": "lk_level_serial", "route": "cuda", "source": src,
+         "replaces": "mcmtt_opticalflow_tpu/ops/lk_pallas.py:35",
+         "launches": s_launches, "max_abs_err": s_tr,
+         "ms": s_ms, "plain_ms": s_plain}]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

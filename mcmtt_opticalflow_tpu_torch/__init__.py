@@ -3,10 +3,12 @@
 A port of ``mcmtt_opticalflow_tpu`` (JAX, the reference) to PyTorch on an
 NVIDIA Hopper card.  Each module sits at the same relative path as its JAX
 counterpart.  Device code is plain PyTorch, except the LK pyramid-level
-kernel, which is hand-written CUDA (``ops/csrc/lk_level.cu``).  The host
-modules that never touched jax are carried over as copies
-(``config.py``, ``geometry/tsai_np.py``, ``models/trees.py``,
-``eval/clearmot.py``, ``utils/timing.py::StageTimer``).
+kernels (the batched and serial variants), which are hand-written CUDA
+(``ops/csrc/lk_level.cu``).  The host modules that never touched jax are
+carried over as copies (``config.py``, ``main.py``,
+``geometry/tsai_np.py``, ``models/trees.py``, ``eval/clearmot.py``,
+``eval/experiment.py``, ``data/images.py``, ``data/pets.py``,
+``utils/timing.py::StageTimer``).
 
 The package imports torch, numpy and scipy only, never jax.
 """

@@ -42,6 +42,12 @@ def _pack2d(out2d):
                       out2d.mask.float()[..., None], out2d.boxes], -1)
 
 
+def default_device() -> torch.device:
+    """Where an engine runs unless told otherwise: the first CUDA card when
+    there is one, else the CPU (as JAX takes its default backend)."""
+    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
+
+
 class TrackingEngine:
     def __init__(self, cfg: EngineConfig, cameras: Sequence[TsaiCamera],
                  pipelined: bool = False, sidemaps=None, device=None):
@@ -61,9 +67,8 @@ class TrackingEngine:
         sidemaps: optional per-camera (sensitivity, boundary, stride)
         triples (see Associator3D)."""
         assert len(cameras) == cfg.num_cameras
-        if device is None:
-            device = "cuda" if torch.cuda.is_available() else "cpu"
-        self.device = torch.device(device)
+        self.device = default_device() if device is None else \
+            torch.device(device)
         self.cfg = cfg
         self.cameras = list(cameras)
         self.cams = stack_cameras(cameras, self.device)

@@ -1,7 +1,8 @@
 // One pyramid level of iterative Lucas-Kanade for a flat batch of
-// features over stacked [C, H, W] float32 images, for sm_90a.
+// features over stacked [C, H, W] float32 images, for sm_90a: the two
+// variants of the TPU Pallas kernel behind lk_level_pallas.
 //
-// Replaces the TPU Pallas kernel
+// lk_level_kernel<false> (batched) replaces
 //   mcmtt_opticalflow_tpu/ops/lk_pallas.py::_make_kernel_batched
 // together with the corner/offset wrapping of lk_level_pallas.  The
 // arithmetic is the same: a bilinear (w+2)^2 template window with
@@ -15,7 +16,20 @@
 // copied.  Bilinear taps interpolate rows first, then columns: the order
 // of the TPU kernel's one-hot products (R @ patch) @ C.
 //
-// What bounds it on this card: dependent gathers.  Each Newton step
+// lk_level_kernel<true> (serial) replaces
+//   mcmtt_opticalflow_tpu/ops/lk_pallas.py::_make_kernel
+// (lk_level_pallas(variant="serial")).  The same level, except that the
+// Newton steps run in a [32, 128] working subpatch whose top-left pixel
+// sits ((32-w)/2, (128-w)/2) up and left of the clamped initial guess's
+// floor: the estimate is clamped to that subpatch intersected with the
+// patch, a result outside it is invalid, and the loop exits per feature
+// at the freeze.  Taps blend with the four-term formula
+// a(1-fy)(1-fx) + b(1-fy)fx + c fy(1-fx) + d fy fx.  The TPU kernel moves
+// windows with dynamic rolls of the patch and the subpatch; its clamps
+// keep every tap off the rows and columns a roll wraps, so here taps
+// index the image directly and neither patch nor subpatch is copied.
+//
+// What bounds both on this card: dependent gathers.  Each Newton step
 // samples 4 taps per window pixel at a data-dependent offset, and the
 // next step's offset depends on a warp-wide sum of the previous one, so
 // a feature is a chain of ~10 latency-bound gather rounds with little
@@ -45,14 +59,22 @@ __device__ __forceinline__ float warp_sum(float v) {
 }
 
 // Bilinear tap at integer (y, x) of a row-major image with row pitch W,
-// fractions (fy, fx): rows first, then columns.
+// fractions (fy, fx).  Batched: rows first, then columns.  Serial: the
+// four-term formula, evaluated left to right (lk_pallas.py:123-131).
+template <bool kSerial>
 __device__ __forceinline__ float tap(const float* __restrict__ img, int W,
                                      int y, int x, float fy, float fx) {
   const float* p0 = img + (size_t)y * W + x;
   const float* p1 = p0 + W;
-  const float a = (1.f - fy) * __ldg(p0) + fy * __ldg(p1);
-  const float b = (1.f - fy) * __ldg(p0 + 1) + fy * __ldg(p1 + 1);
-  return a * (1.f - fx) + b * fx;
+  if constexpr (kSerial) {
+    return __ldg(p0) * (1.f - fy) * (1.f - fx) +
+           __ldg(p0 + 1) * (1.f - fy) * fx + __ldg(p1) * fy * (1.f - fx) +
+           __ldg(p1 + 1) * fy * fx;
+  } else {
+    const float a = (1.f - fy) * __ldg(p0) + fy * __ldg(p1);
+    const float b = (1.f - fy) * __ldg(p0 + 1) + fy * __ldg(p1 + 1);
+    return a * (1.f - fx) + b * fx;
+  }
 }
 
 // Tile-aligned patch corner with the point inside (lk_pallas.py:482-489).
@@ -66,6 +88,7 @@ __device__ __forceinline__ float clampf(float v, float lo, float hi) {
   return fminf(fmaxf(v, lo), hi);
 }
 
+template <bool kSerial>
 __global__ void __launch_bounds__(kWarps * 32)
 lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ next,
                 const int* __restrict__ cam, const float* __restrict__ pts,
@@ -103,25 +126,57 @@ lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ next,
   const float hiy = (float)(ph - w - 2), hix = (float)(pw - w - 2);
   const float sy = (py - (float)y0p) - half;
   const float sx = (px - (float)x0p) - half;
-  float dy = (qy - (float)y0n) - half;
-  float dx = (qx - (float)x0n) - half;
+  const float gy0 = (qy - (float)y0n) - half;
+  const float gx0 = (qx - (float)x0n) - half;
   const bool src_ok = sy >= lo && sy <= hiy && sx >= lo && sx <= hix;
+
+  // Where the estimate lives: batched, patch coordinates clamped to the
+  // patch; serial, the working subpatch (lk_pallas.py:103-108, 189-202)
+  // whose top-left pixel sits at (base_y, base_x) of the patch, clamped
+  // to the subpatch intersected with the patch.
+  int base_y = 0, base_x = 0;
+  float lo_y = lo, lo_x = lo, hi_y = hiy, hi_x = hix;
+  if constexpr (kSerial) {
+    const int subh = min(32, ph), subw = min(128, pw);
+    base_y = (int)floorf(clampf(gy0, lo, hiy)) - (subh - w) / 2;
+    base_x = (int)floorf(clampf(gx0, lo, hix)) - (subw - w) / 2;
+    lo_y = fmaxf(lo, lo - (float)base_y);
+    lo_x = fmaxf(lo, lo - (float)base_x);
+    hi_y = fminf((float)(subh - w - 2), hiy - (float)base_y);
+    hi_x = fminf((float)(subw - w - 2), hix - (float)base_x);
+  }
+  float dy = gy0 - (float)base_y, dx = gx0 - (float)base_x;
 
   const size_t plane = (size_t)H * W;
   const float* P = prev + (size_t)cam[i] * plane + (size_t)y0p * W + x0p;
   const float* Q = next + (size_t)cam[i] * plane + (size_t)y0n * W + x0n;
 
-  // (w+2)^2 window at (sy_c - 1, sx_c - 1): template + gradients
+  // (w+2)^2 window one pixel up and left of the clamped source: template
+  // + gradients.  Batched samples at (s_c - 1); serial at the integer
+  // origin floor(s_c) - 1 with the fractions of s_c.
   const int we = w + 2;
   float* ext = ext_s[warp];
   {
-    const float oy = clampf(sy, lo, hiy) - 1.f;
-    const float ox = clampf(sx, lo, hix) - 1.f;
-    const int iy = (int)floorf(oy), ix = (int)floorf(ox);
-    const float fy = oy - (float)iy, fx = ox - (float)ix;
+    const float cy = clampf(sy, lo, hiy), cx = clampf(sx, lo, hix);
+    int iy, ix;
+    float fy, fx;
+    if constexpr (kSerial) {
+      iy = (int)floorf(cy);
+      ix = (int)floorf(cx);
+      fy = cy - (float)iy;
+      fx = cx - (float)ix;
+      --iy;
+      --ix;
+    } else {
+      const float oy = cy - 1.f, ox = cx - 1.f;
+      iy = (int)floorf(oy);
+      ix = (int)floorf(ox);
+      fy = oy - (float)iy;
+      fx = ox - (float)ix;
+    }
     for (int p = lane; p < we * we; p += 32) {
       const int r = p / we, s = p - r * we;
-      ext[p] = tap(P, W, iy + r, ix + s, fy, fx);
+      ext[p] = tap<kSerial>(P, W, iy + r, ix + s, fy, fx);
     }
   }
   __syncwarp();
@@ -152,15 +207,15 @@ lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ next,
   const float inv_det = ok_g ? 1.f / det : 0.f;
 
   for (int it = 0; it < iters; ++it) {
-    const float dyc = clampf(dy, lo, hiy), dxc = clampf(dx, lo, hix);
+    const float dyc = clampf(dy, lo_y, hi_y), dxc = clampf(dx, lo_x, hi_x);
     const int iy = (int)floorf(dyc), ix = (int)floorf(dxc);
     const float fy = dyc - (float)iy, fx = dxc - (float)ix;
-    const float* Qb = Q + (size_t)iy * W + ix;
+    const float* Qb = Q + (size_t)(base_y + iy) * W + (base_x + ix);
     float bx = 0.f, by = 0.f;
 #pragma unroll
     for (int k = 0; k < kPerLane; ++k) {
       if (lane + 32 * k < np) {
-        const float d = tap(Qb + off[k], W, 0, 0, fy, fx) - t[k];
+        const float d = tap<kSerial>(Qb + off[k], W, 0, 0, fy, fx) - t[k];
         bx += d * gxv[k];
         by += d * gyv[k];
       }
@@ -174,25 +229,38 @@ lk_level_kernel(const float* __restrict__ prev, const float* __restrict__ next,
     if (!(fabsf(ux) + fabsf(uy) > 0.03f)) break;  // frozen from here on
   }
 
-  const float dyc = clampf(dy, lo, hiy), dxc = clampf(dx, lo, hix);
+  const float dyc = clampf(dy, lo_y, hi_y), dxc = clampf(dx, lo_x, hi_x);
   const int iy = (int)floorf(dyc), ix = (int)floorf(dxc);
   const float fy = dyc - (float)iy, fx = dxc - (float)ix;
-  const float* Qb = Q + (size_t)iy * W + ix;
+  const float* Qb = Q + (size_t)(base_y + iy) * W + (base_x + ix);
   float ra = 0.f;
 #pragma unroll
   for (int k = 0; k < kPerLane; ++k) {
     if (lane + 32 * k < np)
-      ra += fabsf(tap(Qb + off[k], W, 0, 0, fy, fx) - t[k]);
+      ra += fabsf(tap<kSerial>(Qb + off[k], W, 0, 0, fy, fx) - t[k]);
   }
   ra = warp_sum(ra);
 
   if (lane == 0) {
-    const bool in_range = dy >= lo && dy <= hiy && dx >= lo && dx <= hix;
-    tracked[2 * i] = (dxc + half) + (float)x0n;
-    tracked[2 * i + 1] = (dyc + half) + (float)y0n;
+    const bool in_range = dy >= lo_y && dy <= hi_y && dx >= lo_x && dx <= hi_x;
+    tracked[2 * i] = ((dxc + (float)base_x) + half) + (float)x0n;
+    tracked[2 * i + 1] = ((dyc + (float)base_y) + half) + (float)y0n;
     valid[i] = (ok_g && src_ok && in_range) ? 1 : 0;
     resid[i] = ra * (1.f / (float)np);
   }
+}
+
+template <bool kSerial>
+int launch(const float* prev, const float* next, const int* cam,
+           const float* pts, const float* guess, const uint8_t* active,
+           float* tracked, uint8_t* valid, float* resid, int H, int W, int N,
+           int window, int iters, int ph, int pw, void* stream) {
+  if (N <= 0) return (int)cudaSuccess;
+  const int blocks = (N + kWarps - 1) / kWarps;
+  lk_level_kernel<kSerial><<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
+      prev, next, cam, pts, guess, active, tracked, valid, resid, H, W, N,
+      window, iters, ph, pw);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -203,12 +271,19 @@ extern "C" int lk_level_launch(const float* prev, const float* next,
                                float* tracked, uint8_t* valid, float* resid,
                                int H, int W, int N, int window, int iters,
                                int ph, int pw, void* stream) {
-  if (N <= 0) return (int)cudaSuccess;
-  const int blocks = (N + kWarps - 1) / kWarps;
-  lk_level_kernel<<<blocks, kWarps * 32, 0, (cudaStream_t)stream>>>(
-      prev, next, cam, pts, guess, active, tracked, valid, resid, H, W, N,
-      window, iters, ph, pw);
-  return (int)cudaGetLastError();
+  return launch<false>(prev, next, cam, pts, guess, active, tracked, valid,
+                       resid, H, W, N, window, iters, ph, pw, stream);
+}
+
+extern "C" int lk_level_serial_launch(const float* prev, const float* next,
+                                      const int* cam, const float* pts,
+                                      const float* guess,
+                                      const uint8_t* active, float* tracked,
+                                      uint8_t* valid, float* resid, int H,
+                                      int W, int N, int window, int iters,
+                                      int ph, int pw, void* stream) {
+  return launch<true>(prev, next, cam, pts, guess, active, tracked, valid,
+                      resid, H, W, N, window, iters, ph, pw, stream);
 }
 
 extern "C" int lk_level_max_window() { return kMaxWin; }

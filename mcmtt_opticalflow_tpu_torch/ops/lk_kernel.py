@@ -1,18 +1,28 @@
 """One pyramid level of iterative LK for a flat feature batch: the
-hand-written CUDA kernel (csrc/lk_level.cu) and its plain PyTorch version.
+hand-written CUDA kernels (csrc/lk_level.cu) and their plain PyTorch
+versions, in the two variants of the JAX package's lk_level_pallas.
 
-Both compute what the TPU kernel
-mcmtt_opticalflow_tpu/ops/lk_pallas.py::_make_kernel_batched computes
-together with the wrapping in lk_level_pallas: per feature a bilinear
-(w+2)^2 template with central-difference gradients, a det > 1e-7 gated
-2x2 structure tensor, `iters` Newton steps with the estimate clamped to a
-[PH, PW] patch whose corner is tile-aligned (the TPU's DMA patch; the
-corner decides where the estimate is clamped, so it stays), a freeze
-once |ux|+|uy| <= 0.03, and the mean absolute residual.  Inactive slots
-return the patch corner with valid False and residual 0.
+Both variants compute, per feature, a bilinear (w+2)^2 template with
+central-difference gradients, a det > 1e-7 gated 2x2 structure tensor,
+up to `iters` Newton steps with a freeze once |ux|+|uy| <= 0.03, and the
+mean absolute residual, inside a [PH, PW] patch whose corner is
+tile-aligned (the TPU's DMA patch; the corner decides where the estimate
+is clamped, so it stays).  Inactive slots return the patch corner with
+valid False and residual 0.  They differ in where the estimate may go
+and in how a tap is blended:
+
+- "batched" (the default; lk_pallas.py::_make_kernel_batched): the
+  estimate is clamped to the whole patch, [1, PH-w-2] x [1, PW-w-2];
+  taps blend rows first, then columns.
+- "serial" (lk_pallas.py::_make_kernel): the Newton steps run in a
+  32x128 working subpatch placed around the initial guess, so the
+  estimate is clamped to about -7..+6 rows and -55..+54 columns (w=16)
+  of the guess's floor, intersected with the patch; a result outside
+  that range is invalid.  Taps blend with the four-term formula
+  a(1-fy)(1-fx) + b(1-fy)fx + c fy(1-fx) + d fy fx.
 
 `lk_level` takes the plain version only for tensors on the CPU; for CUDA
-tensors it launches the kernel or raises.  The kernel builds with nvcc at
+tensors it launches the kernel or raises.  The kernels build with nvcc at
 first use into ``_build/`` beside the package (see .gitignore).
 """
 
@@ -30,7 +40,10 @@ import torch
 
 PH = 40                  # patch rows of the TPU kernel (lk_pallas.PH)
 PW = 256                 # patch columns
+SUBH = 32                # working subpatch of the serial variant
+SUBW = 128
 MAX_WINDOW = 16          # per-lane register arrays in the CUDA kernel
+VARIANTS = ("batched", "serial")
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
                     "lk_level.cu")
@@ -80,9 +93,10 @@ def build() -> ctypes.CDLL:
                                + _Kernel.build_log)
         os.replace(tmp, so_path)
     lib = ctypes.CDLL(so_path)
-    lib.lk_level_launch.restype = ctypes.c_int
-    lib.lk_level_launch.argtypes = (
-        [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+    for fn in (lib.lk_level_launch, lib.lk_level_serial_launch):
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.lk_level_max_window.restype = ctypes.c_int
     lib.lk_level_max_window.argtypes = []
     if lib.lk_level_max_window() != MAX_WINDOW:
@@ -101,6 +115,17 @@ def _corner(v: torch.Tensor, half_extent: int, add: int, align: int,
     return torch.clamp(c, 0, hi)
 
 
+def _window_idx(base: torch.Tensor, iy: torch.Tensor, ix: torch.Tensor,
+                wh: int, width: int) -> torch.Tensor:
+    """[N, wh, wh] flat indices of the windows whose top-left pixels are
+    (iy, ix) [N] of the patches at flat index `base` (row pitch
+    `width`)."""
+    r = torch.arange(wh, device=base.device)
+    return (base[:, None, None]
+            + (iy.long()[:, None, None] + r[None, :, None]) * width
+            + ix.long()[:, None, None] + r[None, None, :])
+
+
 def _sample(flat: torch.Tensor, base: torch.Tensor, y: torch.Tensor,
             x: torch.Tensor, wh: int, width: int) -> torch.Tensor:
     """Bilinear [N, wh, wh] windows at float origins (y, x) [N] of the
@@ -111,16 +136,31 @@ def _sample(flat: torch.Tensor, base: torch.Tensor, y: torch.Tensor,
     ix = torch.floor(x)
     fy = (y - iy)[:, None, None]
     fx = (x - ix)[:, None, None]
-    r = torch.arange(wh, device=flat.device)
-    idx = (base[:, None, None]
-           + (iy.long()[:, None, None] + r[None, :, None]) * width
-           + ix.long()[:, None, None] + r[None, None, :])
+    idx = _window_idx(base, iy, ix, wh, width)
     a = (1.0 - fy) * flat[idx] + fy * flat[idx + width]
     b = (1.0 - fy) * flat[idx + 1] + fy * flat[idx + width + 1]
     return a * (1.0 - fx) + b * fx
 
 
-def _check(prev, next_img, cam_idx, points, guess, active, window):
+def _sample4(flat: torch.Tensor, base: torch.Tensor, iy: torch.Tensor,
+             ix: torch.Tensor, fy: torch.Tensor, fx: torch.Tensor, wh: int,
+             width: int) -> torch.Tensor:
+    """Bilinear [N, wh, wh] windows whose top-left taps are the integer
+    pixels (iy, ix) [N] of the patches at flat[base], blended with the
+    serial kernel's four-term formula (lk_pallas.py:123-131)."""
+    fy = fy[:, None, None]
+    fx = fx[:, None, None]
+    idx = _window_idx(base, iy, ix, wh, width)
+    return (flat[idx] * (1 - fy) * (1 - fx)
+            + flat[idx + 1] * (1 - fy) * fx
+            + flat[idx + width] * fy * (1 - fx)
+            + flat[idx + width + 1] * fy * fx)
+
+
+def _check(prev, next_img, cam_idx, points, guess, active, window, variant):
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown LK level variant {variant!r}: "
+                         f"expected one of {VARIANTS}")
     if prev.dim() != 3 or prev.shape != next_img.shape:
         raise ValueError(f"prev/next must be equal [C, H, W]: "
                          f"{tuple(prev.shape)} {tuple(next_img.shape)}")
@@ -137,48 +177,23 @@ def _check(prev, next_img, cam_idx, points, guess, active, window):
     return ph, pw
 
 
-def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
-                       window: int = 16, iters: int = 10):
-    """Plain PyTorch version of the LK level kernel.
+def _corners(points, guess, ph: int, pw: int, h: int, wid: int):
+    """Patch corners (y0p, x0p) of the points and (y0n, x0n) of the
+    guesses."""
+    hy, hx = max(h - ph, 0), max(wid - pw, 0)
+    return (_corner(points[:, 1], ph // 2, 4, 8, hy),
+            _corner(points[:, 0], pw // 2, 64, 128, hx),
+            _corner(guess[:, 1], ph // 2, 4, 8, hy),
+            _corner(guess[:, 0], pw // 2, 64, 128, hx))
 
-    Args:
-      prev, next_img: [C, H, W] float32.
-      cam_idx: [N] int camera of each feature.
-      points:  [N, 2] (x, y) source positions.
-      guess:   [N, 2] (x, y) initial target positions.
-      active:  [N] bool.
 
-    Returns (tracked [N, 2] f32, valid [N] bool, resid [N] f32).
-    """
-    ph, pw = _check(prev, next_img, cam_idx, points, guess, active, window)
-    c, h, wid = prev.shape
-    w = window
-    half = (w - 1) / 2.0
-    lo, hi_y, hi_x = 1.0, float(ph - w - 2), float(pw - w - 2)
-    active = active.bool()
-    y0p = _corner(points[:, 1], ph // 2, 4, 8, max(h - ph, 0))
-    x0p = _corner(points[:, 0], pw // 2, 64, 128, max(wid - pw, 0))
-    y0n = _corner(guess[:, 1], ph // 2, 4, 8, max(h - ph, 0))
-    x0n = _corner(guess[:, 0], pw // 2, 64, 128, max(wid - pw, 0))
-    sy = (points[:, 1] - y0p.float()) - half
-    sx = (points[:, 0] - x0p.float()) - half
-    dy = (guess[:, 1] - y0n.float()) - half
-    dx = (guess[:, 0] - x0n.float()) - half
-
-    plane = cam_idx.long() * (h * wid)
-    base_p = plane + y0p.long() * wid + x0p.long()
-    base_n = plane + y0n.long() * wid + x0n.long()
-    fp = prev.reshape(-1).float()
-    fn = next_img.reshape(-1).float()
-
-    src_ok = (sy >= lo) & (sy <= hi_y) & (sx >= lo) & (sx <= hi_x)
-    sy_c = torch.clamp(sy, lo, hi_y)
-    sx_c = torch.clamp(sx, lo, hi_x)
-    # inactive slots sample a safe in-patch origin; their outputs are
-    # overwritten below
-    one = torch.ones_like(sy_c)
-    ext = _sample(fp, base_p, torch.where(active, sy_c - 1.0, one),
-                  torch.where(active, sx_c - 1.0, one), w + 2, wid)
+def _newton(ext, w: int, warp, dy, dx, go, iters: int):
+    """Template, gradients and structure tensor from the (w+2)^2 window
+    `ext` [N, w+2, w+2], then up to `iters` Newton steps from (dy, dx);
+    `warp(dy, dx)` -> (window [N, w, w], dy_c, dx_c) samples the next
+    image at the clamped estimate.  A feature freezes after the step
+    whose |ux|+|uy| <= 0.03 (the serial kernel's while_loop exit).
+    Returns (dy, dx, ok_g, resid, dy_c, dx_c)."""
     t = ext[:, 1:w + 1, 1:w + 1]
     gx = 0.5 * (ext[:, 1:w + 1, 2:w + 2] - ext[:, 1:w + 1, 0:w])
     gy = 0.5 * (ext[:, 2:w + 2, 1:w + 1] - ext[:, 0:w, 1:w + 1])
@@ -188,14 +203,6 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
     det = gxx * gyy - gxy * gxy
     ok_g = det > 1e-7
     inv_det = torch.where(ok_g, 1.0 / torch.where(ok_g, det, 1.0), 0.0)
-
-    def warp(dy, dx):
-        dy_c = torch.clamp(dy, lo, hi_y)
-        dx_c = torch.clamp(dx, lo, hi_x)
-        return (_sample(fn, base_n, torch.where(active, dy_c, one),
-                        torch.where(active, dx_c, one), w, wid), dy_c, dx_c)
-
-    go = active
     for _ in range(iters):
         warped, dy_c, dx_c = warp(dy, dx)
         diff = warped - t
@@ -208,27 +215,117 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
         go = go & ((torch.abs(ux) + torch.abs(uy)) > 0.03)
     warped, dy_c, dx_c = warp(dy, dx)
     resid = torch.abs(warped - t).sum((1, 2)) * (1.0 / (w * w))
+    return dy, dx, ok_g, resid, dy_c, dx_c
 
-    in_range = (dy >= lo) & (dy <= hi_y) & (dx >= lo) & (dx <= hi_x)
+
+def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
+                       window: int = 16, iters: int = 10,
+                       variant: str = "batched"):
+    """Plain PyTorch version of the LK level kernels.
+
+    Args:
+      prev, next_img: [C, H, W] float32.
+      cam_idx: [N] int camera of each feature.
+      points:  [N, 2] (x, y) source positions.
+      guess:   [N, 2] (x, y) initial target positions.
+      active:  [N] bool.
+      variant: "batched" or "serial" (see the module docstring).
+
+    Returns (tracked [N, 2] f32, valid [N] bool, resid [N] f32).
+    """
+    ph, pw = _check(prev, next_img, cam_idx, points, guess, active, window,
+                    variant)
+    c, h, wid = prev.shape
+    w = window
+    half = (w - 1) / 2.0
+    lo, hi_y, hi_x = 1.0, float(ph - w - 2), float(pw - w - 2)
+    active = active.bool()
+    y0p, x0p, y0n, x0n = _corners(points, guess, ph, pw, h, wid)
+    sy = (points[:, 1] - y0p.float()) - half
+    sx = (points[:, 0] - x0p.float()) - half
+    gy0 = (guess[:, 1] - y0n.float()) - half
+    gx0 = (guess[:, 0] - x0n.float()) - half
+
+    plane = cam_idx.long() * (h * wid)
+    base_p = plane + y0p.long() * wid + x0p.long()
+    fp = prev.reshape(-1).float()
+    fn = next_img.reshape(-1).float()
+
+    src_ok = (sy >= lo) & (sy <= hi_y) & (sx >= lo) & (sx <= hi_x)
+    sy_c = torch.clamp(sy, lo, hi_y)
+    sx_c = torch.clamp(sx, lo, hi_x)
+    # inactive slots sample a safe in-patch origin; their outputs are
+    # overwritten below
+    one = torch.ones_like(sy_c)
+    if variant == "batched":
+        ext = _sample(fp, base_p, torch.where(active, sy_c - 1.0, one),
+                      torch.where(active, sx_c - 1.0, one), w + 2, wid)
+        base_n = plane + y0n.long() * wid + x0n.long()
+        lo_y, lo_x = lo, lo
+        hi_yd, hi_xd = hi_y, hi_x
+        off_y = off_x = torch.zeros_like(gy0)
+    else:
+        # the serial kernel's template: four-term taps at the integer
+        # origin floor(s_c) - 1 with the fractions of s_c (lk_pallas.py:
+        # 160-172)
+        sy_c = torch.where(active, sy_c, one)
+        sx_c = torch.where(active, sx_c, one)
+        isy, isx = torch.floor(sy_c), torch.floor(sx_c)
+        ext = _sample4(fp, base_p, isy - 1, isx - 1, sy_c - isy, sx_c - isx,
+                       w + 2, wid)
+        # working subpatch: its top-left pixel sits (subm_y, subm_x) up
+        # and left of the clamped guess's floor; the estimate lives in
+        # subpatch coordinates, clamped to the subpatch intersected with
+        # the patch (lk_pallas.py:103-108, 189-202)
+        subh, subw = min(SUBH, ph), min(SUBW, pw)
+        off_y = torch.floor(torch.where(
+            active, torch.clamp(gy0, lo, hi_y), one)) - (subh - w) // 2
+        off_x = torch.floor(torch.where(
+            active, torch.clamp(gx0, lo, hi_x), one)) - (subw - w) // 2
+        base_n = (plane + (y0n.long() + off_y.long()) * wid
+                  + x0n.long() + off_x.long())
+        lo_y = torch.clamp(lo - off_y, min=lo)
+        lo_x = torch.clamp(lo - off_x, min=lo)
+        hi_yd = torch.clamp(hi_y - off_y, max=float(subh - w - 2))
+        hi_xd = torch.clamp(hi_x - off_x, max=float(subw - w - 2))
+
+    def warp(dy, dx):
+        dy_c = torch.clamp(dy, lo_y, hi_yd)
+        dx_c = torch.clamp(dx, lo_x, hi_xd)
+        if variant == "batched":
+            win = _sample(fn, base_n, torch.where(active, dy_c, one),
+                          torch.where(active, dx_c, one), w, wid)
+        else:
+            oy = torch.where(active, dy_c, lo_y)
+            ox = torch.where(active, dx_c, lo_x)
+            iy, ix = torch.floor(oy), torch.floor(ox)
+            win = _sample4(fn, base_n, iy, ix, oy - iy, ox - ix, w, wid)
+        return win, dy_c, dx_c
+
+    dy, dx, ok_g, resid, dy_c, dx_c = _newton(
+        ext, w, warp, gy0 - off_y, gx0 - off_x, active, iters)
+    in_range = (dy >= lo_y) & (dy <= hi_yd) & (dx >= lo_x) & (dx <= hi_xd)
     valid = ok_g & src_ok & in_range & active
     zero = torch.zeros_like(dx_c)
     tracked = torch.stack(
-        [torch.where(active, dx_c + half, zero) + x0n.float(),
-         torch.where(active, dy_c + half, zero) + y0n.float()], -1)
+        [torch.where(active, dx_c + off_x + half, zero) + x0n.float(),
+         torch.where(active, dy_c + off_y + half, zero) + y0n.float()], -1)
     return tracked, valid, torch.where(active, resid, zero)
 
 
 def lk_level(prev, next_img, cam_idx, points, guess, active,
-             window: int = 16, iters: int = 10):
-    """The LK level on the tensors' device: the CUDA kernel for CUDA
-    tensors, the plain version for CPU tensors.  Same arguments and
-    results as `lk_level_reference`."""
+             window: int = 16, iters: int = 10, variant: str = "batched"):
+    """The LK level on the tensors' device: the variant's CUDA kernel for
+    CUDA tensors, its plain version for CPU tensors.  Same arguments and
+    results as `lk_level_reference`.  `lk_level.launches` counts launches
+    of the batched kernel, `lk_level.serial_launches` of the serial one."""
     if prev.device.type == "cpu":
         return lk_level_reference(prev, next_img, cam_idx, points, guess,
-                                  active, window, iters)
+                                  active, window, iters, variant)
     if prev.device.type != "cuda":
         raise ValueError(f"lk_level: no kernel for device {prev.device}")
-    ph, pw = _check(prev, next_img, cam_idx, points, guess, active, window)
+    ph, pw = _check(prev, next_img, cam_idx, points, guess, active, window,
+                    variant)
     c, h, wid = prev.shape
     n = points.shape[0]
     args = [prev, next_img, cam_idx, points, guess, active]
@@ -244,16 +341,23 @@ def lk_level(prev, next_img, cam_idx, points, guess, active,
     valid = torch.empty((n,), dtype=torch.uint8, device=prev.device)
     resid = torch.empty((n,), dtype=torch.float32, device=prev.device)
     lib = build()
-    err = lib.lk_level_launch(
+    launch = (lib.lk_level_launch if variant == "batched"
+              else lib.lk_level_serial_launch)
+    err = launch(
         prev.data_ptr(), next_img.data_ptr(), cam_idx.data_ptr(),
         points.data_ptr(), guess.data_ptr(), active.data_ptr(),
         tracked.data_ptr(), valid.data_ptr(), resid.data_ptr(),
         h, wid, n, window, iters, ph, pw,
         torch.cuda.current_stream(prev.device).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"lk_level kernel launch failed: CUDA error {err}")
-    lk_level.launches += 1
+        raise RuntimeError(f"lk_level ({variant}) kernel launch failed: "
+                           f"CUDA error {err}")
+    if variant == "batched":
+        lk_level.launches += 1
+    else:
+        lk_level.serial_launches += 1
     return tracked, valid.bool(), resid
 
 
 lk_level.launches = 0
+lk_level.serial_launches = 0
