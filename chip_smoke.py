@@ -6,24 +6,42 @@
 Phases (each prints its own lines; any failure exits non-zero):
   1. device: the card's name and power limit (nvidia-smi), then the LK
      level kernel is built from ops/csrc/lk_level.cu with nvcc;
-  2. the LK kernel against its plain PyTorch version at the bench shapes
-     (4 cameras, 576x768 and 288x384 levels, 6912 and 9216 feature slots,
-     ~25% active): valid agrees on >= 99.9% of slots; on slots valid in
-     both, |d tracked| <= 1e-3 px and |d resid| <= 1e-4; times are CUDA
-     event medians of 20 calls;
+  2. the LK kernel against its plain PyTorch version at synthetic bench
+     shapes (4 cameras, 576x768 and 288x384 levels, 6912 and 9216
+     feature slots, points uniform over the image, ~25% active at
+     random), and once with images cut to 766 columns (rows not 16-byte
+     aligned: the kernel's 4-byte staging): valid agrees on >= 99.9% of
+     slots; on slots valid in both, |d tracked| <= 1e-3 px and |d resid|
+     <= 1e-4; times per call are
+     CUDA-event medians of 20 `lk_level` calls, wrapper host work
+     included;
   3. main path: TrackingEngine(pipelined=True) at the bench.py config and
      scene (37 frames, 7 of warmup), with exactly 8 LK kernel launches per
      processed frame and no LK work on the CPU; frames/s, stage medians,
-     tracks_peak, pool_dropped and the MOTA triple at w0/w3/w6;
+     tracks_peak, pool_dropped and the MOTA triple at w0/w3/w6.  The
+     arguments of the 8 `lk_level` calls of frame CAPTURE_FRAME are
+     recorded (cloned) on the way;
+  3b. both kernels on those recorded inputs: each call against the plain
+     version at the limits of phase 2; the distribution of |final -
+     initial estimate| (plain version) beside the kernel's staging
+     margin; per call the kernel's device-only time (REPS back-to-back
+     launches on prepared tensors, queued behind a sleep kernel so the
+     host cannot starve the card, between two CUDA events, over REPS),
+     the wrapper's host time per `lk_level` call (perf_counter over REPS
+     calls, no synchronisation between them), the plain version's time,
+     and the bound: the larger of the bytes these inputs need over
+     3.35 TB/s and their float32 operations over 67 TFLOP/s
+     (ops/lk_kernel.py::lk_level_work); an empty kernel's launch, timed
+     like the device-only time, is the practical floor;
   4. checks: sequential and pipelined modes agree on 8 frames of the same
      scene with the same random fields, and the 2D stage on the card
      agrees with the same stage on the CPU (plain LK version) on a small
      scene;
   5. the serial LK kernel (lk_level(variant="serial"), the JAX package's
      lk_level_pallas(variant="serial")) against its plain version at the
-     shapes of phase 2, plus one call with guesses 10-20 px off so the
-     working-subpatch clamp binds; same limits as phase 2; counts its own
-     launches;
+     shapes of phase 2 (the 766-column call included), plus one call
+     with guesses 10-20 px off so the working-subpatch clamp binds; same
+     limits as phase 2; counts its own launches;
   6. the dataset CLI: the bench scene (12 frames) written in the
      reference's layout (Tsai XML, detection files, .ppm frames, ground
      truth, parameters.txt), run through `main.py <parameters.txt>` in
@@ -32,8 +50,12 @@ Phases (each prints its own lines; any failure exits non-zero):
      w0/w3/w6 from the printed table's results.
 
 The whole script takes about 2 minutes on the card.  The line before the
-last is a JSON summary of the kernels; the last line is
-{"ok": true, "device": {...}}.
+last is a JSON summary of the kernels, on the inputs of phase 3b: per
+bench frame (8 launches) `ms` (device-only), `plain_ms`, `bound_ms`;
+per launch `device_us_per_launch`, `bound_us`; `host_us_per_call`; what
+binds (`bound_by`); `library_ms` null (no single PyTorch call computes
+an LK level); `call_ms_synthetic`, phase 2's per-frame time with the
+wrapper's host work.  The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -43,6 +65,10 @@ import time
 
 WARMUP = 7
 MEASURED = 30
+CAPTURE_FRAME = WARMUP + 10
+REPS = 100
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM peaks (on-chip-measurement guide)
+FP32_FLOPS_PER_S = 67e12
 WINDOWS = (0, 3, 6)
 CLI_FRAMES = 12
 CLI_CAM_IDS = (1, 5, 6, 8)
@@ -125,6 +151,86 @@ def time_ms(fn, reps=20):
     return times[len(times) // 2]
 
 
+def device_us(launch, reps=REPS, runs=3):
+    """Device-only µs per launch: `reps` back-to-back launches queued
+    behind a ~10 ms sleep kernel (so the host enqueues them all before the
+    card reaches them), between two CUDA events, over `reps`; the median
+    of `runs` such runs."""
+    import torch
+    launch()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        a.record()
+        for _ in range(reps):
+            launch()
+        b.record()
+        b.synchronize()
+        times.append(1e3 * a.elapsed_time(b) / reps)
+    return sorted(times)[runs // 2]
+
+
+def host_us(call, reps=REPS):
+    """Host µs per call: perf_counter over `reps` calls with no
+    synchronisation between them."""
+    import torch
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        call()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e6 * (t1 - t0) / reps
+
+
+def prepared_launch(args, kw, variant):
+    """A zero-argument launch of the variant's kernel on `args` made ready
+    once (the kernel's types, outputs allocated): the wrapper's checks,
+    conversions and allocations are left out, and nothing is counted."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    prev, nxt, cam, pts, guess, act = args
+    ins = (prev.contiguous().float(), nxt.contiguous().float(),
+           cam.contiguous().to(torch.int32), pts.contiguous().float(),
+           guess.contiguous().float(), act.contiguous().bool())
+    n, (_, h, w) = pts.shape[0], prev.shape
+    outs = (torch.empty((n, 2), device=prev.device),
+            torch.empty((n,), dtype=torch.bool, device=prev.device),
+            torch.empty((n,), device=prev.device))
+    ph, pw = min(lk_kernel.PH, h), min(lk_kernel.PW, w)
+    return lambda: lk_kernel._launch(variant, *ins, *outs, kw["window"],
+                                     kw["iters"], ph, pw)
+
+
+class LkCapture:
+    """Records (cloned) the arguments of every `lk_level` call the
+    tracker makes while `frame` equals `capture_frame`; install() wraps
+    ops/lk.py's name for it, remove() restores it."""
+
+    def __init__(self, capture_frame):
+        self.capture_frame = capture_frame
+        self.frame = -1
+        self.calls = []
+
+    def install(self):
+        from mcmtt_opticalflow_tpu_torch.ops import lk
+        self._orig = lk.lk_level
+
+        def capturing(*a, **k):
+            if self.frame == self.capture_frame:
+                self.calls.append(([x.clone() for x in a], dict(k)))
+            return self._orig(*a, **k)
+        lk.lk_level = capturing
+
+    def remove(self):
+        from mcmtt_opticalflow_tpu_torch.ops import lk
+        lk.lk_level = self._orig
+
+
 def compare(args, kw, variant, label):
     """One kernel launch against the plain version on the same inputs;
     fails beyond the limits.  Returns (max |d tracked| on slots valid in
@@ -192,6 +298,15 @@ def bench_level_calls(frames, cfg, guess_px=None):
                 f"{int(args[5].sum())}"
 
 
+def unaligned_call(frames, cfg):
+    """The first bench call with images cut to 766 columns: rows are not
+    16-byte aligned, so the kernel stages with 4-byte copies."""
+    _, args, kw, label = next(bench_level_calls(frames, cfg))
+    args = (args[0][..., :766].contiguous(), args[1][..., :766].contiguous(),
+            *args[2:])
+    return args, kw, label.replace(",768]", ",766]") + " (rows unaligned)"
+
+
 def check_kernel(frames, cfg, variant, extra=()):
     """A kernel against its plain version at every bench shape and on the
     `extra` (args, kwargs, label) calls: (worst |d tracked|, launches
@@ -240,7 +355,8 @@ def phase_serial(frames, cfg):
     lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
     worst, calls = check_kernel(
         frames, cfg, "serial",
-        extra=[(args, kw, label + " guesses 10-20 px off")])
+        extra=[(args, kw, label + " guesses 10-20 px off"),
+               unaligned_call(frames, cfg)])
     launches = lk_kernel.lk_level.serial_launches
     log(f"serial path: lk_level serial launches={launches} (expected "
         f"{calls}), batched launches={lk_kernel.lk_level.launches} "
@@ -309,11 +425,14 @@ def phase_main_path(cfg, sc, frames, card):
         jv_s.append(time.perf_counter() - t0)
         return out
     tracker2d.solve_assignment = timed_jv
+    capture = LkCapture(CAPTURE_FRAME)
+    capture.install()
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
     lk_kernel.lk_level.launches = 0
     try:
         per_frame, tracks_peak = [], 0
         for t in range(total):
+            capture.frame = t
             if t == WARMUP:
                 eng.assoc.timer.reset()
             f0 = time.perf_counter()
@@ -330,6 +449,7 @@ def phase_main_path(cfg, sc, frames, card):
         lk_kernel.lk_level_reference = orig_ref
         lk.lk_track_points = orig_pts
         tracker2d.solve_assignment = orig_jv
+        capture.remove()
     launches = lk_kernel.lk_level.launches
     log(f"main path: {total} frames, lk_level launches={launches} "
         f"(expected {8 * total}), CPU LK calls={cpu_calls}")
@@ -337,6 +457,9 @@ def phase_main_path(cfg, sc, frames, card):
         fail(f"expected {8 * total} LK kernel launches, got {launches}")
     if any(cpu_calls.values()):
         fail(f"LK ran on the CPU during the main path: {cpu_calls}")
+    if len(capture.calls) != 8:
+        fail(f"recorded {len(capture.calls)} lk_level calls of frame "
+             f"{CAPTURE_FRAME}, expected 8")
     for w in WINDOWS:
         for td in range(max(harvested - w + 1, 0), harvested + 1):
             r = eng.deferred_result(td)
@@ -371,7 +494,83 @@ def phase_main_path(cfg, sc, frames, card):
     if not all(np.isfinite(list(quality.values()))) or quality["mota_w0"] \
             <= 0.5:
         fail(f"MOTA out of range: {quality}")
-    return launches
+    return launches, capture.calls
+
+
+def phase_real_inputs(calls):
+    """Both kernels on the main path's own inputs (phase 3b): checked
+    against the plain version, timed device-only and per wrapper call,
+    and held against their bound.  Returns {variant: summary}."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+
+    lib = lk_kernel.build()
+    margin = lib.lk_level_stage_margin()
+    d = []
+    for args, kw in calls:
+        tr = lk_kernel.lk_level_reference(*args, **kw)[0]
+        d.append((tr - args[4])[args[5]].abs().amax(-1))
+    d = torch.cat(d).cpu().numpy()
+    q = np.percentile(d, [50, 90, 99])
+    log(f"real inputs: {len(calls)} lk_level calls of frame "
+        f"{CAPTURE_FRAME}; |final - initial estimate| (max over x, y; "
+        f"plain version) over {d.size} active features: p50={q[0]:.3f} "
+        f"p90={q[1]:.3f} p99={q[2]:.3f} max={d.max():.3f} px; "
+        f"{float((d <= margin).mean()):.4f} within the kernel's "
+        f"{margin} px staging margin")
+    stream = torch.cuda.current_stream().cuda_stream
+    noop = device_us(lambda: lib.lk_noop_launch(stream))
+    log(f"real inputs: empty kernel {noop:.3f} us per launch (device-only, "
+        f"timed like the LK kernel)")
+    out = {}
+    for variant in lk_kernel.VARIANTS:
+        name = "lk_level" if variant == "batched" else "lk_level_serial"
+        tot = dict(dev=0.0, host=0.0, plain=0.0, bound=0.0, t_bytes=0.0,
+                   t_ops=0.0, err=0.0)
+        for args, kw in calls:
+            _, h, w = args[0].shape
+            label = (f"kernel {name} real [{args[0].shape[0]},{h},{w}] "
+                     f"N={args[3].shape[0]} active={int(args[5].sum())}")
+            d_tr, msg = compare(args, kw, variant, label)
+            log(msg)
+            dev = device_us(prepared_launch(args, kw, variant))
+            host = host_us(lambda: lk_kernel.lk_level(*args, **kw,
+                                                      variant=variant))
+            plain = time_ms(lambda: lk_kernel.lk_level_reference(
+                *args, **kw, variant=variant), reps=5)
+            work = lk_kernel.lk_level_work(*args, **kw, variant=variant)
+            t_bytes = 1e6 * work["bytes"] / HBM_BYTES_PER_S
+            t_ops = 1e6 * work["flops"] / FP32_FLOPS_PER_S
+            bound = max(t_bytes, t_ops)
+            log(f"{label}: device-only {dev:.3f} us/launch, wrapper host "
+                f"{host:.3f} us/call, plain {plain:.4f} ms; work "
+                f"{work['bytes']} B ({work['image_bytes']} B of image), "
+                f"{work['flops']} flop, {work['steps']} Newton steps; "
+                f"bound {bound:.4f} us ("
+                f"{'bytes' if t_bytes >= t_ops else 'operations'}), "
+                f"roofline share {bound / dev:.4f}")
+            for k, v in (("dev", dev), ("host", host), ("plain", plain),
+                         ("bound", bound), ("t_bytes", t_bytes),
+                         ("t_ops", t_ops)):
+                tot[k] += v
+            tot["err"] = max(tot["err"], d_tr)
+        n = len(calls)
+        bound_by = "bytes" if tot["t_bytes"] >= tot["t_ops"] else \
+            "operations"
+        log(f"kernel {name} real frame ({n} launches): device-only "
+            f"{tot['dev'] / 1e3:.4f} ms, wrapper host "
+            f"{tot['host'] / 1e3:.4f} ms, plain {tot['plain']:.4f} ms, "
+            f"bound {tot['bound'] / 1e3:.6f} ms ({bound_by}), roofline "
+            f"share {tot['bound'] / tot['dev']:.4f}; empty-kernel floor "
+            f"{n * noop / 1e3:.4f} ms")
+        out[variant] = {
+            "ms": tot["dev"] / 1e3, "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"] / 1e3, "bound_by": bound_by,
+            "device_us_per_launch": tot["dev"] / n,
+            "host_us_per_call": tot["host"] / n,
+            "bound_us": tot["bound"] / n, "max_abs_err": tot["err"]}
+    return out
 
 
 def phase_modes_agree(cfg, sc, frames):
@@ -630,25 +829,34 @@ def main():
 
     cfg = bench_config()
     sc, frames = bench_scene(WARMUP + MEASURED)
-    d_tr, _ = check_kernel(frames, cfg, "batched")
-    ms, plain_ms = time_kernel(frames, cfg, "batched")
-    launches = phase_main_path(cfg, sc, frames, card)
+    d_tr, _ = check_kernel(frames, cfg, "batched",
+                           extra=[unaligned_call(frames, cfg)])
+    call_ms, _ = time_kernel(frames, cfg, "batched")
+    launches, calls = phase_main_path(cfg, sc, frames, card)
+    real = phase_real_inputs(calls)
     phase_modes_agree(cfg, sc, frames)
     phase_cpu_reference()
-    s_launches, s_tr, s_ms, s_plain = phase_serial(frames, cfg)
+    s_launches, s_tr, s_call_ms, _ = phase_serial(frames, cfg)
     phase_cli(card)
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu"
-    print(json.dumps({"kernels": [
-        {"name": "lk_level", "route": "cuda", "source": src,
-         "replaces": "mcmtt_opticalflow_tpu/ops/lk_pallas.py:250",
-         "launches": launches, "max_abs_err": d_tr,
-         "ms": ms, "plain_ms": plain_ms},
-        {"name": "lk_level_serial", "route": "cuda", "source": src,
-         "replaces": "mcmtt_opticalflow_tpu/ops/lk_pallas.py:35",
-         "launches": s_launches, "max_abs_err": s_tr,
-         "ms": s_ms, "plain_ms": s_plain}]}), flush=True)
+    kernels = []
+    for kname, variant, line, n, err, call in (
+            ("lk_level", "batched", 250, launches, d_tr, call_ms),
+            ("lk_level_serial", "serial", 35, s_launches, s_tr, s_call_ms)):
+        r = real[variant]
+        kernels.append({
+            "name": kname, "route": "cuda", "source": src,
+            "replaces": f"mcmtt_opticalflow_tpu/ops/lk_pallas.py:{line}",
+            "launches": n, "max_abs_err": max(err, r["max_abs_err"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "device_us_per_launch": r["device_us_per_launch"],
+            "host_us_per_call": r["host_us_per_call"],
+            "bound_us": r["bound_us"], "call_ms_synthetic": call})
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}), flush=True)

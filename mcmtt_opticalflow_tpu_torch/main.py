@@ -43,7 +43,7 @@ def run_synthetic(args):
                                 max_iterations=500))
         cfg = dataclasses.replace(
             cfg, assoc3d=dataclasses.replace(cfg.assoc3d, k_best_size=k))
-        return TrackingEngine(cfg, sc.cameras)
+        return TrackingEngine(cfg, sc.cameras, device=args.device)
 
     results = k_sweep(make_engine,
                       lambda t: np.stack(sc.frames(t)),
@@ -108,7 +108,8 @@ def run_dataset(args):
         cfg = dataclasses.replace(cfg, assoc3d=dataclasses.replace(
             cfg.assoc3d, k_best_size=k,
             num_frames_for_confirmation=n_confirm))
-        return TrackingEngine(cfg, cams, pipelined=True, sidemaps=sidemaps)
+        return TrackingEngine(cfg, cams, pipelined=True, sidemaps=sidemaps,
+                              device=args.device)
 
     def dets(t):
         return [read_detection_file(os.path.join(
@@ -138,9 +139,16 @@ def main():
     ap.add_argument("--ks", type=int, nargs="+", default=[10])
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--windows", type=int, default=3)
+    ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                    help="run on the CUDA card (default) or the CPU")
     args = ap.parse_args()
-    from mcmtt_opticalflow_tpu_torch.models.pipeline import default_device
-    print(f"device: {default_device()}", file=sys.stderr)
+    from mcmtt_opticalflow_tpu_torch.utils.device import default_device
+    if args.device == "cuda":
+        try:
+            args.device = default_device()
+        except RuntimeError as e:
+            raise SystemExit(f"error: {e}")
+    print(f"device: {args.device}", file=sys.stderr)
     if args.synthetic or not args.parameters:
         run_synthetic(args)
     else:

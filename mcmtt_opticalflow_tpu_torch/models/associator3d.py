@@ -48,6 +48,7 @@ from mcmtt_opticalflow_tpu_torch.models.mwcp import (
 from mcmtt_opticalflow_tpu_torch.models.trees import (
     Track, TrackRegistry, Tracklet, TrackTree)
 from mcmtt_opticalflow_tpu_torch.ops.sgsmooth import smoothing_matrix_np
+from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
 
 _MAP_STRIDE = 4
@@ -136,7 +137,7 @@ class Track3DResult:
 class Associator3D:
     def __init__(self, cfg: EngineConfig, cameras: Sequence[TsaiCamera],
                  sidemaps: Optional[Sequence[Tuple]] = None,
-                 deferred_solve: bool = False, device="cpu"):
+                 deferred_solve: bool = False, device=None):
         """sidemaps: optional per-camera (sensitivity_map, boundary_map,
         stride) triples — e.g. the reference's precomputed text matrices
         via geometry.sidemaps.load_or_compute_sidemaps (ref
@@ -151,14 +152,15 @@ class Associator3D:
         results are bit-equal, only delayed one frame (call collect()
         after the last frame for the final one).
 
-        device: where the per-frame device program runs.  `cameras` stay
-        on the host (the host-side projections read them); their stacked
-        copy lives on `device`."""
+        device: where the per-frame device program runs (default: the
+        CUDA card; None raises without one).  `cameras` stay on the host
+        (the host-side projections read them); their stacked copy lives
+        on `device`."""
         self.cfg = cfg
         self.acfg = cfg.assoc3d
         self.num_cams = len(cameras)
         self.cameras = list(cameras)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.cams = stack_cameras(cameras, self.device)
 
         w, h = cfg.image_width, cfg.image_height

@@ -26,6 +26,7 @@ from mcmtt_opticalflow_tpu_torch.models.associator3d import (Associator3D,
                                                              Track3DResult)
 from mcmtt_opticalflow_tpu_torch.models.tracker2d import (
     init_tracker2d_state, tracker2d_step)
+from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
 
 
@@ -42,12 +43,6 @@ def _pack2d(out2d):
                       out2d.mask.float()[..., None], out2d.boxes], -1)
 
 
-def default_device() -> torch.device:
-    """Where an engine runs unless told otherwise: the first CUDA card when
-    there is one, else the CPU (as JAX takes its default backend)."""
-    return torch.device("cuda" if torch.cuda.is_available() else "cpu")
-
-
 class TrackingEngine:
     def __init__(self, cfg: EngineConfig, cameras: Sequence[TsaiCamera],
                  pipelined: bool = False, sidemaps=None, device=None):
@@ -61,14 +56,13 @@ class TrackingEngine:
         mode, only delayed.
 
         cameras: host (CPU) TsaiCameras; the engine keeps a stacked copy
-        on `device` (default: the first CUDA card when there is one, else
-        the CPU).
+        on `device` (default: the CUDA card; without one, None raises and
+        the CPU must be asked for with device="cpu").
 
         sidemaps: optional per-camera (sensitivity, boundary, stride)
         triples (see Associator3D)."""
         assert len(cameras) == cfg.num_cameras
-        self.device = default_device() if device is None else \
-            torch.device(device)
+        self.device = resolve_device(device)
         self.cfg = cfg
         self.cameras = list(cameras)
         self.cams = stack_cameras(cameras, self.device)

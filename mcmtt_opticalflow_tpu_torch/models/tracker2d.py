@@ -31,6 +31,7 @@ from mcmtt_opticalflow_tpu_torch.ops.features import detect_grid_features
 from mcmtt_opticalflow_tpu_torch.ops.hungarian import solve_assignment
 from mcmtt_opticalflow_tpu_torch.ops.lk import lk_track_prebuilt
 from mcmtt_opticalflow_tpu_torch.ops.pyramid import build_pyramid
+from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
 
 
 class Tracker2DState(NamedTuple):
@@ -66,7 +67,11 @@ class Track2DOutput(NamedTuple):
 
 
 def init_tracker2d_state(cfg: Tracker2DConfig, height: int, width: int,
-                         num_cameras: int, device="cpu") -> Tracker2DState:
+                         num_cameras: int, device=None) -> Tracker2DState:
+    """Zeroed 2D tracker state on `device` (default: the CUDA card; None
+    raises without one)."""
+    device = resolve_device(device)
+
     def z(shape, dtype=torch.float32):
         return torch.zeros((num_cameras,) + shape, dtype=dtype, device=device)
 

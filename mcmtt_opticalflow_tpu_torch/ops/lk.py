@@ -104,6 +104,19 @@ def kernel_ok(h: int, w: int, n: int) -> bool:
     return h >= 40 and w >= 128 and h % 8 == 0 and n % 8 == 0
 
 
+_CAM_INDEX = {}
+
+
+def _cam_index(c: int, n: int, device) -> torch.Tensor:
+    """[C*N] int32 camera of each flattened slot, built once per
+    (C, N, device) and reused by every later call."""
+    key = (c, n, str(device))
+    if key not in _CAM_INDEX:
+        _CAM_INDEX[key] = torch.arange(
+            c, dtype=torch.int32, device=device).repeat_interleave(n)
+    return _CAM_INDEX[key]
+
+
 def lk_level_cams(prev, nxt, src, cur, act, window: int, iterations: int):
     """One level over all cameras. prev, nxt: [C, H, W]; src, cur:
     [C, N, 2]; act: [C, N] bool.  Returns ([C, N, 2], [C, N], [C, N])."""
@@ -114,11 +127,10 @@ def lk_level_cams(prev, nxt, src, cur, act, window: int, iterations: int):
         # edge-pad the level images (lk.py:142-150)
         prev_p = edge_pad_to(prev, 8, 128)
         nxt_p = edge_pad_to(nxt, 8, 128)
-        cam = torch.arange(c, dtype=torch.int32,
-                           device=prev.device).repeat_interleave(n)
         tracked, valid, resid = lk_level(
-            prev_p, nxt_p, cam, src.reshape(c * n, 2), cur.reshape(c * n, 2),
-            act.reshape(c * n), window=window, iters=iterations)
+            prev_p, nxt_p, _cam_index(c, n, prev.device),
+            src.reshape(c * n, 2), cur.reshape(c * n, 2), act.reshape(c * n),
+            window=window, iters=iterations)
         return (tracked.reshape(c, n, 2), valid.reshape(c, n),
                 resid.reshape(c, n))
     outs = []

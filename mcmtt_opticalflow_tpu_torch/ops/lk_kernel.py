@@ -99,6 +99,10 @@ def build() -> ctypes.CDLL:
             [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
     lib.lk_level_max_window.restype = ctypes.c_int
     lib.lk_level_max_window.argtypes = []
+    lib.lk_noop_launch.restype = ctypes.c_int
+    lib.lk_noop_launch.argtypes = [ctypes.c_void_p]
+    lib.lk_level_stage_margin.restype = ctypes.c_int
+    lib.lk_level_stage_margin.argtypes = []
     if lib.lk_level_max_window() != MAX_WINDOW:
         raise RuntimeError("lk_level.cu and lk_kernel.py disagree on the "
                            "largest window")
@@ -190,10 +194,12 @@ def _corners(points, guess, ph: int, pw: int, h: int, wid: int):
 def _newton(ext, w: int, warp, dy, dx, go, iters: int):
     """Template, gradients and structure tensor from the (w+2)^2 window
     `ext` [N, w+2, w+2], then up to `iters` Newton steps from (dy, dx);
-    `warp(dy, dx)` -> (window [N, w, w], dy_c, dx_c) samples the next
-    image at the clamped estimate.  A feature freezes after the step
-    whose |ux|+|uy| <= 0.03 (the serial kernel's while_loop exit).
-    Returns (dy, dx, ok_g, resid, dy_c, dx_c)."""
+    `warp(dy, dx, reads)` -> (window [N, w, w], dy_c, dx_c) samples the
+    next image at the clamped estimate, where `reads` [N] marks the
+    features whose window the kernel reads at that point (the ones not
+    yet frozen, then every active one for the residual).  A feature
+    freezes after the step whose |ux|+|uy| <= 0.03 (the serial kernel's
+    while_loop exit).  Returns (dy, dx, ok_g, resid, dy_c, dx_c)."""
     t = ext[:, 1:w + 1, 1:w + 1]
     gx = 0.5 * (ext[:, 1:w + 1, 2:w + 2] - ext[:, 1:w + 1, 0:w])
     gy = 0.5 * (ext[:, 2:w + 2, 1:w + 1] - ext[:, 0:w, 1:w + 1])
@@ -203,8 +209,9 @@ def _newton(ext, w: int, warp, dy, dx, go, iters: int):
     det = gxx * gyy - gxy * gxy
     ok_g = det > 1e-7
     inv_det = torch.where(ok_g, 1.0 / torch.where(ok_g, det, 1.0), 0.0)
+    active = go
     for _ in range(iters):
-        warped, dy_c, dx_c = warp(dy, dx)
+        warped, dy_c, dx_c = warp(dy, dx, go)
         diff = warped - t
         bx = (diff * gx).sum((1, 2))
         by = (diff * gy).sum((1, 2))
@@ -213,14 +220,14 @@ def _newton(ext, w: int, warp, dy, dx, go, iters: int):
         dy = torch.where(go, dy_c + uy, dy)
         dx = torch.where(go, dx_c + ux, dx)
         go = go & ((torch.abs(ux) + torch.abs(uy)) > 0.03)
-    warped, dy_c, dx_c = warp(dy, dx)
+    warped, dy_c, dx_c = warp(dy, dx, active)
     resid = torch.abs(warped - t).sum((1, 2)) * (1.0 / (w * w))
     return dy, dx, ok_g, resid, dy_c, dx_c
 
 
 def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
                        window: int = 16, iters: int = 10,
-                       variant: str = "batched"):
+                       variant: str = "batched", reads=None):
     """Plain PyTorch version of the LK level kernels.
 
     Args:
@@ -230,6 +237,12 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
       guess:   [N, 2] (x, y) initial target positions.
       active:  [N] bool.
       variant: "batched" or "serial" (see the module docstring).
+      reads:   None, or a list that receives one ("prev" | "next", mask
+               [N], flat origin [N], side) per image window the kernel
+               reads: the (w+3)^2 region of prev under each active
+               template, and the (w+1)^2 region of next under each
+               Newton step and residual window, for the features whose
+               mask is set (`lk_level_work` counts them).
 
     Returns (tracked [N, 2] f32, valid [N] bool, resid [N] f32).
     """
@@ -251,6 +264,11 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
     fp = prev.reshape(-1).float()
     fn = next_img.reshape(-1).float()
 
+    def note(kind, mask, base, iy, ix, side):
+        if reads is not None:
+            reads.append((kind, mask,
+                          base + iy.long() * wid + ix.long(), side))
+
     src_ok = (sy >= lo) & (sy <= hi_y) & (sx >= lo) & (sx <= hi_x)
     sy_c = torch.clamp(sy, lo, hi_y)
     sx_c = torch.clamp(sx, lo, hi_x)
@@ -258,8 +276,10 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
     # overwritten below
     one = torch.ones_like(sy_c)
     if variant == "batched":
-        ext = _sample(fp, base_p, torch.where(active, sy_c - 1.0, one),
-                      torch.where(active, sx_c - 1.0, one), w + 2, wid)
+        ty = torch.where(active, sy_c - 1.0, one)
+        tx = torch.where(active, sx_c - 1.0, one)
+        ext = _sample(fp, base_p, ty, tx, w + 2, wid)
+        note("prev", active, base_p, torch.floor(ty), torch.floor(tx), w + 3)
         base_n = plane + y0n.long() * wid + x0n.long()
         lo_y, lo_x = lo, lo
         hi_yd, hi_xd = hi_y, hi_x
@@ -273,6 +293,7 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
         isy, isx = torch.floor(sy_c), torch.floor(sx_c)
         ext = _sample4(fp, base_p, isy - 1, isx - 1, sy_c - isy, sx_c - isx,
                        w + 2, wid)
+        note("prev", active, base_p, isy - 1, isx - 1, w + 3)
         # working subpatch: its top-left pixel sits (subm_y, subm_x) up
         # and left of the clamped guess's floor; the estimate lives in
         # subpatch coordinates, clamped to the subpatch intersected with
@@ -289,17 +310,19 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
         hi_yd = torch.clamp(hi_y - off_y, max=float(subh - w - 2))
         hi_xd = torch.clamp(hi_x - off_x, max=float(subw - w - 2))
 
-    def warp(dy, dx):
+    def warp(dy, dx, mask):
         dy_c = torch.clamp(dy, lo_y, hi_yd)
         dx_c = torch.clamp(dx, lo_x, hi_xd)
         if variant == "batched":
-            win = _sample(fn, base_n, torch.where(active, dy_c, one),
-                          torch.where(active, dx_c, one), w, wid)
+            oy = torch.where(active, dy_c, one)
+            ox = torch.where(active, dx_c, one)
+            win = _sample(fn, base_n, oy, ox, w, wid)
         else:
             oy = torch.where(active, dy_c, lo_y)
             ox = torch.where(active, dx_c, lo_x)
             iy, ix = torch.floor(oy), torch.floor(ox)
             win = _sample4(fn, base_n, iy, ix, oy - iy, ox - ix, w, wid)
+        note("next", mask, base_n, torch.floor(oy), torch.floor(ox), w + 1)
         return win, dy_c, dx_c
 
     dy, dx, ok_g, resid, dy_c, dx_c = _newton(
@@ -311,6 +334,77 @@ def lk_level_reference(prev, next_img, cam_idx, points, guess, active,
         [torch.where(active, dx_c + off_x + half, zero) + x0n.float(),
          torch.where(active, dy_c + off_y + half, zero) + y0n.float()], -1)
     return tracked, valid, torch.where(active, resid, zero)
+
+
+# Bytes one slot moves through the kernel: cam (int32), points and guess
+# (2 x float32 each), active (bool) in; tracked (2 x float32), valid
+# (bool), resid (float32) out.
+SLOT_BYTES = 4 + 8 + 8 + 1 + 8 + 1 + 4
+
+
+def lk_level_work(prev, next_img, cam_idx, points, guess, active,
+                  window: int = 16, iters: int = 10,
+                  variant: str = "batched") -> dict:
+    """The bytes and float32 operations one LK level call needs on these
+    inputs, for its bound on a device (plain PyTorch, on the inputs'
+    device).
+
+    - bytes: SLOT_BYTES per slot, plus 4 per image pixel in the union of
+      the windows the active features read: the (w+3)^2 region of prev
+      under each template, and the (w+1)^2 region of next under each
+      Newton step a feature takes and under its residual window.  Two
+      features reading one pixel count it once.
+    - flops: per active feature, the (w+2)^2 template taps and w^2 x 10
+      for its gradients and structure tensor; per Newton step it takes
+      before it freezes (counted by running the plain version), w^2 x
+      (tap + 5); for its residual, w^2 x (tap + 2).  A tap is 9 operations
+      (batched: rows then columns) or 11 (serial: four terms).  The few
+      scalar operations per step (the 2x2 solve) are not counted.
+
+    Returns {"bytes", "flops", "image_bytes", "steps"} as Python ints.
+    """
+    reads = []
+    lk_level_reference(prev, next_img, cam_idx, points, guess, active,
+                       window, iters, variant, reads)
+    touched = {k: torch.zeros(prev.numel(), dtype=torch.bool,
+                              device=prev.device) for k in ("prev", "next")}
+    zero = torch.zeros((), dtype=torch.long, device=prev.device)
+    for kind, mask, origin, side in reads:
+        o = origin[mask]
+        idx = _window_idx(o, zero.expand_as(o), zero.expand_as(o), side,
+                          prev.shape[2])
+        touched[kind][idx.reshape(-1)] = True
+    image_bytes = 4 * int(touched["prev"].sum() + touched["next"].sum())
+    # the Newton steps taken: every read of next but the residual's
+    steps = sum(int(m.sum()) for k, m, _, _ in reads if k == "next") \
+        - int(active.bool().sum())
+    w2, n_act = window * window, int(active.bool().sum())
+    tap = 9 if variant == "batched" else 11
+    flops = (n_act * ((window + 2) ** 2 * tap + w2 * 10)
+             + steps * w2 * (tap + 5) + n_act * w2 * (tap + 2))
+    return {"bytes": SLOT_BYTES * points.shape[0] + image_bytes,
+            "flops": flops, "image_bytes": image_bytes, "steps": steps}
+
+
+def _launch(variant, prev, next_img, cam_idx, points, guess, active,
+            tracked, valid, resid, window: int, iters: int, ph: int,
+            pw: int) -> None:
+    """Launch the variant's kernel on prepared tensors (contiguous, of the
+    kernel's types, outputs allocated) on the current stream: no checks,
+    no count.  lk_level's launch path, and a timing loop's."""
+    _, h, wid = prev.shape
+    lib = build()
+    launch = (lib.lk_level_launch if variant == "batched"
+              else lib.lk_level_serial_launch)
+    err = launch(
+        prev.data_ptr(), next_img.data_ptr(), cam_idx.data_ptr(),
+        points.data_ptr(), guess.data_ptr(), active.data_ptr(),
+        tracked.data_ptr(), valid.data_ptr(), resid.data_ptr(),
+        h, wid, points.shape[0], window, iters, ph, pw,
+        torch.cuda.current_stream(prev.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"lk_level ({variant}) kernel launch failed: "
+                           f"CUDA error {err}")
 
 
 def lk_level(prev, next_img, cam_idx, points, guess, active,
@@ -326,37 +420,26 @@ def lk_level(prev, next_img, cam_idx, points, guess, active,
         raise ValueError(f"lk_level: no kernel for device {prev.device}")
     ph, pw = _check(prev, next_img, cam_idx, points, guess, active, window,
                     variant)
-    c, h, wid = prev.shape
     n = points.shape[0]
     args = [prev, next_img, cam_idx, points, guess, active]
     if any(a.device != prev.device for a in args):
         raise ValueError("lk_level: all inputs must be on one device")
-    prev = prev.contiguous().float()
-    next_img = next_img.contiguous().float()
-    cam_idx = cam_idx.contiguous().to(torch.int32)
-    points = points.contiguous().float()
-    guess = guess.contiguous().float()
-    active = active.contiguous().to(torch.uint8)
+    # no-ops for inputs already of the kernel's types (the tracker's);
+    # bool and uint8 are both one byte 0/1, so `active` goes in and
+    # `valid` comes out as bool
     tracked = torch.empty((n, 2), dtype=torch.float32, device=prev.device)
-    valid = torch.empty((n,), dtype=torch.uint8, device=prev.device)
+    valid = torch.empty((n,), dtype=torch.bool, device=prev.device)
     resid = torch.empty((n,), dtype=torch.float32, device=prev.device)
-    lib = build()
-    launch = (lib.lk_level_launch if variant == "batched"
-              else lib.lk_level_serial_launch)
-    err = launch(
-        prev.data_ptr(), next_img.data_ptr(), cam_idx.data_ptr(),
-        points.data_ptr(), guess.data_ptr(), active.data_ptr(),
-        tracked.data_ptr(), valid.data_ptr(), resid.data_ptr(),
-        h, wid, n, window, iters, ph, pw,
-        torch.cuda.current_stream(prev.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"lk_level ({variant}) kernel launch failed: "
-                           f"CUDA error {err}")
+    _launch(variant, prev.contiguous().float(),
+            next_img.contiguous().float(),
+            cam_idx.contiguous().to(torch.int32), points.contiguous().float(),
+            guess.contiguous().float(), active.contiguous().bool(),
+            tracked, valid, resid, window, iters, ph, pw)
     if variant == "batched":
         lk_level.launches += 1
     else:
         lk_level.serial_launches += 1
-    return tracked, valid.bool(), resid
+    return tracked, valid, resid
 
 
 lk_level.launches = 0

@@ -1,7 +1,8 @@
 """The port's CLI, `python -m mcmtt_opticalflow_tpu_torch.main`, run as a
-user runs it, on the CPU: the synthetic demo, a reference-layout dataset
-at the default EngineConfig, and the usage error.  Each run must import
-no jax (checked from `python -X importtime`)."""
+user runs it on the CPU (`--device cpu`): the synthetic demo, a
+reference-layout dataset at the default EngineConfig, and the usage
+error.  Each run must import no jax (checked from `python -X
+importtime`)."""
 
 import math
 import os
@@ -47,7 +48,8 @@ def _assert_ran_without_jax(proc):
 
 
 def test_cli_synthetic_on_cpu_without_jax():
-    proc = _run_cli(["--synthetic", "--cameras", "2", "--frames", "4"])
+    proc = _run_cli(["--synthetic", "--cameras", "2", "--frames", "4",
+                     "--device", "cpu"])
     _assert_ran_without_jax(proc)
     assert "== K=10 repeat=0" in proc.stdout
     assert proc.stdout.count("window=") == 3
@@ -83,7 +85,7 @@ def test_cli_dataset_on_cpu_without_jax(tmp_path):
         f.write(f"DATASET_PATH={root}\nCAM_IDS=1,5\nSTART_FRAME_IDX=0\n"
                 f"END_FRAME_IDX={n - 1}\nSIZE_OF_KS=10\nNUM_EXPERIMENTS=1\n"
                 "CROP_ZONE=-10000,-10000,10000,10000\n")
-    proc = _run_cli([params])
+    proc = _run_cli([params, "--device", "cpu"])
     _assert_ran_without_jax(proc)
     assert "feeding flat gray" not in proc.stderr
     assert "== K=10 repeat=0" in proc.stdout
@@ -91,6 +93,6 @@ def test_cli_dataset_on_cpu_without_jax(tmp_path):
 
 
 def test_cli_missing_parameter_file_is_a_usage_error(tmp_path):
-    proc = _run_cli([str(tmp_path / "nope.txt")])
+    proc = _run_cli([str(tmp_path / "nope.txt"), "--device", "cpu"])
     assert proc.returncode == 2
     assert "parameter file not found" in proc.stderr

@@ -14,8 +14,9 @@ from mcmtt_opticalflow_tpu.ops.lk_pallas import lk_level_pallas
 from mcmtt_opticalflow_tpu.ops.pyramid import image_gradients as jax_grads
 from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
 from mcmtt_opticalflow_tpu_torch.ops.lk import lk_track_points
-from mcmtt_opticalflow_tpu_torch.ops.lk_kernel import (lk_level,
-                                                       lk_level_reference)
+from mcmtt_opticalflow_tpu_torch.ops.lk_kernel import (SLOT_BYTES, lk_level,
+                                                       lk_level_reference,
+                                                       lk_level_work)
 from mcmtt_opticalflow_tpu_torch.ops.pyramid import image_gradients
 from test_lk_pallas import _scene
 from torch_parity import cuda_device  # noqa: F401  (fixture)
@@ -142,6 +143,70 @@ def test_window_larger_than_kernel_rejected():
     with pytest.raises(ValueError):
         lk_level(z, z, torch.zeros(8, dtype=torch.int32), p, p,
                  torch.ones(8, dtype=torch.bool), window=32)
+
+
+# One feature at (100.3, 20.4) of a [1, 64, 256] level, w=8: both patch
+# corners are (0, 0), its template reads the 11x11 region of prev at row
+# 15, column 95, and its first Newton window the 9x9 region of next at
+# row 16, column 97 (the guess (100.9, 20.0) less half the window).
+_PT, _GUESS, _W = (100.3, 20.4), (100.9, 20.0), 8
+_TAP = {"batched": 9, "serial": 11}
+
+
+def _work_inputs(img_prev, img_next, active, dup=False, first=_GUESS):
+    n = len(active)
+    pts = np.tile(np.float32([[5.0, 5.0]]), (n, 1))
+    guess = pts.copy()
+    pts[0], guess[0] = _PT, first
+    if dup:
+        pts[1], guess[1] = _PT, first
+    return [torch.tensor(a) for a in (img_prev[None], img_next[None],
+                                      np.zeros(n, np.int32), pts, guess,
+                                      np.asarray(active, bool))]
+
+
+def _flops(variant, steps, features=1):
+    w2, tap = _W * _W, _TAP[variant]
+    return (features * ((_W + 2) ** 2 * tap + w2 * 10 + w2 * (tap + 2))
+            + steps * w2 * (tap + 5))
+
+
+@pytest.mark.parametrize("variant", ["batched", "serial"])
+@pytest.mark.parametrize("dup", [False, True])
+def test_work_counts_a_feature_that_freezes_at_step_one(variant, dup):
+    """A flat image has no gradient, so the feature's step is 0 and it
+    freezes after step 1 of 5: one template region, one next window (the
+    residual reads the same one).  Inactive slots add their slot bytes
+    only; a second feature with the same windows adds no image bytes."""
+    flat = np.full((64, 256), 0.5, np.float32)
+    active = [True, dup, False, False]
+    got = lk_level_work(*_work_inputs(flat, flat, active, dup), window=_W,
+                        iters=5, variant=variant)
+    features = 2 if dup else 1
+    assert got["steps"] == features
+    assert got["image_bytes"] == 4 * (11 * 11 + 9 * 9)
+    assert got["bytes"] == 4 * SLOT_BYTES + 4 * (11 * 11 + 9 * 9)
+    assert SLOT_BYTES == 34
+    assert got["flops"] == _flops(variant, features, features)
+
+
+def test_work_counts_one_forced_step():
+    """iters=1 on a textured scene, guess (101.5, 19.5): one Newton step
+    from the 9x9 window at row 16, column 98, then the residual window
+    where the step ended; the two windows count their overlap once."""
+    prev, nxt = _scene(np.random.RandomState(1), shift=(2.3, -1.6))
+    args = _work_inputs(prev, nxt, [True, False, False], first=(101.5, 19.5))
+    got = lk_level_work(*args, window=_W, iters=1)
+    tracked = lk_level_reference(*args, window=_W, iters=1)[0][0].tolist()
+    half = (_W - 1) / 2
+    ey, ex = int(np.floor(tracked[1] - half)), int(np.floor(tracked[0] - half))
+    dy, dx = abs(ey - 16), abs(ex - 98)
+    assert (dy, dx) != (0, 0)             # the step moved the window
+    union = 2 * 81 - max(0, 9 - dy) * max(0, 9 - dx)
+    assert got["steps"] == 1
+    assert got["image_bytes"] == 4 * (11 * 11 + union)
+    assert got["bytes"] == 3 * SLOT_BYTES + got["image_bytes"]
+    assert got["flops"] == _flops("batched", 1)
 
 
 @pytest.mark.cuda

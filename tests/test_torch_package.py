@@ -81,14 +81,30 @@ def _body_without_imports(path):
 
 # Carried modules whose body must differ from the JAX package's, and the
 # only lines that may differ (JAX-only lines, port-only lines); everything
-# else is compared as for the other carried modules.  main.py reports the
-# device its engines take; snapshot.py moves the 2D state through
+# else is compared as for the other carried modules.  main.py takes
+# --device (the card unless asked for the CPU), gives it to its engines
+# and reports it; snapshot.py moves the 2D state through
 # convert.py and saves the solver generator's state in place of the JAX
 # PRNG key.
 _MUST_DIFFER = {
     "main.py": (
-        [],
-        ['    print(f"device: {default_device()}", file=sys.stderr)']),
+        ["        return TrackingEngine(cfg, sc.cameras)",
+         "        return TrackingEngine(cfg, cams, pipelined=True, "
+         "sidemaps=sidemaps)"],
+        ["        return TrackingEngine(cfg, sc.cameras, device=args.device)",
+         "        return TrackingEngine(cfg, cams, pipelined=True, "
+         "sidemaps=sidemaps,",
+         "                              device=args.device)",
+         '    ap.add_argument("--device", choices=("cuda", "cpu"), '
+         'default="cuda",',
+         '                    help="run on the CUDA card (default) or the '
+         'CPU")',
+         '    if args.device == "cuda":',
+         "        try:",
+         "            args.device = default_device()",
+         "        except RuntimeError as e:",
+         '            raise SystemExit(f"error: {e}")',
+         '    print(f"device: {args.device}", file=sys.stderr)']),
     "checkpoint/snapshot.py": (
         ["", "", "def _to_numpy(tree):",
          "    return jax.tree.map(lambda x: np.asarray(x), tree)",

@@ -53,7 +53,8 @@ def runs():
             jouts.append(out)
             jstates.append(jstate)
 
-    tstate = init_tracker2d_state(CFG, 192, 256, num_cameras=1)
+    tstate = init_tracker2d_state(CFG, 192, 256, num_cameras=1,
+                                  device="cpu")
     touts = []
     for t, (gray, det, mask) in enumerate(inputs):
         tstate, out = tracker2d_step(tstate, torch.tensor(gray),
