@@ -67,7 +67,7 @@ WARMUP = 7
 MEASURED = 30
 CAPTURE_FRAME = WARMUP + 10
 REPS = 100
-HBM_BYTES_PER_S = 3.35e12   # H100 SXM peaks (on-chip-measurement guide)
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak HBM3 rate and FP32 rate
 FP32_FLOPS_PER_S = 67e12
 WINDOWS = (0, 3, 6)
 CLI_FRAMES = 12
