@@ -42,20 +42,41 @@ Phases (each prints its own lines; any failure exits non-zero):
      shapes of phase 2 (the 766-column call included), plus one call
      with guesses 10-20 px off so the working-subpatch clamp binds; same
      limits as phase 2; counts its own launches;
-  6. the dataset CLI: the bench scene (12 frames) written in the
+  6. api: every public device function of the slice that ports the rest
+     of the JAX package (camera_position, back_projection_line, the
+     N-view reconstructions, gaussian_blur_3x3, sg_smooth,
+     rgb_histogram, rgb_cost, the enter / exit / connectivity costs,
+     solve_mwcp_batch with collect_k_best) on the card and on the CPU on
+     the same seeded inputs, at the CPU parity tests' tolerances; the
+     device RGB histogram of a bench frame with 48 boxes equals
+     host_rgb_histogram exactly;
+  7. lk_track_pyramid: one 768x576 pair, 3 levels, N=1024, w=16, 10
+     iterations: 3 batched-kernel launches, held against the CPU call at
+     the limits of phase 2;
+  8. mesh: the bench configuration for MESH_FRAMES frames without a mesh
+     and on make_mesh(devices=[cuda:0] * 4) (4 camera groups): equal
+     ids, points within 1 mm, LK launches counted; solve_mwcp_sharded at
+     V=1024, R=38, 150 iterations over 2 blocks equals its per-block
+     solves plus the global argmax;
+  9. profile: utils/timing.py::profile_trace (torch.profiler) around
+     PROFILE_FRAMES steady bench frames: device busy share, device ms
+     per frame, top 5 kernels, and lk_level_kernel events (8 per frame);
+  10. the dataset CLI: the bench scene (12 frames) written in the
      reference's layout (Tsai XML, detection files, .ppm frames, ground
      truth, parameters.txt), run through `main.py <parameters.txt>` in
      process at the default EngineConfig (3 pyramid levels: 12 LK kernel
      launches per frame, none on the CPU, no flat-gray frame), MOTA at
      w0/w3/w6 from the printed table's results.
 
-The whole script takes about 2 minutes on the card.  The line before the
+The whole script takes about 3 minutes on the card.  The line before the
 last is a JSON summary of the kernels, on the inputs of phase 3b: per
 bench frame (8 launches) `ms` (device-only), `plain_ms`, `bound_ms`;
 per launch `device_us_per_launch`, `bound_us`; `host_us_per_call`; what
 binds (`bound_by`); `library_ms` null (no single PyTorch call computes
 an LK level); `call_ms_synthetic`, phase 2's per-frame time with the
-wrapper's host work.  The last line is {"ok": true, "device": {...}}.
+wrapper's host work; `launches_by_path`, the launches of each path that
+runs the kernel, each counted from 0 (`launches` is the main path's).
+The last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -71,6 +92,8 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM peak HBM3 rate and FP32 rate
 FP32_FLOPS_PER_S = 67e12
 WINDOWS = (0, 3, 6)
 CLI_FRAMES = 12
+MESH_FRAMES = 12
+PROFILE_FRAMES = 4
 CLI_CAM_IDS = (1, 5, 6, 8)
 
 
@@ -417,14 +440,14 @@ def phase_main_path(cfg, sc, frames, card):
     orig_pts = counting(lk, "lk_track_points")
     # host time of the 2D stage's assignment (numpy JV), per frame
     jv_s = []
-    orig_jv = tracker2d.solve_assignment
+    orig_jv = tracker2d.solve_assignment_batch
 
     def timed_jv(*a):
         t0 = time.perf_counter()
         out = orig_jv(*a)
         jv_s.append(time.perf_counter() - t0)
         return out
-    tracker2d.solve_assignment = timed_jv
+    tracker2d.solve_assignment_batch = timed_jv
     capture = LkCapture(CAPTURE_FRAME)
     capture.install()
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
@@ -448,7 +471,7 @@ def phase_main_path(cfg, sc, frames, card):
     finally:
         lk_kernel.lk_level_reference = orig_ref
         lk.lk_track_points = orig_pts
-        tracker2d.solve_assignment = orig_jv
+        tracker2d.solve_assignment_batch = orig_jv
         capture.remove()
     launches = lk_kernel.lk_level.launches
     log(f"main path: {total} frames, lk_level launches={launches} "
@@ -483,7 +506,7 @@ def phase_main_path(cfg, sc, frames, card):
         f"frames on {card}")
     log(f"main path: per-frame s {[round(x, 4) for x in per_frame]}")
     log(f"main path: stage medians ms {json.dumps(stage_ms)}")
-    log(f"main path: host solve_assignment median "
+    log(f"main path: host solve_assignment_batch median "
         f"{1e3 * float(np.median(jv_s[WARMUP:])):.3f} ms/frame "
         f"(max {1e3 * max(jv_s[WARMUP:]):.3f})")
     log(f"main path: tracks_peak={tracks_peak} "
@@ -650,6 +673,361 @@ def phase_cpu_reference():
     log(f"2D stage card == CPU over 8 frames ({n_obj} tracklet outputs)")
 
 
+def _hold(label, got, ref, rtol=0.0, atol=0.0, exact=False):
+    """One card result against the same call on the CPU; fails beyond the
+    stated tolerance.  Returns the largest |difference|."""
+    import numpy as np
+    import torch
+    g = got.detach().cpu() if isinstance(got, torch.Tensor) else got
+    g, r = np.asarray(g), np.asarray(ref)
+    if g.shape != r.shape:
+        fail(f"api {label}: shape {g.shape} on the card, {r.shape} on the "
+             f"CPU")
+    if exact or g.dtype == bool:
+        if not np.array_equal(g, r):
+            fail(f"api {label}: card and CPU differ (exact check)")
+        return 0.0
+    err = float(np.abs(g.astype(np.float64) - r).max()) if g.size else 0.0
+    if not np.allclose(g, r, rtol=rtol, atol=atol):
+        fail(f"api {label}: card and CPU differ by {err:.3e} (rtol "
+             f"{rtol}, atol {atol})")
+    return err
+
+
+def phase_api(cfg, sc, frames):
+    """Every public device function this slice adds, on the card and on
+    the CPU on the same seeded inputs, at the tolerances of the CPU parity
+    tests (tests/test_torch_api.py); the device RGB histogram of a bench
+    frame with 48 boxes must equal host_rgb_histogram exactly."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.geometry import (
+        back_projection_line, camera_position, nview_ground_reconstruction,
+        nview_point_reconstruction, stack_cameras, world_to_image)
+    from mcmtt_opticalflow_tpu_torch.models.costs import (
+        enter_probability, exit_cost, tracklet_connectivity)
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import (collect_k_best,
+                                                         solve_mwcp_batch)
+    from mcmtt_opticalflow_tpu_torch.ops import (gaussian_blur_3x3,
+                                                 rgb_histogram, sg_smooth)
+    from mcmtt_opticalflow_tpu_torch.ops.histogram import (
+        host_rgb_histogram, rgb_cost)
+    from mcmtt_opticalflow_tpu_torch.config import SolverConfig
+
+    rng = np.random.RandomState(0)
+    acfg = cfg.assoc3d
+    worst = {}
+
+    def both(label, fn, inputs, **tol):
+        """fn on the card and on the CPU; inputs are numpy arrays."""
+        outs = []
+        for dev in ("cuda", "cpu"):
+            args = [torch.tensor(x, device=dev) if isinstance(x, np.ndarray)
+                    else x for x in inputs]
+            out = fn(dev, *args)
+            outs.append(out if isinstance(out, tuple) else (out,))
+        for i, (g, r) in enumerate(zip(*outs)):
+            worst[f"{label}[{i}]"] = _hold(f"{label}[{i}]", g, r.cpu(),
+                                           **tol)
+
+    uv = rng.uniform(-20, 790, (4, 64, 2)).astype(np.float32)
+    both("camera_position",
+         lambda d: camera_position(stack_cameras(sc.cameras, d)), [],
+         rtol=1e-5)
+    both("back_projection_line",
+         lambda d, p: back_projection_line(
+             stack_cameras(sc.cameras, d).expand(1), p), [uv], rtol=1e-5)
+    # the associator's lines: each bench camera's back-projection (z=2000
+    # and z=0 ends) of a person's position, seen with 1 px of noise
+    ex = stack_cameras(sc.cameras).expand(1)
+    target = np.concatenate([rng.uniform(-4000, 4000, (1, 256, 2)),
+                             rng.uniform(0, 1800, (1, 256, 1))], -1)
+    seen = world_to_image(ex, torch.tensor(target, dtype=torch.float32))
+    seen = seen + torch.tensor(rng.normal(0, 1, (4, 256, 2)),
+                               dtype=torch.float32)
+    tops, bottoms = [x.transpose(0, 1).numpy()
+                     for x in back_projection_line(ex, seen)]
+    mask = rng.rand(256, 4) < 0.6
+    mask[:5] = np.arange(4)[None, :] < np.arange(5)[:, None]
+    both("nview_point_reconstruction.point",
+         lambda d, a, b, m: nview_point_reconstruction(a, b, m)[0],
+         [tops, bottoms, mask], atol=1e-2)
+    both("nview_point_reconstruction.dist",
+         lambda d, a, b, m: nview_point_reconstruction(a, b, m)[1:],
+         [tops, bottoms, mask], rtol=1e-4, atol=1e-4)
+    ground = bottoms * np.asarray([1, 1, 0], np.float32)
+    both("nview_ground_reconstruction",
+         lambda d, g, m: nview_ground_reconstruction(g, m),
+         [ground, mask], rtol=1e-4, atol=1e-2)
+    gray = (frames[0].mean(-1) / 255.0).astype(np.float32)
+    both("gaussian_blur_3x3", lambda d, x: gaussian_blur_3x3(x), [gray],
+         atol=1e-6)
+    for n in (5, 23):
+        both(f"sg_smooth[n={n}]", lambda d, x: sg_smooth(x),
+             [rng.rand(n, 3).astype(np.float32)], atol=1e-6)
+    rgb = frames[0][0]                               # [576, 768, 3] u8
+    boxes = np.concatenate([rng.uniform(-30, 740, (48, 1)),
+                            rng.uniform(-30, 540, (48, 1)),
+                            rng.uniform(8, 120, (48, 1)),
+                            rng.uniform(20, 260, (48, 1))],
+                           -1).astype(np.float32)
+    hist = rgb_histogram(torch.tensor(rgb, device="cuda"),
+                         torch.tensor(boxes, device="cuda"))
+    worst["rgb_histogram(u8)==host"] = _hold(
+        "rgb_histogram u8 vs host_rgb_histogram", hist,
+        host_rgb_histogram(rgb, boxes), exact=True)
+    both("rgb_histogram(float)", lambda d, x, b: rgb_histogram(x, b),
+         [rgb.astype(np.float32) / 255.0, boxes], exact=True)
+    f1 = rng.rand(64, 48).astype(np.float32) * 0.3
+    f2 = rng.rand(64, 48).astype(np.float32) * 0.3
+    gaps = (np.arange(64) % 5 + 1).astype(np.float32)
+    both("rgb_cost", lambda d, a, b, g: rgb_cost(a, b, g), [f1, f2, gaps],
+         rtol=1e-5, atol=1e-6)
+    dist = rng.uniform(-500, 6000, 256).astype(np.float32)
+    free = rng.rand(256) < 0.3
+    length = rng.randint(0, 40, 256).astype(np.float32)
+    both("enter_probability",
+         lambda d, x, f: enter_probability(x, f, acfg), [dist, free],
+         rtol=1e-5, atol=1e-6)
+    both("exit_cost", lambda d, x, n: exit_cost(x, n, acfg), [dist, length],
+         rtol=1e-5, atol=1e-6)
+    e = rng.uniform(-3000, 3000, (256, 3)).astype(np.float32)
+    s = rng.uniform(-3000, 3000, (256, 3)).astype(np.float32)
+    sens = rng.uniform(0, 400, (2, 256)).astype(np.float32)
+    both("tracklet_connectivity",
+         lambda d, a, b, s1, s2, g: tracklet_connectivity(a, b, s1, s2, g,
+                                                          acfg),
+         [e, s, sens[0], sens[1], rng.randint(1, 4, 256)], exact=True)
+
+    b, v, n = 3, 48, 40
+    scfg = SolverConfig(num_replicas=6, max_vertices=v,
+                        solutions_per_replica=8)
+    weights = np.zeros((b, v), np.float32)
+    weights[:, :n] = rng.rand(b, n) * 10
+    up = np.triu(rng.rand(b, v, v) < 0.45, 1)
+    valid = np.zeros((b, v), bool)
+    valid[:, :n] = True
+    adj = (up | up.transpose(0, 2, 1)) & valid[:, :, None] \
+        & valid[:, None, :]
+    init = np.zeros((b, v), bool)
+    res = {}
+    for dev in ("cuda", "cpu"):
+        res[dev] = solve_mwcp_batch(
+            *[torch.tensor(x, device=dev) for x in (weights, adj, valid,
+                                                    init)],
+            [CpuDrawnFields(40 + i) for i in range(b)], scfg, 90)
+    for f in res["cuda"]._fields:
+        exact = f in ("best_mask", "sol_masks")
+        worst[f"solve_mwcp_batch.{f}"] = _hold(
+            f"solve_mwcp_batch.{f}", getattr(res["cuda"], f),
+            getattr(res["cpu"], f), atol=1e-4, exact=exact)
+    for i in range(b):
+        kb = [collect_k_best(type(r)(*[x[i] for x in r]), 10)
+              for r in (res["cuda"], res["cpu"])]
+        if len(kb[0][0]) != len(kb[1][0]) or not all(
+                np.array_equal(x, y) for x, y in zip(kb[0][0], kb[1][0])) \
+                or not np.allclose(kb[0][1], kb[1][1], atol=1e-4):
+            fail(f"api collect_k_best: card and CPU lists differ "
+                 f"(instance {i})")
+    log(f"api: {len(worst)} checks, card == CPU within the tests' "
+        f"tolerances; largest |difference| per check "
+        f"{json.dumps({k: float(f'{x:.3e}') for k, x in worst.items()})}")
+
+
+def phase_lk_track_pyramid(frames):
+    """ops/lk.py::lk_track_pyramid on one 768x576 frame pair, 3 levels,
+    N=1024, w=16, 10 iterations: every level (576x768, 288x384, 144x192)
+    is the kernel's shape, so the call launches the batched kernel 3
+    times; held against the same call on the CPU (plain version)."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel, lk_track_pyramid
+
+    rng = np.random.RandomState(1)
+    n = 1024
+    g0 = (frames[WARMUP][0].mean(-1) / 255.0).astype(np.float32)
+    g1 = (frames[WARMUP + 1][0].mean(-1) / 255.0).astype(np.float32)
+    pts = np.stack([rng.uniform(16, 752, n), rng.uniform(16, 560, n)],
+                   -1).astype(np.float32)
+    kw = dict(levels=3, window=16, iterations=10)
+    outs = {}
+    for dev in ("cuda", "cpu"):
+        args = [torch.tensor(x, device=dev) for x in (g0, g1, pts)]
+        lk_kernel.lk_level.launches = 0
+        outs[dev] = lk_track_pyramid(*args, **kw)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = lk_kernel.lk_level.launches
+    args = [torch.tensor(x, device="cuda") for x in (g0, g1, pts)]
+    ms = time_ms(lambda: lk_track_pyramid(*args, **kw))
+    (tr_k, ok_k, res_k), (tr_r, ok_r, res_r) = (
+        [x.cpu() for x in outs["cuda"]], outs["cpu"])
+    agree = (ok_k == ok_r).float().mean().item()
+    both = ok_k & ok_r
+    d_tr = (tr_k - tr_r)[both].abs().max().item()
+    d_res = (res_k - res_r)[both].abs().max().item()
+    log(f"lk_track_pyramid: [576,768] 3 levels N={n}: lk_level launches="
+        f"{launches} (expected 3), valid={int(ok_k.sum())} valid-agree="
+        f"{agree:.6f} max|dtracked|={d_tr:.3e} px max|dresid|={d_res:.3e} "
+        f"vs the CPU; {ms:.4f} ms per call on the card")
+    if launches != 3:
+        fail(f"lk_track_pyramid launched the batched kernel {launches} "
+             f"times, expected 3")
+    if int(both.sum()) < n // 2 or agree < 0.999 or d_tr > 1e-3 \
+            or d_res > 1e-4:
+        fail("lk_track_pyramid on the card disagrees with the CPU")
+    return launches
+
+
+def _run_engine(eng, sc, frames, n):
+    """n frames through a pipelined engine and its flush: the results."""
+    out = []
+    for t in range(n):
+        r = eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+        if r is not None:
+            out.append(r)
+    while True:
+        r = eng.flush()
+        if r is None:
+            return out
+        out.append(r)
+
+
+def phase_mesh(cfg, sc, frames):
+    """The bench configuration for MESH_FRAMES frames without a mesh and
+    on make_mesh(devices=[cuda:0] * 4) (cam 4 x block 1: four camera
+    groups of one camera, one after another on the card): equal ids,
+    points within 1 mm.  Then solve_mwcp_sharded at V=1024, R=38, 150
+    iterations over 2 blocks on the card against the two per-block
+    solve_mwcp calls plus the global argmax."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.config import SolverConfig
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import solve_mwcp
+    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    from mcmtt_opticalflow_tpu_torch.parallel import (make_mesh,
+                                                      solve_mwcp_sharded)
+
+    card0 = torch.device("cuda", 0)
+    plain = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
+    plain.assoc.field_source = CpuDrawnFields(1)
+    t0 = time.perf_counter()
+    ra = _run_engine(plain, sc, frames, MESH_FRAMES)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    mesh = make_mesh(devices=[card0] * 4)
+    eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
+    eng.assoc.field_source = CpuDrawnFields(1)
+    lk_kernel.lk_level.launches = 0
+    t0 = time.perf_counter()
+    rb = _run_engine(eng, sc, frames, MESH_FRAMES)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = lk_kernel.lk_level.launches
+    if mesh.shape != {"cam": 4, "block": 1} or len(eng.state2d_groups) != 4:
+        fail(f"mesh: expected 4 camera groups, got {mesh.shape}")
+    if len(ra) != len(rb) or not ra:
+        fail(f"mesh: {len(ra)} results without the mesh, {len(rb)} with it")
+    d_pts, n_obj = 0.0, 0
+    for a, b in zip(ra, rb):
+        if a.frame_idx != b.frame_idx or a.ids != b.ids:
+            fail(f"mesh: ids differ at frame {a.frame_idx}: {a.ids} vs "
+                 f"{b.ids}")
+        if len(a.ids):
+            d_pts = max(d_pts, float(np.abs(np.asarray(a.points)
+                                            - np.asarray(b.points)).max()))
+        n_obj += len(a.ids)
+    log(f"mesh: {mesh} engine == engine without a mesh over {MESH_FRAMES} "
+        f"frames ({n_obj} tracked objects, max |d point| {d_pts:.3e} mm); "
+        f"lk_level launches={launches} (expected {32 * MESH_FRAMES}: 8 per "
+        f"camera group per frame); {wall:.2f} s against {wall_plain:.2f} s "
+        f"without the mesh")
+    if d_pts > 1.0:
+        fail(f"mesh: points differ by {d_pts} mm (limit 1.0)")
+    if launches <= 0:
+        fail("mesh: the mesh run launched no LK kernel")
+
+    rng = np.random.RandomState(2)
+    v, nv = 1024, 700
+    scfg = SolverConfig(num_replicas=8 + 30, max_vertices=v,
+                        solutions_per_replica=16)
+    weights = np.zeros(v, np.float32)
+    weights[:nv] = rng.rand(nv) * 10
+    up = np.triu(rng.rand(v, v) < 0.5, 1)
+    valid = np.arange(v) < nv
+    adj = (up | up.T) & valid[:, None] & valid[None, :]
+    ins = [torch.tensor(x, device=card0) for x in
+           (weights, adj, valid, np.zeros(v, bool))]
+    bmesh = make_mesh(num_cam_shards=1, devices=[card0] * 2)
+    t0 = time.perf_counter()
+    got = solve_mwcp_sharded(*ins, [CpuDrawnFields(10), CpuDrawnFields(11)],
+                             bmesh, scfg, iters=150)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    blocks = [solve_mwcp(*ins, CpuDrawnFields(s), scfg, 150)
+              for s in (10, 11)]
+    best = torch.stack([r.best_score.max() for r in blocks])
+    b = int(torch.argmax(best))
+    want_mask = blocks[b].best_mask[int(torch.argmax(blocks[b].best_score))]
+    same = (torch.equal(got[0], want_mask) and float(got[1]) == float(best[b])
+            and torch.equal(got[2], torch.cat([r.best_mask for r in blocks]))
+            and torch.equal(got[3], torch.cat([r.best_score
+                                               for r in blocks])))
+    log(f"mesh: solve_mwcp_sharded V={v} ({nv} valid) R={scfg.num_replicas} "
+        f"150 iterations over {bmesh}: best {float(got[1]):.4f} "
+        f"(blocks {[round(float(x), 4) for x in best]}), clique of "
+        f"{int(got[0].sum())}; equals the per-block solves + argmax: {same};"
+        f" {wall:.2f} s")
+    if not same:
+        fail("mesh: solve_mwcp_sharded differs from its per-block solves")
+    return launches
+
+
+def phase_profile(cfg, sc, frames):
+    """profile_trace around PROFILE_FRAMES steady frames of the bench main
+    path (a fresh pipelined engine, warmed up for WARMUP frames): the
+    device's busy share over the window, device ms per frame, the top 5
+    kernels, and the count of lk_level_kernel events, which must equal
+    the wrapper's count of launches in the window (8 per frame)."""
+    import tempfile
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    from mcmtt_opticalflow_tpu_torch.utils import profile_trace
+    from mcmtt_opticalflow_tpu_torch.utils.timing import summarize_trace
+
+    eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
+    for t in range(WARMUP):
+        eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as logdir:
+        lk_kernel.lk_level.launches = 0
+        t0 = time.perf_counter()
+        with profile_trace(logdir):
+            for t in range(WARMUP, WARMUP + PROFILE_FRAMES):
+                eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+        wall = time.perf_counter() - t0
+        launches = lk_kernel.lk_level.launches
+        s = summarize_trace(logdir)
+    n_lk = sum(c for k, c in s.kernel_counts.items()
+               if "lk_level_kernel" in k)
+    top = [(k[:60], round(ms, 4), c) for k, ms, c in s.top_kernels]
+    log(f"profile: {PROFILE_FRAMES} steady bench frames under "
+        f"torch.profiler ({wall:.2f} s): device busy share "
+        f"{s.busy_share:.4f} of the window, {s.device_ms / PROFILE_FRAMES:.3f}"
+        f" device ms per frame, {sum(s.kernel_counts.values())} kernel "
+        f"events, lk_level_kernel events={n_lk} (wrapper launches "
+        f"{launches}, expected {8 * PROFILE_FRAMES}); top 5 kernels "
+        f"(name, ms, count) {json.dumps(top)}")
+    if not s.kernel_counts or s.busy_share <= 0.0:
+        fail("profile: the trace holds no device activity")
+    if n_lk != 8 * PROFILE_FRAMES or launches != n_lk:
+        fail(f"profile: {n_lk} lk_level_kernel events in the trace, "
+             f"{launches} launches, expected {8 * PROFILE_FRAMES}")
+    return launches
+
+
 def write_dataset(root, sc, frames):
     """The scene in the reference's dataset layout under `root`, written
     by the port's writers; returns the parameters.txt path."""
@@ -803,6 +1181,7 @@ def phase_cli(card):
     log(f"cli: stage medians ms {json.dumps(stage_ms)}")
     log(f"cli: pool_dropped={engines[0].assoc.pool_dropped_total} "
         f"{json.dumps(mota)}")
+    return launches
 
 
 def main():
@@ -832,19 +1211,26 @@ def main():
     d_tr, _ = check_kernel(frames, cfg, "batched",
                            extra=[unaligned_call(frames, cfg)])
     call_ms, _ = time_kernel(frames, cfg, "batched")
+    paths = {}
     launches, calls = phase_main_path(cfg, sc, frames, card)
+    paths["main"] = launches
     real = phase_real_inputs(calls)
     phase_modes_agree(cfg, sc, frames)
     phase_cpu_reference()
     s_launches, s_tr, s_call_ms, _ = phase_serial(frames, cfg)
-    phase_cli(card)
+    phase_api(cfg, sc, frames)
+    paths["lk_track_pyramid"] = phase_lk_track_pyramid(frames)
+    paths["mesh"] = phase_mesh(cfg, sc, frames)
+    paths["profile"] = phase_profile(cfg, sc, frames)
+    paths["cli"] = phase_cli(card)
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu"
     kernels = []
-    for kname, variant, line, n, err, call in (
-            ("lk_level", "batched", 250, launches, d_tr, call_ms),
-            ("lk_level_serial", "serial", 35, s_launches, s_tr, s_call_ms)):
+    for kname, variant, line, n, err, call, by_path in (
+            ("lk_level", "batched", 250, launches, d_tr, call_ms, paths),
+            ("lk_level_serial", "serial", 35, s_launches, s_tr, s_call_ms,
+             {"serial": s_launches})):
         r = real[variant]
         kernels.append({
             "name": kname, "route": "cuda", "source": src,
@@ -855,7 +1241,8 @@ def main():
             "library_ms": None,
             "device_us_per_launch": r["device_us_per_launch"],
             "host_us_per_call": r["host_us_per_call"],
-            "bound_us": r["bound_us"], "call_ms_synthetic": call})
+            "bound_us": r["bound_us"], "call_ms_synthetic": call,
+            "launches_by_path": by_path})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -8,7 +8,8 @@ kernels (the batched and serial variants), which are hand-written CUDA
 carried over as copies (``config.py``, ``main.py``,
 ``geometry/tsai_np.py``, ``models/trees.py``, ``eval/clearmot.py``,
 ``eval/experiment.py``, ``data/images.py``, ``data/pets.py``,
-``utils/timing.py::StageTimer``).
+``utils/timing.py::StageTimer``, ``utils/{logging,colors,math,dumps}.py``,
+``viz/``).  The sub-packages export the names the JAX package's do.
 
 The package imports torch, numpy and scipy only, never jax.
 """
@@ -21,3 +22,11 @@ __version__ = "0.1.0"
 # (ops/sgsmooth.py) need full float32: TF32 keeps ~3 decimal digits.
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+from mcmtt_opticalflow_tpu_torch.config import (  # noqa: F401,E402
+    EngineConfig,
+    Tracker2DConfig,
+    Associator3DConfig,
+    SolverConfig,
+    EvalConfig,
+)

@@ -1,10 +1,15 @@
 """Batched 3D reconstruction primitives (port of
-mcmtt_opticalflow_tpu/geometry/triangulation.py; the two the main path
-uses).  Everything broadcasts over leading batch axes."""
+mcmtt_opticalflow_tpu/geometry/triangulation.py).  Everything broadcasts
+over leading batch axes."""
 
 from __future__ import annotations
 
 import torch
+
+
+def _norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Euclidean norm over the last axis, as jnp.linalg.norm computes it."""
+    return torch.sqrt(torch.sum(x * x, -1, keepdim=keepdim))
 
 
 def triangulate_two_lines(p1a, p1b, p2a, p2b):
@@ -32,6 +37,76 @@ def triangulate_two_lines(p1a, p1b, p2a, p2b):
     gap = torch.linalg.norm(c1 - c2, dim=-1)
     gap = torch.where(degenerate, torch.inf, gap)
     return mid, gap
+
+
+def nview_point_reconstruction(points_a, points_b, mask):
+    """Least-squares intersection of N back-projection lines (batched):
+    A x = b with A = sum_i P_i^T P_i, P_i = v_i v_i^T - I, over the masked
+    lines, then the mean point-to-line distance (ref
+    PSNWhere_Associator3D.cpp:930-982).
+
+    Args:
+      points_a: [..., N, 3] line first points (e.g. z=2000 ends).
+      points_b: [..., N, 3] line second points (e.g. ground ends).
+      mask:     [..., N] bool, which lines participate.
+
+    Returns (point [..., 3], mean_distance [...], num_lines [...]).  With
+    fewer than 2 valid lines the point is the first valid line's second
+    point and the distance 0 (the caller applies its fallback).
+    """
+    m = mask[..., None].to(points_a.dtype)
+    d = points_b - points_a
+    d = d / torch.clamp(_norm(d, keepdim=True), min=1e-12)
+    eye = torch.eye(3, dtype=points_a.dtype, device=points_a.device)
+    p = d[..., :, None] * d[..., None, :] - eye        # [..., N, 3, 3]
+    pp = (p @ p) * m[..., None]                         # P^T P (P symmetric)
+    a_mat = torch.sum(pp, dim=-3)                       # [..., 3, 3]
+    b_vec = torch.sum(pp @ (points_a * m)[..., None], dim=(-3, -1))
+    # regularise masked-out / degenerate batches with the identity
+    num = torch.sum(mask, dim=-1)
+    degenerate = (num < 2)[..., None, None]
+    a_mat = torch.where(degenerate, eye, a_mat)
+    # torch.linalg.solve without its error check (which raises on a
+    # singular system and syncs the card): like jnp.linalg.solve, a
+    # singular system (parallel lines) yields non-finite values
+    x = torch.linalg.solve_ex(a_mat, b_vec[..., None])[0][..., 0]
+
+    # fallback for < 2 lines: the first valid line's second point
+    first_idx = torch.argmax(mask.to(torch.uint8), dim=-1)
+    fallback = torch.take_along_dim(
+        points_b, first_idx[..., None, None].expand(
+            first_idx.shape + (1, 3)), dim=-2)[..., 0, :]
+    point = torch.where(degenerate[..., 0], fallback, x)
+
+    # mean distance from the point to each masked line (ref :965-979)
+    lam = torch.sum(d * (point[..., None, :] - points_a), -1)
+    foot = points_a + lam[..., None] * d
+    dist = _norm(foot - point[..., None, :])
+    mean_dist = torch.sum(dist * mask, -1) / torch.clamp(num, min=1)
+    mean_dist = torch.where(num < 2, 0.0, mean_dist)
+    return point, mean_dist, num
+
+
+def nview_ground_reconstruction(ground_points, mask):
+    """Mean of per-camera ground-plane points + mean scatter distance
+    (full-body PETS mode, ref PSNWhere_Associator3D.cpp:995-1046 with
+    CONSIDER_SENSITIVITY=false).
+
+    Args:
+      ground_points: [..., N, 3] per-camera ground points (z==0).
+      mask:          [..., N] bool.
+
+    Returns (point [..., 3], mean_distance [...], num_points [...]);
+    mean_distance is 0 below 2 points (ref :1030-1036 is the caller's).
+    """
+    m = mask[..., None].to(ground_points.dtype)
+    num = torch.sum(mask, dim=-1)
+    denom = torch.clamp(num, min=1)[..., None]
+    point = torch.sum(ground_points * m, dim=-2) / denom
+    dist = _norm(point[..., None, :] - ground_points)
+    mean_dist = torch.sum(dist * mask, dim=-1) / torch.clamp(num, min=1)
+    mean_dist = torch.where(num < 2, 0.0, mean_dist)
+    return point, mean_dist, num
 
 
 def segments_intersect(a1, a2, b1, b2):

@@ -80,6 +80,20 @@ def stack_cameras(cams: Sequence[TsaiCamera], device=None) -> TsaiCamera:
                         for f in TsaiCamera._fields])
 
 
+def camera_position(cam: TsaiCamera) -> torch.Tensor:
+    """World-space camera centre, -R^T t (ref cameraModel.cpp:56-58)."""
+    px = -(cam.tx * cam.r11 + cam.ty * cam.r21 + cam.tz * cam.r31)
+    py = -(cam.tx * cam.r12 + cam.ty * cam.r22 + cam.tz * cam.r32)
+    pz = -(cam.tx * cam.r13 + cam.ty * cam.r23 + cam.tz * cam.r33)
+    return torch.stack([px, py, pz], dim=-1)
+
+
+def _distorted_to_undistorted_sensor(cam: TsaiCamera, xd, yd):
+    """(ref cameraModel.cpp:535-543)"""
+    factor = 1.0 + cam.kappa1 * (xd * xd + yd * yd)
+    return xd * factor, yd * factor
+
+
 def _undistorted_to_distorted_sensor(cam: TsaiCamera, xu, yu):
     """Cardano cubic inverse of the radial distortion, the branch
     structure of ref cameraModel.cpp:579-663 written with torch.where."""
@@ -140,8 +154,7 @@ def image_to_world(cam: TsaiCamera, point2d: torch.Tensor, zw) -> torch.Tensor:
     zw = torch.as_tensor(zw, dtype=xi.dtype, device=xi.device)
     xd = cam.dpx * (xi - cam.cx) / cam.sx
     yd = cam.dpy * (yi - cam.cy)
-    factor = 1.0 + cam.kappa1 * (xd * xd + yd * yd)
-    xu, yu = xd * factor, yd * factor
+    xu, yu = _distorted_to_undistorted_sensor(cam, xd, yd)
 
     den = ((cam.r11 * cam.r32 - cam.r12 * cam.r31) * yu
            + (cam.r22 * cam.r31 - cam.r21 * cam.r32) * xu
@@ -159,6 +172,15 @@ def image_to_world(cam: TsaiCamera, point2d: torch.Tensor, zw) -> torch.Tensor:
            + (cam.r31 * cam.ty - cam.r21 * cam.tz) * xu
            - cam.focal * cam.r11 * cam.ty + cam.focal * cam.r21 * cam.tx) / den
     return torch.stack([xw, yw, torch.broadcast_to(zw, xw.shape)], dim=-1)
+
+
+def back_projection_line(cam: TsaiCamera, point2d: torch.Tensor,
+                         z_top: float = 2000.0):
+    """Back-projection line through a pixel as two world points at heights
+    z_top and 0 (ref PSNWhere_Associator3D.cpp:1058-1064)."""
+    top = image_to_world(cam, point2d, z_top)
+    bottom = image_to_world(cam, point2d, 0.0)
+    return top, bottom
 
 
 def check_visibility(cam: TsaiCamera, point3d: torch.Tensor) -> torch.Tensor:

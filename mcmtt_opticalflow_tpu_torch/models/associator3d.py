@@ -136,7 +136,7 @@ class Track3DResult:
 
 class Associator3D:
     def __init__(self, cfg: EngineConfig, cameras: Sequence[TsaiCamera],
-                 sidemaps: Optional[Sequence[Tuple]] = None,
+                 sidemaps: Optional[Sequence[Tuple]] = None, mesh=None,
                  deferred_solve: bool = False, device=None):
         """sidemaps: optional per-camera (sensitivity_map, boundary_map,
         stride) triples — e.g. the reference's precomputed text matrices
@@ -152,6 +152,12 @@ class Associator3D:
         results are bit-equal, only delayed one frame (call collect()
         after the last frame for the final one).
 
+        mesh: optional ('cam', 'block') Mesh (parallel/mesh.py).  The JAX
+        package places every input of the fused per-frame program
+        replicated over its mesh (its `_dev` is never asked to shard), so
+        here that program runs on the mesh's first device, the default
+        `device`.
+
         device: where the per-frame device program runs (default: the
         CUDA card; None raises without one).  `cameras` stay on the host
         (the host-side projections read them); their stacked copy lives
@@ -160,6 +166,9 @@ class Associator3D:
         self.acfg = cfg.assoc3d
         self.num_cams = len(cameras)
         self.cameras = list(cameras)
+        self.mesh = mesh
+        if mesh is not None and device is None:
+            device = mesh.devices.flat[0]
         self.device = resolve_device(device)
         self.cams = stack_cameras(cameras, self.device)
 

@@ -1,10 +1,11 @@
 """Device-batched track cost model (port of
-mcmtt_opticalflow_tpu/models/costs.py, the part the main path runs).
+mcmtt_opticalflow_tpu/models/costs.py).
 
 cost = enter + reconstruction + link + RGB + exit (ref GetCost,
 psn_where/PSNWhere_Associator3D.cpp:2567-2578); the window terms
 (reconstruction and link) are scored here for a batch of padded track
-windows.
+windows, and the enter / exit / connectivity terms are batched functions
+beside them.
 """
 
 from __future__ import annotations
@@ -56,6 +57,57 @@ def reconstruction_probability(point, raw_points, raw_mask, max_error,
     ratio = torch.prod(per_cam, dim=-1)
     p = torch.clamp(p, 1e-12, 1.0 - 1e-12)
     return torch.where(valid, ratio * p / (1.0 - p), 0.0)
+
+
+def _tensor(x, like=None) -> torch.Tensor:
+    """x as a float32 tensor (Python numbers too), on `like`'s device."""
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.as_tensor(x, dtype=torch.float32,
+                           device=None if like is None else like.device)
+
+
+def enter_probability(distance_from_boundary, penalty_free, cfg):
+    """(ref ComputeEnterProbability, Associator3D.cpp:2267-2277);
+    distance < 0 means outside every view."""
+    d = _tensor(distance_from_boundary)
+    p = torch.where(
+        d < 0, 1.0,
+        torch.where(d <= cfg.boundary_distance, 1.0,
+                    cfg.p_en_max * torch.exp(
+                        -cfg.p_en_decay * torch.clamp(
+                            d - cfg.boundary_distance, min=0.0))))
+    cost = torch.clamp(-torch.log(p), max=cfg.cost_enter_max)
+    return torch.where(torch.as_tensor(penalty_free, device=d.device), 0.0,
+                       cost)
+
+
+def exit_cost(distance_from_boundary, track_length, cfg):
+    """(ref ComputeExitProbability, Associator3D.cpp:2288-2303)."""
+    d = _tensor(distance_from_boundary)
+    length = _tensor(track_length, d)
+    p_far = (cfg.p_ex_max
+             * torch.exp(-cfg.p_ex_decay_dist
+                         * torch.clamp(d - cfg.boundary_distance, min=0.0))
+             * torch.exp(-cfg.p_ex_decay_length
+                         * torch.clamp(length
+                                       - cfg.num_frames_for_confirmation,
+                                       min=0.0)))
+    p = torch.where(d < 0, 1.0,
+                    torch.where(d < cfg.boundary_distance, cfg.p_ex_max,
+                                p_far))
+    return torch.clamp(-torch.log(p), max=cfg.cost_exit_max)
+
+
+def tracklet_connectivity(end_point, start_point, sens1, sens2, time_gap,
+                          cfg):
+    """Gate linking consecutive tracklets of one camera within a track
+    (ref CheckTrackletConnectivity, Associator3D.cpp:791-796)."""
+    d = _norm(_tensor(end_point) - _tensor(start_point))
+    sens = _tensor(sens1, d) + _tensor(sens2, d)
+    thresh = torch.clamp(cfg.e_cal + cfg.e_det * sens,
+                         min=cfg.cost_tracklet_link_min_dist)
+    return (_tensor(time_gap, d) > 1) | (d <= thresh)
 
 
 class WindowScore(NamedTuple):

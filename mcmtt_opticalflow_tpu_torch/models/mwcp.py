@@ -7,7 +7,8 @@ there): membership is an [R, V] bool mask, neighbour counts and swap
 partner weights are [R, V] x [V, V] products, the PA (insert) and OM
 (swap) move sets are masks, and the adaptive perturbation runs one move
 per iteration.  Every distinct local optimum lands in a per-replica ring
-buffer; `device_k_best` merges, dedups and sorts them on the device.
+buffer; `device_k_best` merges, dedups and sorts them on the device
+(`collect_k_best` is its host copy, carried over).
 
 Randomness comes from a *field source*: an object whose
 ``draw(r, v, iters_pad, device)`` returns the `MwcpFields` one solve
@@ -284,6 +285,27 @@ def solve_mwcp(weights: torch.Tensor,
                       sol_masks=sol_masks, sol_scores=sol_scores)
 
 
+def solve_mwcp_batch(weights: torch.Tensor,
+                     adj: torch.Tensor,
+                     valid: torch.Tensor,
+                     init_mask: torch.Tensor,
+                     fields,
+                     cfg: SolverConfig,
+                     iters: int | None = None) -> MwcpResult:
+    """B independent instances over a leading axis (the JAX package's
+    vmap of solve_mwcp): weights [B, V], adj [B, V, V], valid [B, V],
+    init_mask [B, V] or [B, R', V], and one field source per instance in
+    `fields` (JAX vmaps over one PRNG key per instance).  Returns the
+    MwcpResult with every leaf stacked on a leading [B] axis."""
+    if len(fields) != weights.shape[0]:
+        raise ValueError(f"{weights.shape[0]} instances need as many field "
+                         f"sources, got {len(fields)}")
+    outs = [solve_mwcp(weights[b], adj[b], valid[b], init_mask[b],
+                       fields[b], cfg, iters)
+            for b in range(weights.shape[0])]
+    return MwcpResult(*[torch.stack(leaf) for leaf in zip(*outs)])
+
+
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
     """Two's-complement int32 wrap of an int64 tensor (jnp int32
     arithmetic overflows this way)."""
@@ -325,3 +347,33 @@ def device_k_best(result: MwcpResult, k: int):
     masks = torch.where(got[:, None], flat_m[order][src_safe], False)
     scores = torch.where(got, ss[src_safe], NEG)
     return masks, scores
+
+
+def collect_k_best(result: MwcpResult, k: int):
+    """Host-side: merge all replicas' local optima, dedup by (score, mask),
+    sort by score descending, return top-k (mask, score) pairs — the
+    reference's K-best list semantics (ref GraphSolver.cpp:653-660 +
+    Hypothesis_BranchHypotheses dedup, Associator3D.cpp:2797-2828)."""
+    import numpy as np
+
+    masks = result.sol_masks.cpu().numpy().reshape(-1, result.sol_masks.shape[-1])
+    scores = result.sol_scores.cpu().numpy().reshape(-1)
+    keep = scores > NEG / 2
+    masks, scores = masks[keep], scores[keep]
+    order = np.argsort(-scores)
+    # identical masks always carry identical scores (score is the mask's
+    # weight sum), so dedup hashes the packed mask bytes — O(n), not the
+    # reference's O(n^2) pairwise comparison
+    packed = np.packbits(masks[order], axis=1)
+    out_masks, out_scores = [], []
+    seen = set()
+    for j, i in enumerate(order):
+        key = packed[j].tobytes()
+        if key in seen:
+            continue
+        seen.add(key)
+        out_masks.append(masks[i])
+        out_scores.append(float(scores[i]))
+        if len(out_masks) >= k:
+            break
+    return out_masks, out_scores

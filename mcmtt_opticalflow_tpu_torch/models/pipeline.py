@@ -8,8 +8,10 @@ Per frame:
   3. optional deferred CLEAR-MOT evaluation by the caller
 
 The whole 8-bit gray frame goes up from pinned memory with a non-blocking
-copy; the 2D result comes down as one packed f32 tensor through a
-`DeviceFetch` (a non-blocking copy behind a CUDA event).
+copy; the 2D result comes down as one packed f32 tensor per camera group
+through a `DeviceFetch` (non-blocking copies behind CUDA events).  With a
+mesh (parallel/mesh.py) the cameras split into one group per 'cam' row,
+each stepping its own slice of the 2D state on that row's first device.
 """
 
 from __future__ import annotations
@@ -25,14 +27,18 @@ from mcmtt_opticalflow_tpu_torch.geometry.tsai import TsaiCamera, stack_cameras
 from mcmtt_opticalflow_tpu_torch.models.associator3d import (Associator3D,
                                                              Track3DResult)
 from mcmtt_opticalflow_tpu_torch.models.tracker2d import (
-    init_tracker2d_state, tracker2d_step)
+    Tracker2DState, init_tracker2d_state, tracker2d_step)
+from mcmtt_opticalflow_tpu_torch.parallel.mesh import (cam_sharding,
+                                                       shard_leaves)
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
+from mcmtt_opticalflow_tpu_torch.utils.tree import tree_map
 
 
-def _unpack2d(arr):
-    """Host inverse of TrackingEngine._pack2d."""
-    a = np.asarray(arr)
+def _unpack2d(parts):
+    """Host inverse of `_pack2d`, over the camera groups' packs in camera
+    order."""
+    a = np.concatenate(parts)
     return (a[..., 0].astype(np.int64), a[..., 2:6], a[..., 1] > 0.5)
 
 
@@ -45,7 +51,8 @@ def _pack2d(out2d):
 
 class TrackingEngine:
     def __init__(self, cfg: EngineConfig, cameras: Sequence[TsaiCamera],
-                 pipelined: bool = False, sidemaps=None, device=None):
+                 pipelined: bool = False, sidemaps=None, mesh=None,
+                 device=None):
         """pipelined=True pipelines the engine three frames deep: the 2D
         stage runs TWO frames ahead of the host-side 3D association, and
         the 3D hypothesis solve of frame t runs while the host enumerates
@@ -60,8 +67,25 @@ class TrackingEngine:
         the CPU must be asked for with device="cpu").
 
         sidemaps: optional per-camera (sensitivity, boundary, stride)
-        triples (see Associator3D)."""
+        triples (see Associator3D).
+
+        mesh: optional ('cam', 'block') Mesh (parallel/mesh.py).  The
+        camera axis of the 2D stage splits into mesh.shape["cam"] groups
+        (`state2d_groups`), each stepped on its 'cam' row's first device;
+        the 3D stage runs on the mesh's first device, which is also the
+        engine's `device`.  Results equal the run without a mesh."""
         assert len(cameras) == cfg.num_cameras
+        self.mesh = mesh
+        self._cam_split = None
+        if mesh is not None:
+            if cfg.num_cameras % mesh.shape["cam"]:
+                raise ValueError(f"{cfg.num_cameras} cameras do not split "
+                                 f"over the mesh's {mesh.shape}")
+            if device is not None:
+                raise ValueError("pass a mesh or a device, not both: with "
+                                 "a mesh the engine's device is its first")
+            device = mesh.devices.flat[0]
+            self._cam_split = cam_sharding(mesh)
         self.device = resolve_device(device)
         self.cfg = cfg
         self.cameras = list(cameras)
@@ -69,8 +93,11 @@ class TrackingEngine:
         self.state2d = init_tracker2d_state(
             cfg.tracker2d, cfg.image_height, cfg.image_width,
             num_cameras=cfg.num_cameras, device=self.device)
+        self._group_devices = ([self.device] if mesh is None
+                               else self._cam_split.devices)
+        self._group_cams = self._split(self.cams)
         self.assoc = Associator3D(cfg, cameras, sidemaps=sidemaps,
-                                  deferred_solve=pipelined,
+                                  mesh=mesh, deferred_solve=pipelined,
                                   device=self.device)
         from mcmtt_opticalflow_tpu_torch import native
         self._native_gray = native.available()
@@ -82,15 +109,42 @@ class TrackingEngine:
         # (frame_idx, DeviceFetch of the packed 2D outputs, host rgb u8)
         self._pending: List[tuple] = []
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if self.device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(self.device, non_blocking=True)
+    def _split(self, tree) -> list:
+        """A [C, ...] tree as one tree per camera group."""
+        if self.mesh is None:
+            return [tree]
+        return shard_leaves(tree, self._cam_split)
 
-    def _upload_gray(self, gray_u8: np.ndarray) -> torch.Tensor:
-        """[C, H, W] u8 gray -> [C, H, W] f32 in [0, 1] on the device."""
-        return self._upload(gray_u8).float() * (1.0 / 255.0)
+    @property
+    def state2d(self) -> Tracker2DState:
+        """The 2D state of every camera; with a mesh, the groups' slices
+        joined on the engine's device (the groups keep stepping theirs)."""
+        if len(self.state2d_groups) == 1:
+            return self.state2d_groups[0]
+        return tree_map(lambda *xs: torch.cat([x.to(self.device)
+                                               for x in xs]),
+                        *self.state2d_groups)
+
+    @state2d.setter
+    def state2d(self, state: Tracker2DState):
+        self.state2d_groups = self._split(state)
+
+    def _upload(self, x: np.ndarray, device) -> torch.Tensor:
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
+
+    def _group_slices(self, x: np.ndarray) -> List[np.ndarray]:
+        """A [C, ...] host array cut into the camera groups' slices."""
+        return np.split(x, len(self._group_devices))
+
+    def _upload_gray(self, gray_u8: np.ndarray) -> List[torch.Tensor]:
+        """[C, H, W] u8 gray -> per camera group, f32 in [0, 1] on the
+        group's device."""
+        return [self._upload(g, dev).float() * (1.0 / 255.0)
+                for g, dev in zip(self._group_slices(gray_u8),
+                                  self._group_devices)]
 
     def _pad_detections(self, detections):
         c = self.cfg.num_cameras
@@ -104,11 +158,19 @@ class TrackingEngine:
             mask[ci, :n] = True
         return boxes, mask
 
-    def _step2d(self, gray, boxes, mask):
-        self.state2d, out2d = tracker2d_step(
-            self.state2d, gray, self._upload(boxes), self._upload(mask),
-            self.cams, self.frame_idx, self.cfg.tracker2d)
-        return out2d
+    def _step2d(self, grays, boxes, mask):
+        """The 2D step of every camera group; returns the groups' packed
+        outputs in camera order."""
+        packs = []
+        for g, (dev, cams, gray, box, msk) in enumerate(zip(
+                self._group_devices, self._group_cams, grays,
+                self._group_slices(boxes), self._group_slices(mask))):
+            self.state2d_groups[g], out2d = tracker2d_step(
+                self.state2d_groups[g], gray, self._upload(box, dev),
+                self._upload(msk, dev), cams, self.frame_idx,
+                self.cfg.tracker2d)
+            packs.append(_pack2d(out2d))
+        return packs
 
     def process_frame(self, frames_rgb: np.ndarray,
                       detections: Sequence[np.ndarray],
@@ -133,7 +195,7 @@ class TrackingEngine:
                 gray_u8 = ((f[..., 0].astype(np.uint16) + f[..., 1]
                             + f[..., 2]) // 3).astype(np.uint8)
         with self.assoc.timer.stage("upload"):
-            gray = self._upload_gray(gray_u8)
+            grays = self._upload_gray(gray_u8)
 
         if self.pipelined:
             # the associator's phase 1 for frame t-2 runs first, so this
@@ -143,29 +205,27 @@ class TrackingEngine:
             if len(self._pending) == 2:
                 prev_idx, prev_fetch, prev_rgb = self._pending.pop(0)
                 with self.assoc.timer.stage("get2d"):
-                    ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get()[0])
+                    ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get())
                 result = self.assoc.step_begin(prev_idx, ids_np, boxes_np,
                                                mask_np, prev_rgb)
                 self.assoc.step_finish(prev_idx)
             with self.assoc.timer.stage("tracker2d"):
-                out2d = self._step2d(gray, boxes, mask)
-            self._pending.append((self.frame_idx,
-                                  DeviceFetch([_pack2d(out2d)]), f))
+                packs = self._step2d(grays, boxes, mask)
+            self._pending.append((self.frame_idx, DeviceFetch(packs), f))
             if result is None:       # pipeline still filling
                 return None
         else:
             with self.assoc.timer.stage("tracker2d"):
-                out2d = self._step2d(gray, boxes, mask)
-            result = self._associate(self.frame_idx, out2d, f)
+                packs = self._step2d(grays, boxes, mask)
+            result = self._associate(self.frame_idx, packs, f)
         result.processing_time = time.perf_counter() - t0
         self.timing.append(result.processing_time)
         self.results.append(result)
         return result
 
-    def _associate(self, frame_idx, out2d, rgb) -> Track3DResult:
+    def _associate(self, frame_idx, packs, rgb) -> Track3DResult:
         with self.assoc.timer.stage("get2d"):
-            ids_np, boxes_np, mask_np = _unpack2d(
-                DeviceFetch([_pack2d(out2d)]).get()[0])
+            ids_np, boxes_np, mask_np = _unpack2d(DeviceFetch(packs).get())
         return self.assoc.step(frame_idx, ids_np, boxes_np, mask_np, rgb)
 
     def flush(self) -> Optional[Track3DResult]:
@@ -176,7 +236,7 @@ class TrackingEngine:
         if self._pending:
             prev_idx, prev_fetch, prev_rgb = self._pending.pop(0)
             with self.assoc.timer.stage("get2d"):
-                ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get()[0])
+                ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get())
             result = self.assoc.step(prev_idx, ids_np, boxes_np, mask_np,
                                      prev_rgb)
         if result is None:

@@ -28,14 +28,16 @@ from mcmtt_opticalflow_tpu_torch.geometry.tsai import (TsaiCamera,
 from mcmtt_opticalflow_tpu_torch.geometry.triangulation import \
     triangulate_two_lines
 from mcmtt_opticalflow_tpu_torch.ops.features import detect_grid_features
-from mcmtt_opticalflow_tpu_torch.ops.hungarian import solve_assignment
+from mcmtt_opticalflow_tpu_torch.ops.hungarian import solve_assignment_batch
 from mcmtt_opticalflow_tpu_torch.ops.lk import lk_track_prebuilt
 from mcmtt_opticalflow_tpu_torch.ops.pyramid import build_pyramid
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
+from mcmtt_opticalflow_tpu_torch.utils.tree import tree_map
 
 
 class Tracker2DState(NamedTuple):
-    """Fixed-capacity tracker state; every leaf has a leading camera axis."""
+    """Fixed-capacity tracker state; every leaf has a leading camera axis
+    (`tracker2d_step`), or none for one camera (`make_tracker2d_step`)."""
 
     frames: torch.Tensor        # [C, B, H, W] gray ring buffer, -1 = newest
     frames_lo: Tuple[torch.Tensor, ...]   # per level >= 1: [C, B, H/2^l, W/2^l]
@@ -67,13 +69,16 @@ class Track2DOutput(NamedTuple):
 
 
 def init_tracker2d_state(cfg: Tracker2DConfig, height: int, width: int,
-                         num_cameras: int, device=None) -> Tracker2DState:
+                         num_cameras: int | None = None,
+                         device=None) -> Tracker2DState:
     """Zeroed 2D tracker state on `device` (default: the CUDA card; None
-    raises without one)."""
+    raises without one).  num_cameras=None leaves out the camera axis: the
+    state of one camera, for `make_tracker2d_step(cfg)`."""
     device = resolve_device(device)
+    lead = () if num_cameras is None else (num_cameras,)
 
     def z(shape, dtype=torch.float32):
-        return torch.zeros((num_cameras,) + shape, dtype=dtype, device=device)
+        return torch.zeros(lead + shape, dtype=dtype, device=device)
 
     t, f, b = cfg.max_trackers, cfg.max_features, cfg.backtrack_interval
     return Tracker2DState(
@@ -382,9 +387,9 @@ def tracker2d_step(state: Tracker2DState,
     cost = torch.where(veto[..., None], torch.inf, cost)
 
     # ---- 5. assignment (ref :1038-1107), on the host ------------------------
-    match_np, _ = solve_assignment(cost.cpu().numpy(),
-                                   det_valid.cpu().numpy(),
-                                   trk_predict_ok.cpu().numpy())
+    match_np, _ = solve_assignment_batch(cost.cpu().numpy(),
+                                         det_valid.cpu().numpy(),
+                                         trk_predict_ok.cpu().numpy())
     match_col = torch.from_numpy(match_np).to(dev)
     matched_det = match_col >= 0                                   # [C, D]
     det_ar = torch.arange(n_det, dtype=torch.int32, device=dev).expand(
@@ -468,3 +473,29 @@ def tracker2d_step(state: Tracker2DState,
         locations=trk_location, heights=trk_height,
         det_boxes=det_boxes, det_mask=det_valid, cost_matrix=cost)
     return new_state, out
+
+
+def make_tracker2d_step(cfg: Tracker2DConfig, multi_camera: bool = False):
+    """The per-frame step with the JAX package's argument order,
+    (state, gray, det_boxes, det_mask, cam, frame_idx) -> (state, out).
+
+    multi_camera=True: leaves carry a leading camera axis and cam is a
+    stacked TsaiCamera (this is `tracker2d_step`).  multi_camera=False:
+    one camera — gray [H, W], det_boxes [D, 4], det_mask [D], a single
+    camera and a state without the camera axis, which the step lifts to a
+    one-camera batch and drops again.
+    """
+    def step(state, gray, det_boxes, det_mask, cam, frame_idx):
+        return tracker2d_step(state, gray, det_boxes, det_mask, cam,
+                              frame_idx, cfg)
+
+    if multi_camera:
+        return step
+
+    def single(state, gray, det_boxes, det_mask, cam, frame_idx):
+        new_state, out = step(tree_map(lambda x: x[None], state), gray[None],
+                              det_boxes[None], det_mask[None],
+                              tree_map(lambda x: x[None], cam), frame_idx)
+        return tree_map(lambda x: x[0], (new_state, out))
+
+    return single

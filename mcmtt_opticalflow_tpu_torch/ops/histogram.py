@@ -1,11 +1,56 @@
-"""Host RGB appearance histograms (carried from mcmtt_opticalflow_tpu).
+"""RGB appearance histograms from fixed-lattice box samples (port of
+mcmtt_opticalflow_tpu/ops/histogram.py).
 
-Only the numpy ``host_rgb_histogram`` is on the main path (tracklet
-ingest in models/associator3d.py); the device ``rgb_histogram`` is not
-ported yet.
+The reference crops each tracklet's detection box and histograms each
+colour channel into 16 bins, concatenated [R; G; B] and normalised by
+pixel count (ref psn_where/PSNWhere_Associator3D.cpp:2542-2556,
+psn::histogram PSNWhere_Utils.cpp:445-460).  A fixed PxP lattice inside
+each box keeps every box the same shape.  `rgb_histogram` runs on the
+image's device and counts with one `bincount`; `host_rgb_histogram` is
+the numpy mirror the tracklet ingest uses (carried over unchanged).
 """
 
 from __future__ import annotations
+
+import torch
+
+
+def rgb_histogram(img: torch.Tensor,
+                  boxes: torch.Tensor,
+                  num_bins: int = 16,
+                  patch: int = 16) -> torch.Tensor:
+    """Normalised concatenated RGB histogram per box.
+
+    Args:
+      img:   [H, W, 3] image, float in [0, 1] or uint8 in [0, 255]
+             (channel order R, G, B).
+      boxes: [B, 4] (x, y, w, h) float, on the image's device.
+
+    Returns [B, 3*num_bins] float histogram, rows ordered R, G, B.  The
+    same lattice, truncating int cast and binning as the JAX version, so
+    the counts are exactly its one-hot sums.
+    """
+    h, w, _ = img.shape
+    b = boxes.shape[0]
+    dev = boxes.device
+    lin = (torch.arange(patch, dtype=boxes.dtype, device=dev) + 0.5) / patch
+    gx, gy = torch.meshgrid(lin, lin, indexing="xy")
+    lattice = torch.stack([gx, gy], -1).reshape(-1, 2)      # [P*P, 2]
+    xy = boxes[:, None, 0:2] + lattice[None] * boxes[:, None, 2:4]
+    xi = torch.clamp(xy[..., 0].to(torch.int32), 0, w - 1).long()
+    yi = torch.clamp(xy[..., 1].to(torch.int32), 0, h - 1).long()
+    px = img[yi, xi]                                        # [B, P*P, 3]
+    if img.dtype == torch.uint8:
+        bins = torch.clamp(px.to(torch.int32) * num_bins // 256,
+                           0, num_bins - 1)
+    else:
+        bins = torch.clamp((px * num_bins).to(torch.int32), 0, num_bins - 1)
+    offs = ((torch.arange(b, device=dev)[:, None, None] * 3
+             + torch.arange(3, device=dev)[None, None, :]) * num_bins)
+    cnt = torch.bincount((bins + offs).reshape(-1),
+                         minlength=b * 3 * num_bins)
+    hist = cnt.reshape(b, 3 * num_bins).to(boxes.dtype)
+    return hist / (patch * patch)
 
 
 def host_rgb_histogram(img, boxes, num_bins: int = 16, patch: int = 16):
@@ -40,3 +85,15 @@ def host_rgb_histogram(img, boxes, num_bins: int = 16, patch: int = 16):
                       minlength=b * 3 * num_bins)
     hist = cnt.reshape(b, 3 * num_bins).astype(np.float32) / (patch * patch)
     return hist
+
+
+def rgb_cost(feat1: torch.Tensor, feat2: torch.Tensor, time_gap,
+             min_dist: float = 0.2, coef: float = 100.0,
+             decay: float = 0.1) -> torch.Tensor:
+    """Appearance cost between two histogram features (batched)
+    (ref ComputeRGBCost, PSNWhere_Associator3D.cpp:2394-2400)."""
+    diff = feat1 - feat2
+    norm2 = torch.sum(diff * diff, dim=-1)
+    gap = torch.as_tensor(time_gap, dtype=norm2.dtype, device=norm2.device)
+    scale = coef * torch.exp(-decay * (gap - 1.0))
+    return torch.where(norm2 > min_dist, scale * (norm2 - min_dist), 0.0)

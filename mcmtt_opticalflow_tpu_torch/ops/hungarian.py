@@ -1,14 +1,17 @@
-"""Exact linear assignment for the 2D stage (port of
-mcmtt_opticalflow_tpu/ops/hungarian.py::solve_assignment).
+"""Linear assignment (detection <-> tracker matching), port of
+mcmtt_opticalflow_tpu/ops/hungarian.py.
 
 The JAX package runs Jonker-Volgenant shortest augmenting paths as a
 device while_loop; eager PyTorch could only run that with one host sync
-per Dijkstra step.  This is a numpy transcription of the same algorithm
-(hungarian.py:90-169), run on the host in lockstep over cameras: every
-Dijkstra step is one vectorised [C, T] min/argmin/where.  The arithmetic
-is float32 in the same order as the device version, and ties go to the
-first index as jnp.argmin does, so the matching is identical (tracklet
-ids drift otherwise).
+per Dijkstra step.  `solve_assignment_batch` is a numpy transcription of
+the same algorithm (hungarian.py:90-169), run on the host in lockstep
+over a leading batch axis: every Dijkstra step is one vectorised [C, T]
+min/argmin/where.  The arithmetic is float32 in the same order as the
+device version, and ties go to the first index as jnp.argmin does, so the
+matching is identical (tracklet ids drift otherwise).  As in the JAX
+package, `solve_assignment` takes one [R, T] matrix and
+`solve_assignment_batch` a [C, R, T] stack (its vmap there);
+`hungarian_host` is the exact scipy reference (carried over unchanged).
 
 Forbidden (inf / masked) entries are replaced by (finite max + 100) in
 span-normalised units before solving, and a match that lands on such an
@@ -22,9 +25,49 @@ import numpy as np
 _INF = np.float32(1e18)
 
 
+def hungarian_host(cost: np.ndarray):
+    """Exact rectangular min-cost assignment on host.
+
+    Returns (rows, cols) index arrays like scipy's linear_sum_assignment,
+    with infinite-cost pairs filtered out.
+    """
+    from scipy.optimize import linear_sum_assignment
+
+    cost = np.asarray(cost, dtype=np.float64)
+    finite = np.isfinite(cost)
+    if not finite.any():
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    big = cost[finite].max() + 100.0
+    work = np.where(finite, cost, big)
+    rows, cols = linear_sum_assignment(work)
+    keep = finite[rows, cols]
+    return rows[keep], cols[keep]
+
+
 def solve_assignment(cost: np.ndarray, row_mask: np.ndarray,
-                     col_mask: np.ndarray):
-    """Exact min-cost assignment for a batch of cameras.
+                     col_mask: np.ndarray, num_iters: int = 2000):
+    """Exact min-cost assignment of one matrix.
+
+    Args:
+      cost:     [R, T] float cost matrix (inf = forbidden).
+      row_mask: [R] bool, valid rows.
+      col_mask: [T] bool, valid columns.
+      num_iters: unused (the JAX signature's; JV's loop counts are
+        bounded by the matrix dimensions).
+
+    Returns (col_of_row [R] int32, -1 when unmatched;
+             match_cost [R] float32, inf when unmatched).
+    """
+    del num_iters
+    col, mcost = solve_assignment_batch(np.asarray(cost)[None],
+                                        np.asarray(row_mask)[None],
+                                        np.asarray(col_mask)[None])
+    return col[0], mcost[0]
+
+
+def solve_assignment_batch(cost: np.ndarray, row_mask: np.ndarray,
+                           col_mask: np.ndarray):
+    """Exact min-cost assignment for a batch of matrices (cameras).
 
     Args:
       cost:     [C, R, T] float cost matrices (inf = forbidden).
@@ -42,8 +85,8 @@ def solve_assignment(cost: np.ndarray, row_mask: np.ndarray,
     if r > c:
         # JV augments one row at a time and needs rows <= cols: solve the
         # transposed problem and invert the matching
-        row_of_col, _ = solve_assignment(cost.transpose(0, 2, 1), col_mask,
-                                         row_mask)
+        row_of_col, _ = solve_assignment_batch(cost.transpose(0, 2, 1),
+                                               col_mask, row_mask)
         col_of_row = np.full((nc, r), -1, np.int32)
         ci, cj = np.nonzero(row_of_col >= 0)
         col_of_row[ci, row_of_col[ci, cj]] = cj

@@ -18,7 +18,8 @@ from typing import Sequence
 import torch
 
 from mcmtt_opticalflow_tpu_torch.ops.lk_kernel import lk_level
-from mcmtt_opticalflow_tpu_torch.ops.pyramid import (edge_pad_to,
+from mcmtt_opticalflow_tpu_torch.ops.pyramid import (build_pyramid,
+                                                     edge_pad_to,
                                                      image_gradients)
 
 
@@ -172,3 +173,30 @@ def lk_track_prebuilt(prev_pyr: Sequence[torch.Tensor],
             cur = cur * 2.0
     status = valid & (resid < max_residual)
     return cur, status, resid
+
+
+def lk_track_pyramid(prev_img: torch.Tensor,
+                     next_img: torch.Tensor,
+                     points: torch.Tensor,
+                     levels: int = 3,
+                     window: int = 16,
+                     iterations: int = 10,
+                     max_residual: float = 0.08,
+                     active: torch.Tensor | None = None):
+    """Pyramidal LK: track [N, 2] points from prev_img to next_img.
+
+    Images are [H, W] float gray in [0, 1]; H, W divisible by
+    2**(levels-1).  Builds both pyramids and tracks as one camera, so each
+    level takes the route `lk_level_cams` picks from its shape: the LK
+    level kernel (launched for CUDA tensors) or the gather path.
+    `active` marks real (non-padding) features; inactive ones return
+    status False.  Returns (tracked [N, 2], status [N] bool, residual
+    [N]).
+    """
+    prev_pyr = build_pyramid(prev_img[None], levels)
+    next_pyr = build_pyramid(next_img[None], levels)
+    tracked, status, resid = lk_track_prebuilt(
+        prev_pyr, next_pyr, points[None], window=window,
+        iterations=iterations, max_residual=max_residual,
+        active=None if active is None else active[None])
+    return tracked[0], status[0], resid[0]

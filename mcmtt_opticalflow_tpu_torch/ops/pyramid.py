@@ -39,6 +39,11 @@ def _sep_conv(img: torch.Tensor, k) -> torch.Tensor:
     return sum(kk[i] * y[..., :, i:i + w] for i in range(len(kk)))
 
 
+def gaussian_blur_3x3(img: torch.Tensor) -> torch.Tensor:
+    """3-tap binomial blur with edge padding. img: [..., H, W]."""
+    return _sep_conv(img, _K3)
+
+
 def pyr_down(img: torch.Tensor) -> torch.Tensor:
     """Blur + 2x decimation. img: [..., H, W] with even H, W."""
     return _sep_conv(img, _K5)[..., ::2, ::2].contiguous()

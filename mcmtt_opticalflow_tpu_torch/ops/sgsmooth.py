@@ -60,6 +60,15 @@ def sg_smoothing_matrix(capacity: int, span: int, degree: int,
         _sg_matrix_stack_np(capacity, span, degree)).to(device)
 
 
+def sg_smooth(data: torch.Tensor, span: int = 9,
+              degree: int = 1) -> torch.Tensor:
+    """Smooth [n] or [n, d] data directly with the length-n matrix."""
+    n = data.shape[0]
+    s = torch.as_tensor(smoothing_matrix_np(n, span, degree),
+                        dtype=data.dtype, device=data.device)
+    return s @ data
+
+
 def sg_smooth_masked(data: torch.Tensor, lengths: torch.Tensor,
                      span: int = 9, degree: int = 1) -> torch.Tensor:
     """Batched smoothing of padded trajectories.

@@ -2,7 +2,8 @@
 
 Replaces the JAX package's AsyncFetch thread (parallel/mesh.py:65-95):
 the copies are enqueued non-blocking into pinned host buffers, a CUDA
-event is recorded behind them, and `get()` waits on that event only.
+event is recorded behind them on each card they come from, and `get()`
+waits on those events only.
 """
 
 from __future__ import annotations
@@ -18,7 +19,6 @@ class DeviceFetch:
 
     def __init__(self, tensors: Sequence[torch.Tensor]):
         self._host = []
-        self._event = None
         for t in tensors:
             if t.is_cuda:
                 h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
@@ -26,12 +26,14 @@ class DeviceFetch:
             else:
                 h = t.detach()
             self._host.append(h)
-        if any(t.is_cuda for t in tensors):
-            self._event = torch.cuda.Event()
-            self._event.record()
+        self._events = []
+        for dev in {t.device for t in tensors if t.is_cuda}:
+            with torch.cuda.device(dev):
+                self._events.append(torch.cuda.Event())
+                self._events[-1].record()
 
     def get(self) -> Tuple[np.ndarray, ...]:
         """Wait for the copies and return them as numpy arrays."""
-        if self._event is not None:
-            self._event.synchronize()
+        for event in self._events:
+            event.synchronize()
         return tuple(h.numpy() for h in self._host)

@@ -180,7 +180,7 @@ _jax_assign = jax.jit(jax.vmap(jax_hungarian.solve_assignment))
 def _check_assignment(cost, rmask, cmask):
     ref_c, ref_m = _jax_assign(jnp.asarray(cost), jnp.asarray(rmask),
                                jnp.asarray(cmask))
-    got_c, got_m = hungarian.solve_assignment(cost, rmask, cmask)
+    got_c, got_m = hungarian.solve_assignment_batch(cost, rmask, cmask)
     np.testing.assert_array_equal(got_c, np.asarray(ref_c))
     np.testing.assert_array_equal(got_m, np.asarray(ref_m))
 

@@ -140,7 +140,10 @@ _MUST_DIFFER = {
                                  "models/trees.py", "eval/clearmot.py",
                                  "data/images.py", "data/pets.py",
                                  "eval/experiment.py", "main.py",
-                                 "checkpoint/snapshot.py"])
+                                 "checkpoint/snapshot.py",
+                                 "utils/logging.py", "utils/colors.py",
+                                 "utils/math.py", "utils/dumps.py",
+                                 "viz/overlay.py", "viz/video.py"])
 def test_carried_module_has_not_drifted(rel):
     """Bodies equal without imports, the package's own name read as the
     JAX package's (a usage line names the module it is in)."""
@@ -158,6 +161,7 @@ def test_carried_module_has_not_drifted(rel):
 @pytest.mark.parametrize("mod,name", [
     ("utils.timing", "StageTimer"),
     ("ops.histogram", "host_rgb_histogram"),
+    ("ops.hungarian", "hungarian_host"),
     ("geometry.sidemaps", "read_sidemap_txt"),
     ("geometry.sidemaps", "write_sidemap_txt"),
     ("geometry.sidemaps", "load_or_compute_sidemaps")])
@@ -166,6 +170,49 @@ def test_carried_definition_has_not_drifted(mod, name):
     ours = getattr(importlib.import_module(f"{tpkg.__name__}.{mod}"), name)
     ref = getattr(importlib.import_module(f"{jpkg.__name__}.{mod}"), name)
     assert inspect.getsource(ours) == inspect.getsource(ref)
+
+
+def test_collect_k_best_has_not_drifted():
+    """The host K-best is carried over but reads the result tensors
+    through .cpu().numpy() (np.asarray cannot read a CUDA tensor): those
+    two lines are the only difference."""
+    from mcmtt_opticalflow_tpu.models import mwcp as jmod
+    from mcmtt_opticalflow_tpu_torch.models import mwcp as tmod
+    ref = inspect.getsource(jmod.collect_k_best).splitlines()
+    ours = inspect.getsource(tmod.collect_k_best).splitlines()
+    ref_only = [l for l in ref if l not in ours]
+    ours_only = [l for l in ours if l not in ref]
+    assert (ref_only, ours_only) == (
+        ["    masks = np.asarray(result.sol_masks).reshape(-1, "
+         "result.sol_masks.shape[-1])",
+         "    scores = np.asarray(result.sol_scores).reshape(-1)"],
+        ["    masks = result.sol_masks.cpu().numpy().reshape(-1, "
+         "result.sol_masks.shape[-1])",
+         "    scores = result.sol_scores.cpu().numpy().reshape(-1)"])
+    assert [l for l in ref if l in ours] == [l for l in ours if l in ref]
+
+
+def _exported_names(init_path):
+    """Names an __init__.py imports from its package's modules."""
+    with open(init_path) as f:
+        tree = ast.parse(f.read())
+    return [a.asname or a.name for node in ast.walk(tree)
+            if isinstance(node, ast.ImportFrom) for a in node.names]
+
+
+@pytest.mark.parametrize("sub", ["ops", "models", "geometry", "viz",
+                                 "parallel", "utils"])
+def test_subpackage_exports_match(sub):
+    """Every name the JAX package's sub-package exports imports from the
+    port's counterpart (the multi-process launch helpers of
+    parallel/launch.py are not exported there, and not ported yet)."""
+    import importlib
+    ref = _exported_names(os.path.join(JROOT, sub, "__init__.py"))
+    assert ref
+    mod = importlib.import_module(f"{tpkg.__name__}.{sub}")
+    missing = [n for n in ref if not hasattr(mod, n)]
+    assert not missing, f"{sub}: {missing}"
+    assert _exported_names(os.path.join(TROOT, sub, "__init__.py")) == ref
 
 
 @pytest.mark.parametrize("cls", ["Tracker2DConfig", "Associator3DConfig",
