@@ -49,15 +49,28 @@ Phases (each prints its own lines; any failure exits non-zero):
      solve_mwcp_batch with collect_k_best) on the card and on the CPU on
      the same seeded inputs, at the CPU parity tests' tolerances; the
      device RGB histogram of a bench frame with 48 boxes equals
-     host_rgb_histogram exactly;
+     host_rgb_histogram exactly; and the LK backend switch: with
+     MCMTT_LK_BACKEND=xla, set here for one lk_track_pyramid call (the
+     inputs of phase 7), the card takes the gather path at every level
+     (no kernel launch) and equals the same call on the CPU at the limits
+     of phase 2 (the script refuses to start with the switch set);
   7. lk_track_pyramid: one 768x576 pair, 3 levels, N=1024, w=16, 10
      iterations: 3 batched-kernel launches, held against the CPU call at
      the limits of phase 2;
   8. mesh: the bench configuration for MESH_FRAMES frames without a mesh
-     and on make_mesh(devices=[cuda:0] * 4) (4 camera groups): equal
-     ids, points within 1 mm, LK launches counted; solve_mwcp_sharded at
-     V=1024, R=38, 150 iterations over 2 blocks equals its per-block
-     solves plus the global argmax;
+     and on make_mesh(devices=[cuda:0] * 4) (4 camera groups; the fused
+     3D program's row inputs split in 4 chunks): equal ids, points
+     within 1 mm, LK launches counted; solve_mwcp_sharded at V=1024,
+     R=38, 150 iterations over 2 blocks equals its per-block solves plus
+     the global argmax;
+  8b. multiprocess: parallel/multihost_sim.py --bench in two processes on
+     the one card, joined by gloo, each with two cuda:0 entries of the
+     global cam 4 x block 1 mesh: 16 LK launches per process per frame,
+     ids equal to phase 8's mesh run frame by frame (points within 1 mm);
+     the solve of phase 8 over a 1 x 4 mesh with two blocks in each
+     process equals its per-block solves plus the argmax; wall time
+     against phase 8's, the median time per frame in collectives, and
+     scaling_report;
   9. profile: utils/timing.py::profile_trace (torch.profiler) around
      PROFILE_FRAMES steady bench frames: device busy share, device ms
      per frame, top 5 kernels, and lk_level_kernel events (8 per frame);
@@ -68,7 +81,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      launches per frame, none on the CPU, no flat-gray frame), MOTA at
      w0/w3/w6 from the printed table's results.
 
-The whole script takes about 3 minutes on the card.  The line before the
+The whole script takes about 4 minutes on the card.  The line before the
 last is a JSON summary of the kernels, on the inputs of phase 3b: per
 bench frame (8 launches) `ms` (device-only), `plain_ms`, `bound_ms`;
 per launch `device_us_per_launch`, `bound_us`; `host_us_per_call`; what
@@ -80,6 +93,7 @@ The last line is {"ok": true, "device": {...}}.
 """
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -93,6 +107,7 @@ FP32_FLOPS_PER_S = 67e12
 WINDOWS = (0, 3, 6)
 CLI_FRAMES = 12
 MESH_FRAMES = 12
+MP_LIMIT_S = 240            # each process of the multiprocess phase
 PROFILE_FRAMES = 4
 CLI_CAM_IDS = (1, 5, 6, 8)
 
@@ -116,45 +131,13 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def bench_config():
-    from mcmtt_opticalflow_tpu_torch.config import (Associator3DConfig,
-                                                    EngineConfig,
-                                                    SolverConfig,
-                                                    Tracker2DConfig)
-    return EngineConfig(
-        num_cameras=4, image_width=768, image_height=576,
-        tracker2d=Tracker2DConfig(lk_pyramid_levels=2, lk_iterations=8,
-                                  max_detections=48, max_trackers=64,
-                                  max_features=36),
-        assoc3d=Associator3DConfig(k_best_size=30),
-        solver=SolverConfig(num_replicas=8, max_vertices=1024,
-                            max_iterations=150))
-
-
-def bench_scene(num_frames):
-    from mcmtt_opticalflow_tpu_torch.data import make_scenario
-    import numpy as np
-    sc = make_scenario(num_cameras=4, num_frames=num_frames, num_people=22,
-                       image_size=(768, 576), arena=9000.0, noise_px=1.0,
-                       fp_rate=0.10, fn_rate=0.05, seed=0)
-    frames = [(np.clip(np.stack(sc.frames(t)), 0, 1) * 255 + 0.5)
-              .astype(np.uint8) for t in range(num_frames)]
-    return sc, frames
-
-
-class CpuDrawnFields:
-    """Solver field source drawing on the CPU from a seeded generator and
-    moving the fields to the solve's device: two engines given equal
+def host_fields(seed):
+    """Solver field source drawing on the CPU from a seeded generator (and
+    moving the fields to the solve's device): two engines given equal
     seeds consume equal fields wherever they run."""
-
-    def __init__(self, seed):
-        import torch
-        from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields
-        self._src = GeneratorFields(torch.Generator().manual_seed(seed))
-
-    def draw(self, r, v, iters_pad, device):
-        f = self._src.draw(r, v, iters_pad, "cpu")
-        return type(f)(*[x.to(device) for x in f])
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields
+    return GeneratorFields(torch.Generator().manual_seed(seed))
 
 
 def time_ms(fn, reps=20):
@@ -603,8 +586,8 @@ def phase_modes_agree(cfg, sc, frames):
     n = 8
     seq = TrackingEngine(cfg, sc.cameras, device="cuda")
     pipe = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
-    seq.assoc.field_source = CpuDrawnFields(1)
-    pipe.assoc.field_source = CpuDrawnFields(1)
+    seq.assoc.field_source = host_fields(1)
+    pipe.assoc.field_source = host_fields(1)
     rs, rp = [], []
     for t in range(n):
         rs.append(seq.process_frame(frames[t], sc.detections[t],
@@ -815,7 +798,7 @@ def phase_api(cfg, sc, frames):
         res[dev] = solve_mwcp_batch(
             *[torch.tensor(x, device=dev) for x in (weights, adj, valid,
                                                     init)],
-            [CpuDrawnFields(40 + i) for i in range(b)], scfg, 90)
+            [host_fields(40 + i) for i in range(b)], scfg, 90)
     for f in res["cuda"]._fields:
         exact = f in ("best_mask", "sol_masks")
         worst[f"solve_mwcp_batch.{f}"] = _hold(
@@ -832,6 +815,66 @@ def phase_api(cfg, sc, frames):
     log(f"api: {len(worst)} checks, card == CPU within the tests' "
         f"tolerances; largest |difference| per check "
         f"{json.dumps({k: float(f'{x:.3e}') for k, x in worst.items()})}")
+    check_xla_route(frames)
+
+
+def pyramid_call(frames, dev):
+    """The phase-7 lk_track_pyramid call on `dev`: one 768x576 pair of
+    camera 0, 3 levels, N=1024 points, w=16, 10 iterations; returns a
+    zero-argument call and the point count."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_track_pyramid
+
+    n = 1024
+    rng = np.random.RandomState(1)
+    g0 = (frames[WARMUP][0].mean(-1) / 255.0).astype(np.float32)
+    g1 = (frames[WARMUP + 1][0].mean(-1) / 255.0).astype(np.float32)
+    pts = np.stack([rng.uniform(16, 752, n), rng.uniform(16, 560, n)],
+                   -1).astype(np.float32)
+    args = [torch.tensor(x, device=dev) for x in (g0, g1, pts)]
+    return (lambda: lk_track_pyramid(*args, levels=3, window=16,
+                                     iterations=10)), n
+
+
+def pyramid_on_card_and_cpu(frames, label):
+    """The pyramid call on the card (its LK kernel launches counted from
+    0) and on the CPU, held against each other at the limits of phase 2.
+    Returns (launches, the line to log)."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+
+    card, n = pyramid_call(frames, "cuda")
+    lk_kernel.lk_level.launches = 0
+    tr_k, ok_k, res_k = [x.cpu() for x in card()]
+    launches = lk_kernel.lk_level.launches
+    tr_r, ok_r, res_r = pyramid_call(frames, "cpu")[0]()
+    agree = (ok_k == ok_r).float().mean().item()
+    both = ok_k & ok_r
+    d_tr = (tr_k - tr_r)[both].abs().max().item()
+    d_res = (res_k - res_r)[both].abs().max().item()
+    msg = (f"{label}: [576,768] 3 levels N={n}: lk_level launches="
+           f"{launches}, valid={int(ok_k.sum())} valid-agree={agree:.6f} "
+           f"max|dtracked|={d_tr:.3e} px max|dresid|={d_res:.3e} vs the CPU")
+    if int(both.sum()) < n // 2 or agree < 0.999 or d_tr > 1e-3 \
+            or d_res > 1e-4:
+        fail(f"{label} on the card disagrees with the CPU: {msg}")
+    return launches, msg
+
+
+def check_xla_route(frames):
+    """MCMTT_LK_BACKEND=xla, set for one lk_track_pyramid call: on the
+    card every level takes the gather path (no LK kernel launch), and the
+    result equals the same call on the CPU."""
+    os.environ["MCMTT_LK_BACKEND"] = "xla"
+    try:
+        launches, msg = pyramid_on_card_and_cpu(
+            frames, "api: lk_track_pyramid, MCMTT_LK_BACKEND=xla")
+    finally:
+        del os.environ["MCMTT_LK_BACKEND"]
+    log(f"{msg} (expected 0 launches: the gather path)")
+    if launches:
+        fail(f"MCMTT_LK_BACKEND=xla launched the LK kernel {launches} times")
 
 
 def phase_lk_track_pyramid(frames):
@@ -839,43 +882,12 @@ def phase_lk_track_pyramid(frames):
     N=1024, w=16, 10 iterations: every level (576x768, 288x384, 144x192)
     is the kernel's shape, so the call launches the batched kernel 3
     times; held against the same call on the CPU (plain version)."""
-    import numpy as np
-    import torch
-    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel, lk_track_pyramid
-
-    rng = np.random.RandomState(1)
-    n = 1024
-    g0 = (frames[WARMUP][0].mean(-1) / 255.0).astype(np.float32)
-    g1 = (frames[WARMUP + 1][0].mean(-1) / 255.0).astype(np.float32)
-    pts = np.stack([rng.uniform(16, 752, n), rng.uniform(16, 560, n)],
-                   -1).astype(np.float32)
-    kw = dict(levels=3, window=16, iterations=10)
-    outs = {}
-    for dev in ("cuda", "cpu"):
-        args = [torch.tensor(x, device=dev) for x in (g0, g1, pts)]
-        lk_kernel.lk_level.launches = 0
-        outs[dev] = lk_track_pyramid(*args, **kw)
-        if dev == "cuda":
-            torch.cuda.synchronize()
-            launches = lk_kernel.lk_level.launches
-    args = [torch.tensor(x, device="cuda") for x in (g0, g1, pts)]
-    ms = time_ms(lambda: lk_track_pyramid(*args, **kw))
-    (tr_k, ok_k, res_k), (tr_r, ok_r, res_r) = (
-        [x.cpu() for x in outs["cuda"]], outs["cpu"])
-    agree = (ok_k == ok_r).float().mean().item()
-    both = ok_k & ok_r
-    d_tr = (tr_k - tr_r)[both].abs().max().item()
-    d_res = (res_k - res_r)[both].abs().max().item()
-    log(f"lk_track_pyramid: [576,768] 3 levels N={n}: lk_level launches="
-        f"{launches} (expected 3), valid={int(ok_k.sum())} valid-agree="
-        f"{agree:.6f} max|dtracked|={d_tr:.3e} px max|dresid|={d_res:.3e} "
-        f"vs the CPU; {ms:.4f} ms per call on the card")
+    launches, msg = pyramid_on_card_and_cpu(frames, "lk_track_pyramid")
+    ms = time_ms(pyramid_call(frames, "cuda")[0])
+    log(f"{msg} (expected 3); {ms:.4f} ms per call on the card")
     if launches != 3:
         fail(f"lk_track_pyramid launched the batched kernel {launches} "
              f"times, expected 3")
-    if int(both.sum()) < n // 2 or agree < 0.999 or d_tr > 1e-3 \
-            or d_res > 1e-4:
-        fail("lk_track_pyramid on the card disagrees with the CPU")
     return launches
 
 
@@ -902,23 +914,21 @@ def phase_mesh(cfg, sc, frames):
     solve_mwcp calls plus the global argmax."""
     import numpy as np
     import torch
-    from mcmtt_opticalflow_tpu_torch.config import SolverConfig
-    from mcmtt_opticalflow_tpu_torch.models.mwcp import solve_mwcp
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
     from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
-    from mcmtt_opticalflow_tpu_torch.parallel import (make_mesh,
-                                                      solve_mwcp_sharded)
+    from mcmtt_opticalflow_tpu_torch.parallel import make_mesh
+    from mcmtt_opticalflow_tpu_torch.parallel.multihost_sim import run_solve
 
     card0 = torch.device("cuda", 0)
     plain = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
-    plain.assoc.field_source = CpuDrawnFields(1)
+    plain.assoc.field_source = host_fields(1)
     t0 = time.perf_counter()
     ra = _run_engine(plain, sc, frames, MESH_FRAMES)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     mesh = make_mesh(devices=[card0] * 4)
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
-    eng.assoc.field_source = CpuDrawnFields(1)
+    eng.assoc.field_source = host_fields(1)
     lk_kernel.lk_level.launches = 0
     t0 = time.perf_counter()
     rb = _run_engine(eng, sc, frames, MESH_FRAMES)
@@ -948,39 +958,93 @@ def phase_mesh(cfg, sc, frames):
     if launches <= 0:
         fail("mesh: the mesh run launched no LK kernel")
 
-    rng = np.random.RandomState(2)
-    v, nv = 1024, 700
-    scfg = SolverConfig(num_replicas=8 + 30, max_vertices=v,
-                        solutions_per_replica=16)
-    weights = np.zeros(v, np.float32)
-    weights[:nv] = rng.rand(nv) * 10
-    up = np.triu(rng.rand(v, v) < 0.5, 1)
-    valid = np.arange(v) < nv
-    adj = (up | up.T) & valid[:, None] & valid[None, :]
-    ins = [torch.tensor(x, device=card0) for x in
-           (weights, adj, valid, np.zeros(v, bool))]
     bmesh = make_mesh(num_cam_shards=1, devices=[card0] * 2)
-    t0 = time.perf_counter()
-    got = solve_mwcp_sharded(*ins, [CpuDrawnFields(10), CpuDrawnFields(11)],
-                             bmesh, scfg, iters=150)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    blocks = [solve_mwcp(*ins, CpuDrawnFields(s), scfg, 150)
-              for s in (10, 11)]
-    best = torch.stack([r.best_score.max() for r in blocks])
-    b = int(torch.argmax(best))
-    want_mask = blocks[b].best_mask[int(torch.argmax(blocks[b].best_score))]
-    same = (torch.equal(got[0], want_mask) and float(got[1]) == float(best[b])
-            and torch.equal(got[2], torch.cat([r.best_mask for r in blocks]))
-            and torch.equal(got[3], torch.cat([r.best_score
-                                               for r in blocks])))
-    log(f"mesh: solve_mwcp_sharded V={v} ({nv} valid) R={scfg.num_replicas} "
-        f"150 iterations over {bmesh}: best {float(got[1]):.4f} "
-        f"(blocks {[round(float(x), 4) for x in best]}), clique of "
-        f"{int(got[0].sum())}; equals the per-block solves + argmax: {same};"
-        f" {wall:.2f} s")
-    if not same:
+    s = run_solve(bmesh, bench=True, reps=1)
+    log(f"mesh: solve_mwcp_sharded V=1024 (700 valid) R=38 150 iterations "
+        f"over {bmesh}: best {s['best_score']:.4f}, a clique of "
+        f"{len(s['best_mask'])}: {s['clique']}; equals the per-block solves "
+        f"+ argmax: {s['equals_per_block']}; {s['mesh_s']:.2f} s (one block "
+        f"{s['one_s']:.2f} s)")
+    if not (s["equals_per_block"] and s["clique"]):
         fail("mesh: solve_mwcp_sharded differs from its per-block solves")
+    return launches, rb, wall
+
+
+def phase_multiprocess(mesh_results, mesh_wall, card):
+    """parallel/multihost_sim.py --bench in two processes on the one card,
+    each holding two cuda:0 entries of the global cam 4 x block 1 mesh.
+    They join by gloo: NCCL refuses two ranks on one GPU, and gloo
+    stages the collectives' data through the host.  Each process steps
+    its two camera groups (16 LK launches a frame, counted in the
+    process), scores its chunks of the fused 3D program's rows, and runs
+    the rest of the 3D stage whole: both must give phase_mesh's mesh-run
+    ids frame by frame, points within 1 mm.  Their solve over a 1 x 4
+    mesh (two blocks each) must equal its per-block solves plus the
+    argmax, the same in both.  Each process is killed at MP_LIMIT_S.
+    Returns the LK launches of both processes."""
+    import tempfile
+    import numpy as np
+    from mcmtt_opticalflow_tpu_torch.parallel import multihost_sim
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        report, outs = multihost_sim.spawn(
+            2, ["--local-devices", "cuda:0,cuda:0", "--backend", "gloo",
+                "--bench", "--engine-frames", str(MESH_FRAMES)], tmp,
+            MP_LIMIT_S)
+    wall = time.perf_counter() - t0
+    for pid, (rc, _, err, res) in enumerate(outs):
+        if rc != 0 or res is None:
+            for line in err.strip().splitlines()[-20:]:
+                log(f"multiprocess| process {pid}: {line}")
+            fail(f"multiprocess: process {pid} exited {rc} (limit "
+                 f"{MP_LIMIT_S} s) {'with' if res else 'without'} a result")
+    if report is None:
+        fail("multiprocess: process 0 wrote no scaling report")
+    want = [(r.frame_idx, [int(i) for i in r.ids], np.asarray(r.points))
+            for r in mesh_results]
+    keys = ("best_score", "best_mask", "all_masks_sha256",
+            "all_scores_sha256")
+    launches = 0
+    for pid, (*_, res) in enumerate(outs):
+        eng, solver = res["engine"], res["solver"]
+        got = [(f["frame"], f["ids"], np.reshape(f["points"], (-1, 3)))
+               for f in eng["frames"]]
+        if [g[:2] for g in got] != [w[:2] for w in want]:
+            bad = next((w[0] for g, w in zip(got, want) if g[:2] != w[:2]),
+                       None)
+            fail(f"multiprocess: process {pid}'s ids differ from the mesh "
+                 f"run (first at frame {bad}; {len(got)} frames against "
+                 f"{len(want)})")
+        d_pts = max([float(np.abs(g[2] - w[2]).max())
+                     for g, w in zip(got, want) if len(w[1])] or [0.0])
+        coll = float(np.median(eng["collective_s_per_call"]))
+        log(f"multiprocess: process {pid} ({res['mesh']}): camera groups "
+            f"{eng['groups_here']}, blocks {solver['blocks_here']}; ids == "
+            f"the mesh run over {MESH_FRAMES} frames, max |d point| "
+            f"{d_pts:.3e} mm; lk_level launches={eng['lk_launches']} "
+            f"(expected {16 * MESH_FRAMES}); engine {eng['wall_s']:.2f} s "
+            f"against {mesh_wall:.2f} s for the one-process mesh run; "
+            f"median {1e3 * coll:.3f} ms a frame in collectives; solve best "
+            f"{solver['best_score']:.4f}, equals its per-block solves: "
+            f"{solver['equals_per_block']}, {solver['mesh_s']:.3f} s "
+            f"sharded against {solver['one_s']:.3f} s for one block")
+        if d_pts > 1.0:
+            fail(f"multiprocess: points differ by {d_pts} mm (limit 1.0)")
+        if eng["lk_launches"] != 16 * MESH_FRAMES:
+            fail(f"multiprocess: process {pid} launched the LK kernel "
+                 f"{eng['lk_launches']} times, expected {16 * MESH_FRAMES}")
+        if not (solver["equals_per_block"] and solver["clique"]
+                and res["fetch_ok"]):
+            fail(f"multiprocess: process {pid}'s solve or fetch failed its "
+                 f"checks")
+        if {k: solver[k] for k in keys} != {
+                k: outs[0][3]["solver"][k] for k in keys}:
+            fail("multiprocess: the processes' solves differ")
+        launches += eng["lk_launches"]
+    report.pop("frames")
+    log(f"multiprocess: scaling_report {json.dumps(report)} on {card}; both "
+        f"processes in {wall:.1f} s")
     return launches
 
 
@@ -1079,6 +1143,7 @@ def phase_cli(card):
     from mcmtt_opticalflow_tpu_torch.config import EngineConfig
     from mcmtt_opticalflow_tpu_torch.data import images
     from mcmtt_opticalflow_tpu_torch.eval import experiment
+    from mcmtt_opticalflow_tpu_torch.bench import bench_scene
     from mcmtt_opticalflow_tpu_torch.models import pipeline
     from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
 
@@ -1188,7 +1253,12 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: this script measures the port on a GPU")
+    if os.environ.get("MCMTT_LK_BACKEND", "").lower() == "xla":
+        fail("MCMTT_LK_BACKEND=xla routes every path around the LK kernel: "
+             "unset it")
     try:
+        from mcmtt_opticalflow_tpu_torch.bench import (bench_config,
+                                                       bench_scene)
         from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
     except ImportError as e:
         fail(f"run from the repository root: {e}")
@@ -1220,7 +1290,8 @@ def main():
     s_launches, s_tr, s_call_ms, _ = phase_serial(frames, cfg)
     phase_api(cfg, sc, frames)
     paths["lk_track_pyramid"] = phase_lk_track_pyramid(frames)
-    paths["mesh"] = phase_mesh(cfg, sc, frames)
+    paths["mesh"], mesh_results, mesh_wall = phase_mesh(cfg, sc, frames)
+    paths["multiprocess"] = phase_multiprocess(mesh_results, mesh_wall, card)
     paths["profile"] = phase_profile(cfg, sc, frames)
     paths["cli"] = phase_cli(card)
     torch.cuda.synchronize()

@@ -48,7 +48,11 @@ from mcmtt_opticalflow_tpu_torch.models.mwcp import (
 from mcmtt_opticalflow_tpu_torch.models.trees import (
     Track, TrackRegistry, Tracklet, TrackTree)
 from mcmtt_opticalflow_tpu_torch.ops.sgsmooth import smoothing_matrix_np
+from mcmtt_opticalflow_tpu_torch.parallel.mesh import (Shards,
+                                                       device_sharding, fetch,
+                                                       join)
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
+from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
 
 _MAP_STRIDE = 4
@@ -74,23 +78,25 @@ def _link_prob_batch(p1s: np.ndarray, p2s: np.ndarray, gaps: np.ndarray,
     return 0.5 * _erfc(4.0 * d / (max_speed * g) - 2.0)
 
 
-def compat_matrix(tree_ids, shared, pos_grid, have, valid, acfg):
-    """[N, N] bool COMPATIBILITY (edge) matrix on the device
-    (ref CheckIncompatibility, Associator3D.cpp:2411-2503).
+def incompat_rows(tree_ids, pos_grid, have, cols, acfg):
+    """[n, N] bool: the geometric INCOMPATIBILITY of n tracks (rows)
+    against every track (`cols`: the same three arrays of all N tracks,
+    which the rows are a slice of) — same tree, too close at some common
+    instant, or crossing paths (ref CheckIncompatibility,
+    Associator3D.cpp:2411-2503).
 
-    `shared` [N, N] is the host-precomputed full-history tracklet-share
-    relation.  pos_grid [N, W, 3] holds every track's positions on a
-    COMMON absolute time grid (slot k = frame t0+k), have [N, W] marks
-    filled slots, so the proximity / crossing checks are broadcasts."""
-    n = tree_ids.shape[0]
-    same_tree = tree_ids[:, None] == tree_ids[None, :]
-    incompat = same_tree | shared
-
-    use = have[:, None, :] & have[None, :, :]          # [N, N, W]
-    pi = pos_grid[:, None]                             # [N, 1, W, 3]
-    pj = pos_grid[None, :]                             # [1, N, W, 3]
+    pos_grid [n, W, 3] holds positions on a COMMON absolute time grid
+    (slot k = frame t0+k), have [n, W] marks filled slots, so the
+    proximity / crossing checks are broadcasts.  Each row depends only on
+    its own inputs and the columns, so a row chunk on its own device
+    gives exactly the rows of the whole matrix."""
+    col_ids, col_pos, col_have = cols
+    same_tree = tree_ids[:, None] == col_ids[None, :]
+    use = have[:, None, :] & col_have[None, :, :]      # [n, N, W]
+    pi = pos_grid[:, None]                             # [n, 1, W, 3]
+    pj = col_pos[None, :]                              # [1, N, W, 3]
     diff = pi - pj
-    dist = torch.sqrt(torch.sum(diff * diff, -1))      # [N, N, W]
+    dist = torch.sqrt(torch.sum(diff * diff, -1))      # [n, N, W]
     # the reference skips BOTH checks when the tracks are far apart at
     # that instant (`> MAX_MOVING_SPEED * 2` continue, ref :2489)
     near = dist <= 2.0 * acfg.max_moving_speed
@@ -99,9 +105,24 @@ def compat_matrix(tree_ids, shared, pos_grid, have, valid, acfg):
                                pj[..., :-1, :2], pj[..., 1:, :2])
     crossing = torch.any(cross & near[..., :-1]
                          & use[..., :-1] & use[..., 1:], -1)
-    incompat = incompat | too_close | crossing
+    return same_tree | too_close | crossing
+
+
+def _compat_from(incompat, valid):
+    """Edges: compatible pairs of valid vertices, no self loops."""
+    n = incompat.shape[0]
     compat = ~incompat & valid[:, None] & valid[None, :]
     return compat & ~torch.eye(n, dtype=torch.bool, device=compat.device)
+
+
+def compat_matrix(tree_ids, shared, pos_grid, have, valid, acfg):
+    """[N, N] bool COMPATIBILITY (edge) matrix on the device
+    (ref CheckIncompatibility, Associator3D.cpp:2411-2503).
+
+    `shared` [N, N] is the host-precomputed full-history tracklet-share
+    relation; the geometric part is `incompat_rows` of every track."""
+    cols = (tree_ids, pos_grid, have)
+    return _compat_from(shared | incompat_rows(*cols, cols, acfg), valid)
 
 
 @dataclasses.dataclass
@@ -152,11 +173,15 @@ class Associator3D:
         results are bit-equal, only delayed one frame (call collect()
         after the last frame for the final one).
 
-        mesh: optional ('cam', 'block') Mesh (parallel/mesh.py).  The JAX
-        package places every input of the fused per-frame program
-        replicated over its mesh (its `_dev` is never asked to shard), so
-        here that program runs on the mesh's first device, the default
-        `device`.
+        mesh: optional ('cam', 'block') Mesh (parallel/mesh.py).  As in
+        the JAX package, the fused per-frame program's row inputs (the
+        rescoring windows and the graph's tree rows) are split over every
+        mesh device (`_dev`), each chunk is scored, and its compatibility
+        rows computed, on its own device — in the process that owns it,
+        on a mesh over several processes; the chunks are joined on the
+        process's first mesh device (`mesh.home`, the default `device`),
+        where the weights, the solve and the K-best selection run, in
+        every process alike.
 
         device: where the per-frame device program runs (default: the
         CUDA card; None raises without one).  `cameras` stay on the host
@@ -168,9 +193,11 @@ class Associator3D:
         self.cameras = list(cameras)
         self.mesh = mesh
         if mesh is not None and device is None:
-            device = mesh.devices.flat[0]
+            device = mesh.home
         self.device = resolve_device(device)
         self.cams = stack_cameras(cameras, self.device)
+        # the stacked cameras on each other device a row chunk runs on
+        self._cams_on = {str(self.device): self.cams}
 
         w, h = cfg.image_width, cfg.image_height
         if sidemaps is not None:
@@ -274,8 +301,6 @@ class Associator3D:
             self.cfg.solver,
             num_replicas=self.cfg.solver.num_replicas
             + self.acfg.k_best_size)
-        self._score_windows = functools.partial(score_track_windows,
-                                                cams=self.cams, cfg=acfg)
         self._compat_matrix = functools.partial(compat_matrix, acfg=acfg)
 
     def _rescore_and_solve(self, pts, raws, rmask, merr, lens, row_map,
@@ -289,24 +314,38 @@ class Associator3D:
 
         Position arrays arrive as float16 (as the JAX package ships them,
         so both packages score the same quantised inputs) and widen to
-        float32 here.  Returns the two download leaves `_unpack_solve`
+        float32 here.  With a mesh the row inputs may arrive as Shards
+        (`_dev`): the window scores and the compatibility rows are then
+        computed chunk by chunk on the chunks' devices (`_on_rows`) and
+        joined here, on `self.device`, with one cross-process all-gather
+        for the columns and one for the results when chunks live in other
+        processes.  Returns the two download leaves `_unpack_solve`
         reads: pack_a [nr, 5w+2] f16 (smoothed | cost_recon | cost_link |
         window_cost | valid) and pack_b [K, vmax/8 + 4] u8 (bit-packed
         K-best masks | score bytes)."""
         acfg = self.acfg
         solver_cfg = self._solver_cfg_fused
-        pts = pts.float()
-        raws = raws.float()
-        merr = merr.float()
+        ws = self._on_rows(
+            lambda d, p, r, m, e, n: score_track_windows(
+                p.float(), r.float(), m, e.float(), n, self._cams(d), acfg),
+            pts, raws, rmask, merr, lens)
+        # every track's tree id and grid, the compatibility columns
+        cols = join((tree_ids, pos_grid, have), self.device)
+        cols = (cols[0], cols[1].float(), cols[2])
+        incompat = self._on_rows(
+            lambda d, t, g, h: incompat_rows(
+                t, g.float(), h, tuple(c.to(d) for c in cols), acfg),
+            tree_ids, pos_grid, have)
+        ws, incompat, lens, pvalid = join(
+            (ws._replace(velocity=torch.zeros(0)), incompat, lens, pvalid),
+            self.device)
         # `shared` arrives bit-packed ([nb, ceil(nb/8)] u8, np.packbits
         # big-endian)
-        nb = tree_ids.shape[0]
+        nb = incompat.shape[0]
         shifts = torch.arange(7, -1, -1, dtype=torch.uint8,
                               device=shared.device)
         bits = (shared[:, :, None] >> shifts) & 1
         shared = bits.reshape(nb, -1)[:, :nb].bool()
-        ws = score_track_windows(pts, raws, rmask, merr, lens, self.cams,
-                                 acfg)
         vmax = solver_cfg.max_vertices
         rm = torch.clamp(row_map, min=0).long()
         has_row = row_map >= 0
@@ -319,8 +358,7 @@ class Associator3D:
         weights = -(host_base + wcost)              # [vmax]
         # vertices need positive log-likelihood
         vert_ok = wvalid & (weights > 0.0)
-        compat = compat_matrix(tree_ids, shared, pos_grid.float(), have,
-                               pvalid & vert_ok[:nb], acfg)
+        compat = _compat_from(shared | incompat, pvalid & vert_ok[:nb])
         dev = weights.device
         adj = torch.zeros((vmax, vmax), dtype=torch.bool, device=dev)
         adj[:nb, :nb] = compat
@@ -351,11 +389,44 @@ class Associator3D:
     # host -> device placement
     # ------------------------------------------------------------------
     def _dev(self, x, shard: bool = False):
-        """Upload a host array to the engine's device (`shard` is kept for
-        the call sites' sake; there is no mesh)."""
-        del shard
-        return torch.from_numpy(np.ascontiguousarray(x)).to(
-            self.device, non_blocking=True)
+        """Upload a host array.  With a mesh, the JAX package's rule
+        (associator3d.py:413-423): the leading axis is split over every
+        mesh device, in flat mesh order, when `shard` is set and the axis
+        divides mesh.size (`Shards`: this process's chunks, each on its
+        device); otherwise the array is replicated, which here is one
+        copy on `self.device`, where the replicated part of the program
+        runs (a chunk's device takes the columns it reads from there).
+        Without a mesh: a tensor on `self.device`."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if (self.mesh is not None and shard and t.dim() > 0
+                and t.shape[0] % self.mesh.size == 0):
+            return device_sharding(self.mesh).split(t)
+        return t.to(self.device, non_blocking=True)
+
+    def _cams(self, device) -> TsaiCamera:
+        """The stacked cameras on `device` (made once per device)."""
+        key = str(device)
+        if key not in self._cams_on:
+            self._cams_on[key] = stack_cameras(self.cameras, device)
+        return self._cams_on[key]
+
+    def _on_rows(self, fn, *rows):
+        """fn(device, *rows) for row inputs on `self.device`; for Shards
+        inputs (one placement), fn on each chunk this process holds, on
+        that chunk's device, giving fn's output tree with a Shards leaf
+        for each of its leaves."""
+        if not isinstance(rows[0], Shards):
+            return fn(self.device, *rows)
+        out = [None] * len(rows[0].parts)
+        for g, d, _ in rows[0].local_parts():
+            out[g] = fn(d, *[x.parts[g] for x in rows])
+        ref = next(o for o in out if o is not None)
+        per_group = [None if o is None else tree_leaves(o) for o in out]
+        leaves = iter([Shards(rows[0].placement,
+                              [None if g is None else g[i]
+                               for g in per_group])
+                       for i in range(len(tree_leaves(ref)))])
+        return tree_map(lambda _: next(leaves), ref)
 
     # ------------------------------------------------------------------
     # side-map sampling (host, numpy)
@@ -1307,12 +1378,14 @@ class Associator3D:
             return
         pts, raws, rmask, merr, lens, starts = self._pack_windows(tracks)
         with self.timer.stage("rescore.dispatch"):
-            out = self._score_windows(
+            out = self._on_rows(
+                lambda d, *x: score_track_windows(*x, self._cams(d),
+                                                  self.acfg),
                 self._dev(pts, True), self._dev(raws, True),
                 self._dev(rmask, True), self._dev(merr, True),
                 self._dev(lens, True))
         with self.timer.stage("rescore.device"):
-            res = WindowScore(*DeviceFetch(out).get())
+            res = fetch(out)
         self._apply_window_scores(tracks, res, lens, starts)
 
     def _apply_window_scores(self, tracks: List[Track], res, lens, starts):

@@ -45,8 +45,10 @@ class MwcpFields(NamedTuple):
 
 
 class GeneratorFields:
-    """Field source drawing from a torch.Generator (on the solve's
-    device); successive solves continue the generator's stream."""
+    """Field source drawing from a torch.Generator on the generator's own
+    device and moving the fields to the solve's device; successive solves
+    continue the generator's stream.  A generator on the CPU gives the
+    same fields to solves on any device."""
 
     def __init__(self, generator: torch.Generator):
         self.generator = generator
@@ -55,17 +57,18 @@ class GeneratorFields:
         g = self.generator
 
         def uniform(*shape):
-            return torch.rand(shape, generator=g, device=device)
+            return torch.rand(shape, generator=g, device=g.device)
 
         def gumbel(*shape):
             tiny = torch.finfo(torch.float32).tiny
             return -torch.log(-torch.log(torch.clamp(uniform(*shape),
                                                      min=tiny)))
 
-        return MwcpFields(noise=uniform(r, v), u_dir=uniform(iters_pad, r),
-                          g_dir=gumbel(iters_pad, r, v),
-                          u_ten=uniform(iters_pad, r),
-                          g_rnd=gumbel(iters_pad, r, v))
+        f = MwcpFields(noise=uniform(r, v), u_dir=uniform(iters_pad, r),
+                       g_dir=gumbel(iters_pad, r, v),
+                       u_ten=uniform(iters_pad, r),
+                       g_rnd=gumbel(iters_pad, r, v))
+        return MwcpFields(*[x.to(device) for x in f])
 
 
 def _greedy_initial(weights, adj, valid, orders, nvalid: int):

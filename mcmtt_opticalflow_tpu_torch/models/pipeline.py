@@ -9,9 +9,13 @@ Per frame:
 
 The whole 8-bit gray frame goes up from pinned memory with a non-blocking
 copy; the 2D result comes down as one packed f32 tensor per camera group
-through a `DeviceFetch` (non-blocking copies behind CUDA events).  With a
-mesh (parallel/mesh.py) the cameras split into one group per 'cam' row,
-each stepping its own slice of the 2D state on that row's first device.
+through parallel/mesh.py's `AsyncFetch` (non-blocking copies behind CUDA
+events).  With a mesh the cameras split into one group per 'cam' row,
+each stepping its own slice of the 2D state on that row's first device;
+on a mesh over several processes each process steps only the groups it
+owns, and every frame's packed 2D outputs reach every process with one
+all-gather, in camera order, so that the host 3D stage runs alike in
+every process.
 """
 
 from __future__ import annotations
@@ -28,17 +32,15 @@ from mcmtt_opticalflow_tpu_torch.models.associator3d import (Associator3D,
                                                              Track3DResult)
 from mcmtt_opticalflow_tpu_torch.models.tracker2d import (
     Tracker2DState, init_tracker2d_state, tracker2d_step)
-from mcmtt_opticalflow_tpu_torch.parallel.mesh import (cam_sharding,
+from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
+                                                       cam_sharding,
                                                        shard_leaves)
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
-from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_map
 
 
-def _unpack2d(parts):
-    """Host inverse of `_pack2d`, over the camera groups' packs in camera
-    order."""
-    a = np.concatenate(parts)
+def _unpack2d(a):
+    """Host inverse of `_pack2d`, over every camera."""
     return (a[..., 0].astype(np.int64), a[..., 2:6], a[..., 1] > 0.5)
 
 
@@ -72,8 +74,13 @@ class TrackingEngine:
         mesh: optional ('cam', 'block') Mesh (parallel/mesh.py).  The
         camera axis of the 2D stage splits into mesh.shape["cam"] groups
         (`state2d_groups`), each stepped on its 'cam' row's first device;
-        the 3D stage runs on the mesh's first device, which is also the
-        engine's `device`.  Results equal the run without a mesh."""
+        the 3D stage runs on the mesh (see Associator3D), its replicated
+        part on the process's first mesh device, which is also the
+        engine's `device`.  On a mesh over several processes, every
+        process makes the same calls with the same frames: each steps
+        the groups it owns (None in `state2d_groups` for the others) and
+        all return the same results.  Results equal the run without a
+        mesh."""
         assert len(cameras) == cfg.num_cameras
         self.mesh = mesh
         self._cam_split = None
@@ -84,7 +91,7 @@ class TrackingEngine:
             if device is not None:
                 raise ValueError("pass a mesh or a device, not both: with "
                                  "a mesh the engine's device is its first")
-            device = mesh.devices.flat[0]
+            device = mesh.home
             self._cam_split = cam_sharding(mesh)
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -106,7 +113,7 @@ class TrackingEngine:
         self.timing: List[float] = []
         self.pipelined = pipelined
         # queue of up to 2 in-flight 2D frames:
-        # (frame_idx, DeviceFetch of the packed 2D outputs, host rgb u8)
+        # (frame_idx, AsyncFetch of the packed 2D outputs, host rgb u8)
         self._pending: List[tuple] = []
 
     def _split(self, tree) -> list:
@@ -118,7 +125,12 @@ class TrackingEngine:
     @property
     def state2d(self) -> Tracker2DState:
         """The 2D state of every camera; with a mesh, the groups' slices
-        joined on the engine's device (the groups keep stepping theirs)."""
+        joined on the engine's device (the groups keep stepping theirs).
+        Raises on a mesh over several processes, where no process holds
+        every group."""
+        if any(g is None for g in self.state2d_groups):
+            raise RuntimeError("the 2D state of a mesh over several "
+                               "processes is split between them")
         if len(self.state2d_groups) == 1:
             return self.state2d_groups[0]
         return tree_map(lambda *xs: torch.cat([x.to(self.device)
@@ -141,10 +153,12 @@ class TrackingEngine:
 
     def _upload_gray(self, gray_u8: np.ndarray) -> List[torch.Tensor]:
         """[C, H, W] u8 gray -> per camera group, f32 in [0, 1] on the
-        group's device."""
-        return [self._upload(g, dev).float() * (1.0 / 255.0)
-                for g, dev in zip(self._group_slices(gray_u8),
-                                  self._group_devices)]
+        group's device (None for the groups of other processes)."""
+        return [None if state is None
+                else self._upload(g, dev).float() * (1.0 / 255.0)
+                for g, dev, state in zip(self._group_slices(gray_u8),
+                                         self._group_devices,
+                                         self.state2d_groups)]
 
     def _pad_detections(self, detections):
         c = self.cfg.num_cameras
@@ -159,18 +173,23 @@ class TrackingEngine:
         return boxes, mask
 
     def _step2d(self, grays, boxes, mask):
-        """The 2D step of every camera group; returns the groups' packed
-        outputs in camera order."""
+        """The 2D step of every camera group this process holds; returns
+        the packed outputs, [C, T, 6] (as Shards over the camera groups
+        with a mesh)."""
         packs = []
         for g, (dev, cams, gray, box, msk) in enumerate(zip(
                 self._group_devices, self._group_cams, grays,
                 self._group_slices(boxes), self._group_slices(mask))):
+            if gray is None:                  # another process's group
+                packs.append(None)
+                continue
             self.state2d_groups[g], out2d = tracker2d_step(
                 self.state2d_groups[g], gray, self._upload(box, dev),
                 self._upload(msk, dev), cams, self.frame_idx,
                 self.cfg.tracker2d)
             packs.append(_pack2d(out2d))
-        return packs
+        return packs[0] if self.mesh is None else Shards(self._cam_split,
+                                                         packs)
 
     def process_frame(self, frames_rgb: np.ndarray,
                       detections: Sequence[np.ndarray],
@@ -211,7 +230,7 @@ class TrackingEngine:
                 self.assoc.step_finish(prev_idx)
             with self.assoc.timer.stage("tracker2d"):
                 packs = self._step2d(grays, boxes, mask)
-            self._pending.append((self.frame_idx, DeviceFetch(packs), f))
+            self._pending.append((self.frame_idx, AsyncFetch(packs), f))
             if result is None:       # pipeline still filling
                 return None
         else:
@@ -225,7 +244,7 @@ class TrackingEngine:
 
     def _associate(self, frame_idx, packs, rgb) -> Track3DResult:
         with self.assoc.timer.stage("get2d"):
-            ids_np, boxes_np, mask_np = _unpack2d(DeviceFetch(packs).get())
+            ids_np, boxes_np, mask_np = _unpack2d(AsyncFetch(packs).get())
         return self.assoc.step(frame_idx, ids_np, boxes_np, mask_np, rgb)
 
     def flush(self) -> Optional[Track3DResult]:

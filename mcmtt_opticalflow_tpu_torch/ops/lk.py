@@ -9,10 +9,18 @@ go to the LK level kernel (ops/lk_kernel.py: CUDA on the card, its plain
 version on the CPU) over all cameras' features flattened to [C*N];
 smaller levels use the gather path `lk_track_points`, one camera at a
 time.  Inputs are gray float images in [0, 1].
+
+MCMTT_LK_BACKEND=pallas|xla, read on every call (`use_kernel`), is the
+JAX package's switch (lk.py:112-123): `xla` takes the gather path at
+every level, as the JAX `xla_impl` does; unset, `pallas` or any other
+value keeps the rule above.  Unset differs from the JAX default off a
+TPU (its gather path): here the card plays the TPU's part, so unset
+means the kernel.
 """
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 import torch
@@ -105,6 +113,12 @@ def kernel_ok(h: int, w: int, n: int) -> bool:
     return h >= 40 and w >= 128 and h % 8 == 0 and n % 8 == 0
 
 
+def use_kernel() -> bool:
+    """False when MCMTT_LK_BACKEND is `xla` (any case): every level then
+    takes the gather path.  Read on every call, never at import."""
+    return os.environ.get("MCMTT_LK_BACKEND", "").lower() != "xla"
+
+
 _CAM_INDEX = {}
 
 
@@ -123,7 +137,7 @@ def lk_level_cams(prev, nxt, src, cur, act, window: int, iterations: int):
     [C, N, 2]; act: [C, N] bool.  Returns ([C, N, 2], [C, N], [C, N])."""
     c, h, w = prev.shape
     n = src.shape[1]
-    if kernel_ok(h, w, n):
+    if use_kernel() and kernel_ok(h, w, n):
         # the patch kernel reads 8-row / 128-column aligned patches:
         # edge-pad the level images (lk.py:142-150)
         prev_p = edge_pad_to(prev, 8, 128)

@@ -24,10 +24,12 @@ from mcmtt_opticalflow_tpu_torch.parallel import (block_sharding,
                                                   cam_sharding, make_mesh,
                                                   replicated,
                                                   solve_mwcp_sharded)
-from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, fetch,
-                                                       shard_leaves)
+from mcmtt_opticalflow_tpu_torch.models.associator3d import Associator3D
+from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
+                                                       device_sharding, fetch,
+                                                       join, shard_leaves)
 from mcmtt_opticalflow_tpu_torch.parallel.solver_parallel import split_fields
-from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves
+from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 from torch_parity import jax_mwcp_fields, to_torch_fields
 
 torch.set_num_threads(2)
@@ -73,6 +75,44 @@ class TestMesh:
             assert isinstance(out[1][0], np.ndarray)
             np.testing.assert_array_equal(out[0], [0, 1, 2])
             assert bool(out[1][1])
+
+    def test_split_over_every_device(self):
+        """The counterpart of P(("cam", "block")): one slice per device in
+        flat order, whole again after a fetch or a join (no collective
+        in one process)."""
+        mesh = make_mesh(devices=CPU8)
+        x = torch.arange(16 * 3).reshape(16, 3)
+        s = device_sharding(mesh).split(x)
+        assert isinstance(s, Shards) and not s.remote
+        assert [p.shape for p in s.parts] == [(2, 3)] * 8
+        np.testing.assert_array_equal(fetch((s, x))[0], x.numpy())
+        assert torch.equal(join(s, "cpu"), x)
+
+    def test_owners(self):
+        """A mesh over two processes (as seen by process 1): each group
+        belongs to the process that owns its device; blocks spread over
+        the processes; other processes' slices are None."""
+        owners = [0] * 4 + [1] * 4
+        devs = [f"cpu:{i}" for i in range(8)]
+        mesh = make_mesh(devices=devs, owners=owners, process_index=1)
+        assert mesh.processes == [0, 1] and str(mesh.home) == "cpu:4"
+        assert cam_sharding(mesh).owners == [0, 0, 1, 1]
+        blocks = block_sharding(mesh)
+        assert blocks.owners == [0, 1] and blocks.local == [False, True]
+        assert [str(d) for d in blocks.devices] == ["cpu:0", "cpu:5"]
+        s = device_sharding(mesh).split(torch.arange(8))
+        assert s.remote and [p is None for p in s.parts] == [True] * 4 + [
+            False] * 4
+        assert shard_leaves((torch.zeros(4),), cam_sharding(mesh))[:2] == [
+            None, None]
+        for shape, want in ((2, [0, 1]), (1, [0, 0, 1, 1])):
+            m = make_mesh(shape, devices=devs[:4], owners=[0, 0, 1, 1])
+            assert block_sharding(m).owners == want
+        with pytest.raises(ValueError, match="owns no mesh entry"):
+            make_mesh(devices=devs, owners=owners, process_index=2)
+        # a mesh of one process keeps its first row for every block
+        assert block_sharding(make_mesh(devices=devs)).devices == [
+            torch.device("cpu:0"), torch.device("cpu:1")]
 
 
 def _instance(v=32, seed=0):
@@ -199,3 +239,100 @@ def test_engine_mesh_checks():
         TrackingEngine(_engine_cfg(), sc.cameras,
                        mesh=make_mesh(num_cam_shards=3,
                                       devices=["cpu"] * 3))
+
+
+# the fused program's arguments (Associator3D._rescore_and_solve) that
+# the JAX package uploads with _dev(x, True) (associator3d.py:2549-2559)
+_SPLIT_ARGS = {0: "pts", 1: "raws", 2: "rmask", 3: "merr", 4: "lens",
+               7: "tree_ids", 9: "pos_grid", 10: "have", 11: "pvalid"}
+
+
+def _whole(x):
+    return torch.cat(x.parts) if isinstance(x, Shards) else x
+
+
+@pytest.fixture(scope="module")
+def fused_calls():
+    """The engine on an 8-device and a 3-device CPU mesh for 6 frames:
+    the arguments of every fused-program call."""
+    sc = make_scenario(num_cameras=4, num_frames=6, num_people=4,
+                       image_size=(128, 96), arena=3000.0, seed=5)
+    out = {}
+    for n in (8, 3):
+        eng = TrackingEngine(_engine_cfg(), sc.cameras,
+                             mesh=make_mesh(devices=["cpu"] * n))
+        calls, orig = [], eng.assoc._rescore_and_solve
+
+        def record(*args, calls=calls, orig=orig):
+            calls.append(args)
+            return orig(*args)
+        eng.assoc._rescore_and_solve = record
+        for t in range(6):
+            eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
+                              frame_idx=t)
+        assert calls, "no fused-program call: the test is vacuous"
+        out[n] = (eng, calls)
+    return sc, out
+
+
+def test_dev_splits_by_the_jax_rule():
+    """_dev(x, True) splits the leading axis over every mesh device when
+    it divides mesh.size and replicates otherwise; _dev(x) replicates."""
+    sc = make_scenario(num_cameras=4, num_frames=1, num_people=1,
+                       image_size=(128, 96), seed=1)
+    assoc = Associator3D(_engine_cfg(), sc.cameras,
+                         mesh=make_mesh(devices=CPU8))
+    x = np.arange(16 * 2).reshape(16, 2)
+    s = assoc._dev(x, True)
+    assert isinstance(s, Shards) and len(s.parts) == 8
+    np.testing.assert_array_equal(_whole(s).numpy(), x)
+    for y, shard in ((x, False), (x[:12], True), (np.int32(3), True)):
+        t = assoc._dev(y, shard)
+        assert isinstance(t, torch.Tensor)
+        np.testing.assert_array_equal(t.numpy(), y)
+    plain = Associator3D(_engine_cfg(), sc.cameras, device="cpu")
+    assert isinstance(plain._dev(x, True), torch.Tensor)
+
+
+@pytest.mark.parametrize("n", [8, 3])
+def test_fused_program_row_inputs_split_by_the_rule(fused_calls, n):
+    """Every split argument of every call is Shards of mesh.size chunks
+    exactly when its leading axis divides mesh.size (always at 8: the
+    row buckets are powers of two >= 64; never at 3); the others are
+    replicated tensors."""
+    _, out = fused_calls
+    _, calls = out[n]
+    for args in calls:
+        for i, x in enumerate(args[:13]):
+            rows = _whole(x).shape[0]
+            split = i in _SPLIT_ARGS and rows % n == 0
+            assert isinstance(x, Shards) is split, (n, i, rows)
+            if split:
+                assert len(x.parts) == n and not x.remote
+        assert (n == 8) == isinstance(args[0], Shards)
+
+
+def test_fused_program_equals_no_mesh_bit_for_bit(fused_calls):
+    """Each recorded call on the 8-device mesh, replayed with equal
+    fields, against the same call on whole tensors without a mesh."""
+    sc, out = fused_calls
+    eng, calls = out[8]
+    plain = Associator3D(_engine_cfg(), sc.cameras, device="cpu")
+    for args in calls:
+        got = Associator3D._rescore_and_solve(
+            eng.assoc, *args[:13], GeneratorFields(torch.Generator().manual_seed(9)),
+            args[14])
+        want = plain._rescore_and_solve(
+            *[_whole(x) for x in args[:13]],
+            GeneratorFields(torch.Generator().manual_seed(9)), args[14])
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+
+
+def test_scaling_report_matches_jax():
+    from mcmtt_opticalflow_tpu.parallel.launch import \
+        scaling_report as jax_scaling_report
+    from mcmtt_opticalflow_tpu_torch.parallel.launch import scaling_report
+    for rates in ((2.0, 11.0), (0.0, 3.0), (1.5, 1.5)):
+        assert scaling_report(make_mesh(devices=CPU8), *rates) == \
+            jax_scaling_report(jax_make_mesh(), *rates)
