@@ -305,7 +305,7 @@ class Associator3D:
 
     def _rescore_and_solve(self, pts, raws, rmask, merr, lens, row_map,
                            host_base, tree_ids, shared, pos_grid, have,
-                           pvalid, init_masks, fields, iters):
+                           pvalid, init_masks, fields, iters, cols):
         """The whole 3D scoring tail of a frame on the device: window
         re-smoothing/re-costing of every updated track and branch
         candidate, track weights (host cost prefix + device window cost),
@@ -314,31 +314,35 @@ class Associator3D:
 
         Position arrays arrive as float16 (as the JAX package ships them,
         so both packages score the same quantised inputs) and widen to
-        float32 here.  With a mesh the row inputs may arrive as Shards
-        (`_dev`): the window scores and the compatibility rows are then
-        computed chunk by chunk on the chunks' devices (`_on_rows`) and
-        joined here, on `self.device`, with one cross-process all-gather
-        for the columns and one for the results when chunks live in other
-        processes.  Returns the two download leaves `_unpack_solve`
-        reads: pack_a [nr, 5w+2] f16 (smoothed | cost_recon | cost_link |
-        window_cost | valid) and pack_b [K, vmax/8 + 4] u8 (bit-packed
-        K-best masks | score bytes)."""
+        float32 here.  `cols` is (tree_ids, pos_grid, have) of every
+        track on `self.device`, the compatibility columns; the row inputs
+        are the same arrays where `_dev` does not split them.  With a mesh
+        the row inputs may arrive as Shards (`_dev`): the window scores
+        and the compatibility rows are then computed chunk by chunk on
+        the chunks' devices (`_on_rows`) and joined here, on
+        `self.device`, with one cross-process all-gather when chunks live
+        in other processes.  Returns the two download leaves
+        `_unpack_solve` reads: pack_a [nr, 5w+2] f16 (smoothed |
+        cost_recon | cost_link | window_cost | valid) and pack_b
+        [K, vmax/8 + 4] u8 (bit-packed K-best masks | score bytes)."""
         acfg = self.acfg
         solver_cfg = self._solver_cfg_fused
         ws = self._on_rows(
             lambda d, p, r, m, e, n: score_track_windows(
                 p.float(), r.float(), m, e.float(), n, self._cams(d), acfg),
             pts, raws, rmask, merr, lens)
-        # every track's tree id and grid, the compatibility columns
-        cols = join((tree_ids, pos_grid, have), self.device)
         cols = (cols[0], cols[1].float(), cols[2])
-        incompat = self._on_rows(
-            lambda d, t, g, h: incompat_rows(
-                t, g.float(), h, tuple(c.to(d) for c in cols), acfg),
-            tree_ids, pos_grid, have)
-        ws, incompat, lens, pvalid = join(
-            (ws._replace(velocity=torch.zeros(0)), incompat, lens, pvalid),
-            self.device)
+        if isinstance(tree_ids, Shards):
+            incompat = self._on_rows(
+                lambda d, t, g, h: incompat_rows(
+                    t, g.float(), h, tuple(c.to(d) for c in cols), acfg),
+                tree_ids, pos_grid, have)
+        else:
+            incompat = incompat_rows(*cols, cols, acfg)
+        (smoothed, cost_recon, cost_link, window_cost, wvalid), incompat, \
+            lens, pvalid = join(
+                ((ws.smoothed, ws.cost_recon, ws.cost_link, ws.window_cost,
+                  ws.valid), incompat, lens, pvalid), self.device)
         # `shared` arrives bit-packed ([nb, ceil(nb/8)] u8, np.packbits
         # big-endian)
         nb = incompat.shape[0]
@@ -353,11 +357,11 @@ class Associator3D:
         # raw-point costs (ref Associator3D.cpp:1475-1511): their
         # host_base already carries the full cost
         short_row = lens[rm] < (acfg.sg_span // 2)
-        wcost = torch.where(has_row & ~short_row, ws.window_cost[rm], 0.0)
-        wvalid = torch.where(has_row, ws.valid[rm], True)
+        wcost = torch.where(has_row & ~short_row, window_cost[rm], 0.0)
+        row_ok = torch.where(has_row, wvalid[rm], True)
         weights = -(host_base + wcost)              # [vmax]
         # vertices need positive log-likelihood
-        vert_ok = wvalid & (weights > 0.0)
+        vert_ok = row_ok & (weights > 0.0)
         compat = _compat_from(shared | incompat, pvalid & vert_ok[:nb])
         dev = weights.device
         adj = torch.zeros((vmax, vmax), dtype=torch.bool, device=dev)
@@ -373,12 +377,12 @@ class Associator3D:
         kb_packed = torch.sum(
             kb_masks.reshape(k, -1, 8).to(torch.uint8) * weights8, -1,
             dtype=torch.uint8)
-        nr = ws.smoothed.shape[0]
+        nr = smoothed.shape[0]
         pack_a = torch.cat([
-            ws.smoothed.half().reshape(nr, -1),
-            ws.cost_recon.half(), ws.cost_link.half(),
-            ws.window_cost.half()[:, None],
-            ws.valid.half()[:, None]], dim=1)
+            smoothed.half().reshape(nr, -1),
+            cost_recon.half(), cost_link.half(),
+            window_cost.half()[:, None],
+            wvalid.half()[:, None]], dim=1)
         pack_b = torch.cat([
             kb_packed,
             kb_scores.float().contiguous().view(torch.uint8).reshape(k, 4)],
@@ -398,10 +402,14 @@ class Associator3D:
         runs (a chunk's device takes the columns it reads from there).
         Without a mesh: a tensor on `self.device`."""
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if (self.mesh is not None and shard and t.dim() > 0
-                and t.shape[0] % self.mesh.size == 0):
+        if shard and self._splits(x):
             return device_sharding(self.mesh).split(t)
         return t.to(self.device, non_blocking=True)
+
+    def _splits(self, x) -> bool:
+        """Whether `_dev(x, True)` splits `x` over the mesh."""
+        return (self.mesh is not None and np.ndim(x) > 0
+                and np.shape(x)[0] % self.mesh.size == 0)
 
     def _cams(self, device) -> TsaiCamera:
         """The stacked cameras on `device` (made once per device)."""
@@ -2551,20 +2559,23 @@ class Associator3D:
                     init_masks[hi, pool_idx[t]] = True
         self.timer.pop()
         with self.timer.stage("hyp.dispatch"):
-            # position arrays ship as f16 (see _rescore_and_solve)
+            # position arrays ship as f16 (see _rescore_and_solve); the
+            # compatibility columns go up once, replicated, and are the
+            # rows too where _dev does not split them
+            col_in = (tree_ids, pos_grid.astype(np.float16), have)
+            cols = tuple(self._dev(x) for x in col_in)
+            rows = [self._dev(x, True) if self._splits(x) else c
+                    for x, c in zip(col_in, cols)]
             out = self._rescore_and_solve(
                 self._dev(pts.astype(np.float16), True),
                 self._dev(raws.astype(np.float16), True),
                 self._dev(rmask, True),
                 self._dev(merr.astype(np.float16), True),
                 self._dev(lens, True),
-                self._dev(row_map), self._dev(host_base),
-                self._dev(tree_ids, True),
-                self._dev(np.packbits(shared, axis=1)),
-                self._dev(pos_grid.astype(np.float16), True),
-                self._dev(have, True),
+                self._dev(row_map), self._dev(host_base), rows[0],
+                self._dev(np.packbits(shared, axis=1)), rows[1], rows[2],
                 self._dev(pvalid, True), self._dev(init_masks),
-                self.field_source, iters)
+                self.field_source, iters, cols)
         # new_track consumption point (the related-set expansion above was
         # this frame's only reader)
         for t in reg.tracks.values():

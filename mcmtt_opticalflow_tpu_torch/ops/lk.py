@@ -11,11 +11,13 @@ smaller levels use the gather path `lk_track_points`, one camera at a
 time.  Inputs are gray float images in [0, 1].
 
 MCMTT_LK_BACKEND=pallas|xla, read on every call (`use_kernel`), is the
-JAX package's switch (lk.py:112-123): `xla` takes the gather path at
-every level, as the JAX `xla_impl` does; unset, `pallas` or any other
-value keeps the rule above.  Unset differs from the JAX default off a
-TPU (its gather path): here the card plays the TPU's part, so unset
-means the kernel.
+JAX package's switch (lk.py:112-123), honoured for CPU tensors only:
+there `xla` takes the gather path at every level, as the JAX `xla_impl`
+does, and unset, `pallas` or any other value keeps the rule above.
+Unset differs from the JAX default off a TPU (its gather path): here the
+card plays the TPU's part, so unset means the kernel.  CUDA tensors
+always take the rule above, whatever the switch says: on the card every
+kernel-sized level launches the kernel.
 """
 
 from __future__ import annotations
@@ -114,8 +116,9 @@ def kernel_ok(h: int, w: int, n: int) -> bool:
 
 
 def use_kernel() -> bool:
-    """False when MCMTT_LK_BACKEND is `xla` (any case): every level then
-    takes the gather path.  Read on every call, never at import."""
+    """False when MCMTT_LK_BACKEND is `xla` (any case): every level of a
+    CPU run then takes the gather path.  Read on every call, never at
+    import."""
     return os.environ.get("MCMTT_LK_BACKEND", "").lower() != "xla"
 
 
@@ -137,7 +140,7 @@ def lk_level_cams(prev, nxt, src, cur, act, window: int, iterations: int):
     [C, N, 2]; act: [C, N] bool.  Returns ([C, N, 2], [C, N], [C, N])."""
     c, h, w = prev.shape
     n = src.shape[1]
-    if use_kernel() and kernel_ok(h, w, n):
+    if kernel_ok(h, w, n) and (prev.is_cuda or use_kernel()):
         # the patch kernel reads 8-row / 128-column aligned patches:
         # edge-pad the level images (lk.py:142-150)
         prev_p = edge_pad_to(prev, 8, 128)

@@ -229,11 +229,12 @@ def check_fetch(mesh) -> bool:
                 and np.array_equal(out[1][0], whole[:2].numpy()))
 
 
-def run_engine(mesh, bench: bool, frames_n: int) -> dict:
+def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     """TrackingEngine(pipelined=True) on `mesh` for `frames_n` frames:
     each frame's ids and points, the wall time, the time spent in
-    cross-process collectives per process_frame call, and the LK kernel
-    launches this process made."""
+    cross-process collectives and their count per process_frame / flush
+    call, and the LK kernel launches this process made.  `make_fields(cfg)`, when given, makes
+    the solver's field source."""
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
     from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
     from mcmtt_opticalflow_tpu_torch.parallel import mesh as mesh_mod
@@ -263,11 +264,14 @@ def run_engine(mesh, bench: bool, frames_n: int) -> dict:
             solver=SolverConfig(num_replicas=2, max_vertices=64,
                                 solutions_per_replica=4, max_iterations=60))
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
-    if bench:
+    if make_fields is not None:
+        eng.assoc.field_source = make_fields(cfg)
+    elif bench:
         eng.assoc.field_source = _host_fields(1)
 
-    # time spent in the collectives of each process_frame / flush call
-    spent = [0.0]
+    # time spent in, and count of, the collectives of each process_frame
+    # / flush call
+    spent = [0.0, 0]
     gather = mesh_mod.all_gather_host
 
     def timed(obj):
@@ -276,15 +280,16 @@ def run_engine(mesh, bench: bool, frames_n: int) -> dict:
             return gather(obj)
         finally:
             spent[0] += time.perf_counter() - t0
+            spent[1] += 1
 
     mesh_mod.all_gather_host = timed
-    per_call, results = [], []
+    per_call, count_per_call, results = [], [], []
     lk_kernel.lk_level.launches = 0
     t0 = time.perf_counter()
     try:
         t = 0
         while True:               # the frames, then flush() until None
-            spent[0] = 0.0
+            spent[:] = [0.0, 0]
             if t < frames_n:
                 r = eng.process_frame(frames[t], sc.detections[t],
                                       frame_idx=t)
@@ -293,6 +298,7 @@ def run_engine(mesh, bench: bool, frames_n: int) -> dict:
                 if r is None:
                     break
             per_call.append(spent[0])
+            count_per_call.append(spent[1])
             t += 1
             if r is not None:
                 results.append(r)
@@ -305,6 +311,7 @@ def run_engine(mesh, bench: bool, frames_n: int) -> dict:
                        for r in results],
             "wall_s": wall, "lk_launches": lk_kernel.lk_level.launches,
             "collective_s_per_call": per_call,
+            "collectives_per_call": count_per_call,
             "groups_here": [g for g, s in enumerate(eng.state2d_groups)
                             if s is not None]}
 

@@ -7,7 +7,9 @@ Pallas interpret mode) on the tests/test_torch_pipeline.py scene (2
 cameras, 256x192, 10 frames; the port's solver draws the JAX package's
 fields): 2D ids and masks exactly equal, boxes within 1e-3 px, 3D ids
 equal and points within 1 mm every frame.  Unset, `pallas` or an
-unknown value keep the kernel route at kernel-sized levels."""
+unknown value keep the kernel route at kernel-sized levels.  CUDA
+tensors ignore the switch and always take the kernel (chip_smoke.py
+checks that on the card)."""
 
 import numpy as np
 import pytest

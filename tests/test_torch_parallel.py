@@ -298,8 +298,9 @@ def test_dev_splits_by_the_jax_rule():
 def test_fused_program_row_inputs_split_by_the_rule(fused_calls, n):
     """Every split argument of every call is Shards of mesh.size chunks
     exactly when its leading axis divides mesh.size (always at 8: the
-    row buckets are powers of two >= 64; never at 3); the others are
-    replicated tensors."""
+    row buckets are powers of two >= 64; never at 3); the others, and
+    the compatibility columns, are replicated tensors, each the whole of
+    its rows."""
     _, out = fused_calls
     _, calls = out[n]
     for args in calls:
@@ -310,6 +311,10 @@ def test_fused_program_row_inputs_split_by_the_rule(fused_calls, n):
             if split:
                 assert len(x.parts) == n and not x.remote
         assert (n == 8) == isinstance(args[0], Shards)
+        cols = args[15]
+        for c, i in zip(cols, (7, 9, 10)):
+            assert isinstance(c, torch.Tensor) and torch.equal(
+                c, _whole(args[i]))
 
 
 def test_fused_program_equals_no_mesh_bit_for_bit(fused_calls):
@@ -321,10 +326,11 @@ def test_fused_program_equals_no_mesh_bit_for_bit(fused_calls):
     for args in calls:
         got = Associator3D._rescore_and_solve(
             eng.assoc, *args[:13], GeneratorFields(torch.Generator().manual_seed(9)),
-            args[14])
+            args[14], args[15])
         want = plain._rescore_and_solve(
             *[_whole(x) for x in args[:13]],
-            GeneratorFields(torch.Generator().manual_seed(9)), args[14])
+            GeneratorFields(torch.Generator().manual_seed(9)), args[14],
+            args[15])
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)
 
