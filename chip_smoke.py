@@ -15,12 +15,17 @@ Phases (each prints its own lines; any failure exits non-zero):
      <= 1e-4; times per call are
      CUDA-event medians of 20 `lk_level` calls, wrapper host work
      included;
-  3. main path: TrackingEngine(pipelined=True) at the bench.py config and
-     scene (37 frames, 7 of warmup), with exactly 8 LK kernel launches per
-     processed frame and no LK work on the CPU; frames/s, stage medians,
-     tracks_peak, pool_dropped and the MOTA triple at w0/w3/w6.  The
-     arguments of the 8 `lk_level` calls of frame CAPTURE_FRAME are
-     recorded (cloned) on the way;
+  3. main path: mcmtt_opticalflow_tpu_torch.bench.run_bench(30, "cuda"),
+     bench.py's protocol at its config and scene (37 frames, 7 of
+     warm-up), with exactly 8 LK kernel launches per processed frame and
+     no LK work on the CPU; frames/s, stage medians, tracks_peak,
+     pool_dropped, the MOTA triple at w0/w3/w6 beside the CPU record
+     (bench_reference.json: the JAX engine, and the port with the LK
+     kernel's plain version), the first frame whose 3D ids leave the
+     plain record, and a failure when a window's MOTA leaves it by more
+     than MOTA_BOUND; then the solver's threefry field draw of one frame,
+     timed alone.  The arguments of the 8 `lk_level` calls of frame
+     CAPTURE_FRAME are recorded (cloned) on the way;
   3b. both kernels on those recorded inputs: each call against the plain
      version at the limits of phase 2; the distribution of |final -
      initial estimate| (plain version) beside the kernel's staging
@@ -34,7 +39,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      (ops/lk_kernel.py::lk_level_work); an empty kernel's launch, timed
      like the device-only time, is the practical floor;
   4. checks: sequential and pipelined modes agree on 8 frames of the same
-     scene with the same random fields, and the 2D stage on the card
+     scene on the same solver stream, and the 2D stage on the card
      agrees with the same stage on the CPU (plain LK version) on a small
      scene;
   5. the serial LK kernel (lk_level(variant="serial"), the JAX package's
@@ -112,6 +117,10 @@ MESH_FRAMES = 12
 MP_LIMIT_S = 240            # each process of the multiprocess phase
 PROFILE_FRAMES = 4
 CLI_CAM_IDS = (1, 5, 6, 8)
+# the largest |card - CPU| MOTA at any window the main path may show,
+# against the port's CPU run with the LK kernel's plain version
+# (bench_reference.json `plain`; PERF.md section 2)
+MOTA_BOUND = 0.01
 
 
 def log(msg):
@@ -131,15 +140,6 @@ def card_line():
     if out.returncode != 0:
         fail(f"nvidia-smi failed: {out.stderr.strip()}")
     return out.stdout.strip().splitlines()[0]
-
-
-def host_fields(seed):
-    """Solver field source drawing on the CPU from a seeded generator (and
-    moving the fields to the solve's device): two engines given equal
-    seeds consume equal fields wherever they run."""
-    import torch
-    from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields
-    return GeneratorFields(torch.Generator().manual_seed(seed))
 
 
 def time_ms(fn, reps=20):
@@ -383,32 +383,27 @@ def phase_serial(frames, cfg):
     return (launches, worst) + time_kernel(frames, cfg, "serial")
 
 
-def phase_main_path(cfg, sc, frames, card):
-    """TrackingEngine(pipelined=True) at the bench config and scene."""
+def _frame_ids(frames_json):
+    return {f["frame"]: sorted(f["ids"]) for f in frames_json}
+
+
+def phase_main_path(card):
+    """mcmtt_opticalflow_tpu_torch.bench.run_bench on the card: bench.py's
+    protocol at its config and scene, its LK launches counted from 0, its
+    CPU LK calls counted, frame CAPTURE_FRAME's lk_level calls recorded
+    and the host JV timed; its MOTA triple held against the CPU record
+    (bench_reference.json: `jax`, the JAX engine; `plain`, the port with
+    the LK kernel's plain version); then the solver's threefry draw
+    timed alone."""
     import numpy as np
     import torch
-    from mcmtt_opticalflow_tpu_torch.eval.clearmot import ClearMotAccumulator
+    from mcmtt_opticalflow_tpu_torch import bench
     from mcmtt_opticalflow_tpu_torch.models import tracker2d
-    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import threefry_fields
     from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.utils import prng
 
     total = WARMUP + MEASURED
-    gx, gy = sc.gt_matrices()
-    zone = (-9000.0, -9000.0, 9000.0, 9000.0)
-    accs = {w: ClearMotAccumulator(gx, gy, zone, 1000.0) for w in WINDOWS}
-    harvested = -1
-
-    def harvest(eng):
-        nonlocal harvested
-        while harvested < eng.assoc.completed_frame:
-            harvested += 1
-            for w in WINDOWS:
-                td = harvested - w
-                if td >= 0:
-                    r = eng.deferred_result(td)
-                    accs[w].set_result(td, [(i, p[0], p[1]) for i, p in
-                                            zip(r.ids, r.points)])
-
     # count any LK work that runs on the CPU during the main path
     cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0}
 
@@ -435,32 +430,20 @@ def phase_main_path(cfg, sc, frames, card):
     tracker2d.solve_assignment_batch = timed_jv
     capture = LkCapture(CAPTURE_FRAME)
     capture.install()
-    eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
     lk_kernel.lk_level.launches = 0
     try:
-        per_frame, tracks_peak = [], 0
-        for t in range(total):
-            capture.frame = t
-            if t == WARMUP:
-                eng.assoc.timer.reset()
-            f0 = time.perf_counter()
-            eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
-            if t >= WARMUP:
-                per_frame.append(time.perf_counter() - f0)
-                tracks_peak = max(tracks_peak,
-                                  len(eng.assoc.registry.tracks))
-            harvest(eng)
-        while eng.flush() is not None:
-            harvest(eng)
-        torch.cuda.synchronize()
+        run = bench.run_bench(MEASURED, "cuda",
+                              on_frame=lambda t: setattr(capture, "frame", t))
     finally:
         lk_kernel.lk_level_reference = orig_ref
         lk.lk_track_points = orig_pts
         tracker2d.solve_assignment_batch = orig_jv
         capture.remove()
     launches = lk_kernel.lk_level.launches
-    log(f"main path: {total} frames, lk_level launches={launches} "
-        f"(expected {8 * total}), CPU LK calls={cpu_calls}")
+    rec = run.record
+    log(f"main path: run_bench({MEASURED}, 'cuda'), {total} frames, "
+        f"lk_level launches={launches} (expected {8 * total}), CPU LK "
+        f"calls={cpu_calls}")
     if launches != 8 * total:
         fail(f"expected {8 * total} LK kernel launches, got {launches}")
     if any(cpu_calls.values()):
@@ -468,40 +451,61 @@ def phase_main_path(cfg, sc, frames, card):
     if len(capture.calls) != 8:
         fail(f"recorded {len(capture.calls)} lk_level calls of frame "
              f"{CAPTURE_FRAME}, expected 8")
-    for w in WINDOWS:
-        for td in range(max(harvested - w + 1, 0), harvested + 1):
-            r = eng.deferred_result(td)
-            accs[w].set_result(td, [(i, p[0], p[1]) for i, p in
-                                    zip(r.ids, r.points)])
-    evals = {w: accs[w].evaluate() for w in WINDOWS}
-    for r in eng.results:
+    if rec["lk_route"] != "cuda" or rec["frames"] != MEASURED:
+        fail(f"main path: unexpected record {rec}")
+    for r in run.engine.results:
         pts = np.asarray(r.points)
         if len(r.ids) != len(pts) or (pts.size and (
                 pts.shape[1] != 3 or not np.isfinite(pts).all())):
             fail(f"malformed result at frame {r.frame_idx}")
-    fps = 1.0 / float(np.median(per_frame))
-    timer = eng.assoc.timer
-    stage_ms = {name: round(1e3 * sorted(timer.samples[name])
-                            [timer.counts[name] // 2], 3)
-                for name in sorted(timer.totals,
-                                   key=lambda n: -timer.totals[n])
-                if not name.startswith("_")}
-    quality = {f"mota_w{w}": evals[w].mota for w in WINDOWS}
-    log(f"main path: {fps:.4f} frames/s median over {len(per_frame)} "
-        f"frames on {card}")
-    log(f"main path: per-frame s {[round(x, 4) for x in per_frame]}")
-    log(f"main path: stage medians ms {json.dumps(stage_ms)}")
+    log(f"main path: {rec['value']} frames/s median over "
+        f"{len(run.per_frame)} frames on {card}")
+    log(f"main path: per-frame s {[round(x, 4) for x in run.per_frame]}")
+    log(f"main path: stage medians ms {json.dumps(rec['stage_ms'])}")
     log(f"main path: host solve_assignment_batch median "
         f"{1e3 * float(np.median(jv_s[WARMUP:])):.3f} ms/frame "
         f"(max {1e3 * max(jv_s[WARMUP:]):.3f})")
-    log(f"main path: tracks_peak={tracks_peak} "
-        f"pool_dropped={eng.assoc.pool_dropped_total} "
-        f"{json.dumps(quality)}")
+    quality = {f"mota_w{w}": run.evals[w].mota for w in WINDOWS}
+    log(f"main path: tracks_peak={rec['tracks_peak']} "
+        f"pool_dropped={rec['pool_dropped']} {json.dumps(quality)}")
     for w in WINDOWS:
-        log(f"main path: w{w}: {evals[w].summary()}")
+        log(f"main path: w{w}: {run.evals[w].summary()}")
+    log(f"main path: bench record {json.dumps(rec)}")
     if not all(np.isfinite(list(quality.values()))) or quality["mota_w0"] \
             <= 0.5:
         fail(f"MOTA out of range: {quality}")
+
+    path = os.path.join(os.path.dirname(bench.__file__),
+                        "bench_reference.json")
+    with open(path) as f:
+        ref = json.load(f)
+    card_mota = [quality[f"mota_w{w}"] for w in WINDOWS]
+    for name in ("jax", "plain"):
+        log(f"main path: MOTA w0/w3/w6 card "
+            f"{[round(float(m), 4) for m in card_mota]}"
+            f" tracks_peak {rec['tracks_peak']} against {name} "
+            f"{ref[name]['mota']} tracks_peak {ref[name]['tracks_peak']} "
+            f"({ref[name]['command']})")
+    want = _frame_ids(ref["plain"]["frames"])
+    got = {r["frame"]: sorted(r["ids"]) for r in run.results}
+    first = next((t for t in sorted(want) if got.get(t) != want[t]), None)
+    log(f"main path: first frame whose 3D ids leave the plain CPU record: "
+        f"{first} (of {len(want)})")
+    gap = max(abs(c - p) for c, p in zip(card_mota, ref["plain"]["mota"]))
+    log(f"main path: max |card - plain| MOTA {gap:.4f} (bound {MOTA_BOUND})")
+    if gap > MOTA_BOUND:
+        fail(f"the card's MOTA leaves the plain CPU record by {gap:.4f} "
+             f"(bound {MOTA_BOUND})")
+
+    # the solver's random fields of one bench frame, drawn alone
+    r = bench.bench_config().solver.num_replicas + \
+        bench.bench_config().assoc3d.k_best_size
+    key = prng.split(prng.prng_key(0))[1]
+    draw_ms = time_ms(lambda: threefry_fields(key, r, 1024, 150, "cuda"),
+                      reps=10)
+    log(f"main path: threefry field draw (R={r}, V=1024, 150 iterations: "
+        f"{2 * 150 * r * 1024 + 2 * 150 * r + r * 1024} numbers) "
+        f"{draw_ms:.3f} ms a frame (CUDA events, median of 10) on {card}")
     return launches, capture.calls
 
 
@@ -588,8 +592,6 @@ def phase_modes_agree(cfg, sc, frames):
     n = 8
     seq = TrackingEngine(cfg, sc.cameras, device="cuda")
     pipe = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
-    seq.assoc.field_source = host_fields(1)
-    pipe.assoc.field_source = host_fields(1)
     rs, rp = [], []
     for t in range(n):
         rs.append(seq.process_frame(frames[t], sc.detections[t],
@@ -691,13 +693,14 @@ def phase_api(cfg, sc, frames):
         nview_point_reconstruction, stack_cameras, world_to_image)
     from mcmtt_opticalflow_tpu_torch.models.costs import (
         enter_probability, exit_cost, tracklet_connectivity)
-    from mcmtt_opticalflow_tpu_torch.models.mwcp import (collect_k_best,
-                                                         solve_mwcp_batch)
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import (
+        MwcpFields, collect_k_best, solve_mwcp_batch, threefry_fields)
     from mcmtt_opticalflow_tpu_torch.ops import (gaussian_blur_3x3,
                                                  rgb_histogram, sg_smooth)
     from mcmtt_opticalflow_tpu_torch.ops.histogram import (
         host_rgb_histogram, rgb_cost)
     from mcmtt_opticalflow_tpu_torch.config import SolverConfig
+    from mcmtt_opticalflow_tpu_torch.utils import prng
 
     rng = np.random.RandomState(0)
     acfg = cfg.assoc3d
@@ -795,12 +798,23 @@ def phase_api(cfg, sc, frames):
     adj = (up | up.transpose(0, 2, 1)) & valid[:, :, None] \
         & valid[:, None, :]
     init = np.zeros((b, v), bool)
+    class CpuDrawn:
+        """The threefry fields of `key` drawn on the CPU, so the card and
+        the CPU solve on the same bits (the gumbel logs round per
+        device)."""
+
+        def __init__(self, key):
+            self.key = key
+
+        def draw(self, r, v, iters_pad, device):
+            f = threefry_fields(self.key, r, v, iters_pad, "cpu")
+            return MwcpFields(*[x.to(device) for x in f])
     res = {}
     for dev in ("cuda", "cpu"):
         res[dev] = solve_mwcp_batch(
             *[torch.tensor(x, device=dev) for x in (weights, adj, valid,
                                                     init)],
-            [host_fields(40 + i) for i in range(b)], scfg, 90)
+            [CpuDrawn(prng.prng_key(40 + i)) for i in range(b)], scfg, 90)
     for f in res["cuda"]._fields:
         exact = f in ("best_mask", "sol_masks")
         worst[f"solve_mwcp_batch.{f}"] = _hold(
@@ -937,14 +951,12 @@ def phase_mesh(cfg, sc, frames):
 
     card0 = torch.device("cuda", 0)
     plain = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
-    plain.assoc.field_source = host_fields(1)
     t0 = time.perf_counter()
     ra = _run_engine(plain, sc, frames, MESH_FRAMES)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
     mesh = make_mesh(devices=[card0] * 4)
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
-    eng.assoc.field_source = host_fields(1)
     lk_kernel.lk_level.launches = 0
     t0 = time.perf_counter()
     rb = _run_engine(eng, sc, frames, MESH_FRAMES)
@@ -1306,7 +1318,7 @@ def main():
                            extra=[unaligned_call(frames, cfg)])
     call_ms, _ = time_kernel(frames, cfg, "batched")
     paths = {}
-    launches, calls = phase_main_path(cfg, sc, frames, card)
+    launches, calls = phase_main_path(card)
     paths["main"] = launches
     real = phase_real_inputs(calls)
     phase_modes_agree(cfg, sc, frames)

@@ -14,10 +14,10 @@ pickled together with the frame counters.  Resume restores both and
 continues from the next frame.
 
 Port of mcmtt_opticalflow_tpu/checkpoint/snapshot.py with the same payload
-layout, except: the 2D state goes through convert.tracker2d_state_to_numpy
-and comes back onto the engine's device; and in place of the JAX solver
-key, the state of the solver's torch.Generator is saved and restored, so a
-resumed run draws the same random fields as an uninterrupted one.
+layout, except that the 2D state goes through convert.tracker2d_state_to_numpy
+and comes back onto the engine's device.  The solver key is saved as the
+JAX package saves it (two uint32 words), so a resumed run draws the same
+random fields as an uninterrupted one.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ from __future__ import annotations
 import os
 import pickle
 from typing import Any, Dict
+
+import numpy as np
+import torch
 
 from mcmtt_opticalflow_tpu_torch.convert import (tracker2d_state_from_numpy,
                                                  tracker2d_state_to_numpy)
@@ -69,8 +72,7 @@ def save_snapshot(engine, path: str) -> None:
             "frame_idx": a.frame_idx,
             "num_frames_proc": a.num_frames_proc,
             "completed_frame": a.completed_frame,
-            "solver_generator_state":
-                a.field_source.generator.get_state(),
+            "solver_key": a.solver_key.cpu().numpy().astype(np.uint32),
             # visualization id map (ref saves it too, :3735-3744)
             "vis_id_map": a.vis_id_map,
             "vis_free": a.vis_free,
@@ -107,7 +109,8 @@ def load_snapshot(engine, path: str) -> int:
     a.frame_idx = s["frame_idx"]
     a.num_frames_proc = s["num_frames_proc"]
     a.completed_frame = s.get("completed_frame", s["frame_idx"])
-    a.field_source.generator.set_state(s["solver_generator_state"])
+    a.solver_key = torch.from_numpy(
+        np.asarray(s["solver_key"]).astype(np.int64))
     a.vis_id_map = s.get("vis_id_map", {})
     a.vis_free = s.get("vis_free", [])
     # rebuild the GTProb reset list (transient; not serialised)

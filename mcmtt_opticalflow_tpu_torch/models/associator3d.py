@@ -7,7 +7,8 @@ pruning) is carried over unchanged; the device boundary is PyTorch: the
 fused per-frame rescore + compatibility + BLS solve program
 (`_build_device_fns`), host->device placement (`_dev`), the solve
 download (a non-blocking copy behind a CUDA event, `DeviceFetch`) and the
-solver's random numbers (a field source, see models/mwcp.py).
+solver's random numbers (the JAX package's threefry stream,
+utils/prng.py).
 
 Architecture: *host enumerates, device scores*.
 
@@ -44,13 +45,14 @@ from mcmtt_opticalflow_tpu_torch.geometry.sidemaps import (
 from mcmtt_opticalflow_tpu_torch.models.costs import (WindowScore,
                                                       score_track_windows)
 from mcmtt_opticalflow_tpu_torch.models.mwcp import (
-    GeneratorFields, solve_mwcp, device_k_best, NEG as _SOLVER_NEG)
+    solve_mwcp, device_k_best, NEG as _SOLVER_NEG)
 from mcmtt_opticalflow_tpu_torch.models.trees import (
     Track, TrackRegistry, Tracklet, TrackTree)
 from mcmtt_opticalflow_tpu_torch.ops.sgsmooth import smoothing_matrix_np
 from mcmtt_opticalflow_tpu_torch.parallel.mesh import (Shards,
                                                        device_sharding, fetch,
                                                        join)
+from mcmtt_opticalflow_tpu_torch.utils import prng
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
@@ -259,11 +261,12 @@ class Associator3D:
         self.vis_id_map: Dict[int, int] = {}
         self.vis_free: List[int] = []
         self._gt_prob_touched: List[int] = []
-        # source of the solver's random numbers; each frame's solve draws
-        # its fields from it in turn (tests substitute the JAX package's
-        # threefry draws, see models/mwcp.py)
-        self.field_source = GeneratorFields(
-            torch.Generator(device=self.device).manual_seed(cfg.solver.seed))
+        # the JAX package's solver key, split once per solved frame; each
+        # solve draws its random fields from the subkey on the device
+        self.solver_key = prng.prng_key(cfg.solver.seed)
+        # a field source (models/mwcp.py) to draw from instead of the
+        # subkey; the key is still split, as the JAX associator splits it
+        self.field_source = None
         # when set to a list, every frame's hypothesis graph (weights,
         # adjacency, validity, warm starts) is appended to it — the
         # recorded-graph corpus for the solver quality harness
@@ -2557,6 +2560,7 @@ class Associator3D:
             for t in h.selected:
                 if t in pool_idx:
                     init_masks[hi, pool_idx[t]] = True
+        self.solver_key, k = prng.split(self.solver_key)
         self.timer.pop()
         with self.timer.stage("hyp.dispatch"):
             # position arrays ship as f16 (see _rescore_and_solve); the
@@ -2575,7 +2579,8 @@ class Associator3D:
                 self._dev(row_map), self._dev(host_base), rows[0],
                 self._dev(np.packbits(shared, axis=1)), rows[1], rows[2],
                 self._dev(pvalid, True), self._dev(init_masks),
-                self.field_source, iters, cols)
+                k if self.field_source is None else self.field_source,
+                iters, cols)
         # new_track consumption point (the related-set expansion above was
         # this frame's only reader)
         for t in reg.tracks.values():

@@ -10,11 +10,13 @@ per iteration.  Every distinct local optimum lands in a per-replica ring
 buffer; `device_k_best` merges, dedups and sorts them on the device
 (`collect_k_best` is its host copy, carried over).
 
-Randomness comes from a *field source*: an object whose
-``draw(r, v, iters_pad, device)`` returns the `MwcpFields` one solve
-consumes.  `GeneratorFields` draws them from a torch.Generator; a test
-can hand in the JAX package's threefry draws instead, since a
-torch.Generator cannot reproduce those bits.
+Randomness is the JAX package's: a solve takes a PRNG key
+(utils/prng.py) and draws its fields from it exactly as the JAX
+solve_mwcp draws them from its key (mwcp.py:134-141, 279-284), on the
+solve's device.  In place of a key a caller may hand in a *field source*,
+an object whose ``draw(r, v, iters_pad, device)`` returns the
+`MwcpFields` of one solve; `ThreefryFields` is the one that splits a key
+per solve as the JAX associator does.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from mcmtt_opticalflow_tpu_torch.config import SolverConfig
+from mcmtt_opticalflow_tpu_torch.utils import prng
 
 NEG = -1e30
 
@@ -44,31 +47,31 @@ class MwcpFields(NamedTuple):
     g_rnd: torch.Tensor          # [I, R, V] gumbel, random pick
 
 
-class GeneratorFields:
-    """Field source drawing from a torch.Generator on the generator's own
-    device and moving the fields to the solve's device; successive solves
-    continue the generator's stream.  A generator on the CPU gives the
-    same fields to solves on any device."""
+def threefry_fields(key: torch.Tensor, r: int, v: int, iters_pad: int,
+                    device) -> MwcpFields:
+    """The fields the JAX package's solve_mwcp(key=key) draws: one split
+    into r replica keys (their greedy-order noise) and one more, split in
+    four for the loop's fields (mwcp.py:134-141, 279-284)."""
+    keys = prng.split(torch.as_tensor(key, device=device), r + 1)
+    ku1, kg2, ku3, kg4 = prng.split(keys[r], 4)
+    return MwcpFields(noise=prng.uniform(keys[:r], (v,)),
+                      u_dir=prng.uniform(ku1, (iters_pad, r)),
+                      g_dir=prng.gumbel(kg2, (iters_pad, r, v)),
+                      u_ten=prng.uniform(ku3, (iters_pad, r)),
+                      g_rnd=prng.gumbel(kg4, (iters_pad, r, v)))
 
-    def __init__(self, generator: torch.Generator):
-        self.generator = generator
+
+class ThreefryFields:
+    """Field source splitting a PRNG key once per solve, as the JAX
+    associator splits its solver key (associator3d.py:2544): each draw
+    gives the fields of the next subkey."""
+
+    def __init__(self, key: torch.Tensor):
+        self.key = key
 
     def draw(self, r: int, v: int, iters_pad: int, device) -> MwcpFields:
-        g = self.generator
-
-        def uniform(*shape):
-            return torch.rand(shape, generator=g, device=g.device)
-
-        def gumbel(*shape):
-            tiny = torch.finfo(torch.float32).tiny
-            return -torch.log(-torch.log(torch.clamp(uniform(*shape),
-                                                     min=tiny)))
-
-        f = MwcpFields(noise=uniform(r, v), u_dir=uniform(iters_pad, r),
-                       g_dir=gumbel(iters_pad, r, v),
-                       u_ten=uniform(iters_pad, r),
-                       g_rnd=gumbel(iters_pad, r, v))
-        return MwcpFields(*[x.to(device) for x in f])
+        self.key, k = prng.split(self.key)
+        return threefry_fields(k, r, v, iters_pad, device)
 
 
 def _greedy_initial(weights, adj, valid, orders, nvalid: int):
@@ -126,7 +129,7 @@ def solve_mwcp(weights: torch.Tensor,
                  starts from row i when that row is a valid nonempty
                  clique (ref BLS_SetInitialSolutions,
                  GraphSolver.cpp:820-956).
-      fields:    field source (see the module docstring).
+      fields:    a PRNG key or a field source (see the module docstring).
     """
     dev = weights.device
     v = weights.shape[0]
@@ -146,7 +149,9 @@ def solve_mwcp(weights: torch.Tensor,
     warm = torch.zeros((r, v), dtype=torch.bool, device=dev)
     rw = min(init_mask.shape[0], r)
     warm[:rw] = init_mask[:rw]
-    f = fields.draw(r, v, iters_pad, dev)
+    f = (threefry_fields(fields, r, v, iters_pad, dev)
+         if isinstance(fields, torch.Tensor)
+         else fields.draw(r, v, iters_pad, dev))
 
     # ---- initial solutions per replica -------------------------------------
     # replica i: its warm start when that is a valid nonempty clique, else
@@ -159,10 +164,10 @@ def solve_mwcp(weights: torch.Tensor,
     wsize = torch.sum(warm, -1)
     is_clique = (torch.all(~warm | (cnt == (wsize - 1)[:, None]), -1)
                  & torch.any(warm, -1) & torch.all(~warm | valid, -1))
-    scale = torch.ones((r, 1), device=dev)
-    scale[0] = 0.0
-    noise = (f.noise * scale
-             * torch.clamp(torch.max(torch.abs(weights)), min=1.0) * 0.3)
+    noise = f.noise * torch.clamp(torch.max(torch.abs(weights)), min=1.0) * 0.3
+    # replica 0's order is the weights' own, even where an infinite weight
+    # (a track of infinite cost outside the graph) makes the scale inf
+    noise[0] = 0.0
     orders = torch.argsort(-torch.where(valid, weights + noise, NEG), dim=-1,
                            stable=True)
     greedy = _greedy_initial(weights, adj, valid, orders,
@@ -193,8 +198,11 @@ def solve_mwcp(weights: torch.Tensor,
         fc = torch.sum(torch.where(in_c, weights, 0.0), -1)
 
         # swap partner weights via the complement product (diag of ~adj
-        # is True but only contributes for vertices already in C)
-        in_w = in_c_f * weights
+        # is True but only contributes for vertices already in C).  A
+        # select, not in_c_f * weights: a pool track whose cost is +inf
+        # has weight -inf, and 0 * -inf would put NaN into every product
+        # (XLA rewrites the JAX package's multiply into this select)
+        in_w = torch.where(in_c, weights, 0.0)
         w_partner = in_w @ adjc_f.T
         gain_ins = torch.where(pa, weights, NEG)
         gain_swp = torch.where(om, weights - w_partner, NEG)
@@ -297,12 +305,12 @@ def solve_mwcp_batch(weights: torch.Tensor,
                      iters: int | None = None) -> MwcpResult:
     """B independent instances over a leading axis (the JAX package's
     vmap of solve_mwcp): weights [B, V], adj [B, V, V], valid [B, V],
-    init_mask [B, V] or [B, R', V], and one field source per instance in
-    `fields` (JAX vmaps over one PRNG key per instance).  Returns the
+    init_mask [B, V] or [B, R', V], and one PRNG key or field source per
+    instance in `fields` (JAX vmaps over one PRNG key per instance).  Returns the
     MwcpResult with every leaf stacked on a leading [B] axis."""
     if len(fields) != weights.shape[0]:
-        raise ValueError(f"{weights.shape[0]} instances need as many field "
-                         f"sources, got {len(fields)}")
+        raise ValueError(f"{weights.shape[0]} instances need as many keys "
+                         f"or field sources, got {len(fields)}")
     outs = [solve_mwcp(weights[b], adj[b], valid[b], init_mask[b],
                        fields[b], cfg, iters)
             for b in range(weights.shape[0])]

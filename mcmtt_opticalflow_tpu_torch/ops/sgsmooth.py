@@ -5,6 +5,10 @@ Smoothing a length-n sequence is a linear map: one [n, n] matrix per
 valid length, built on the host in float64 from the same Q-projection
 rows as the reference (ref PSNWhere_SGSmooth.cpp:109-260), then gathered
 per track and applied in one batched product.
+
+The masked batch product sums in the order of the JAX package's CPU
+program (`_product_as_xla_cpu`), so smoothed positions, which the host
+rounds to float16, equal the JAX package's bit for bit.
 """
 
 from __future__ import annotations
@@ -82,6 +86,28 @@ def sg_smooth_masked(data: torch.Tensor, lengths: torch.Tensor,
     b, t, d = data.shape
     mats = sg_smoothing_matrix(t, span, degree, str(data.device))
     sel = mats[torch.clamp(lengths, 0, t).long()]             # [B, T, T]
-    smoothed = torch.bmm(sel, data)
+    smoothed = _product_as_xla_cpu(sel, data)
     idx = torch.arange(t, device=data.device)[None, :, None]
     return torch.where(idx < lengths[:, None, None], smoothed, data)
+
+
+def _product_as_xla_cpu(a: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """The batched product a [B, I, K] @ x [B, K, D] in float32, summed as
+    XLA's CPU dot sums it: four fused multiply-add accumulators over k
+    mod 4 (k below the largest multiple of 4), joined as (0 + 1) + (2 + 3),
+    then the remaining k one by one.  Measured against jax 0.9 on the CPU:
+    bit-equal at K = 16 and 20 (the rescoring and compatibility windows),
+    and for any K with K mod 4 in {0, 1}.  The products and each
+    accumulation run in float64 and round once to float32: a fused
+    multiply-add (a float32 product is exact in float64)."""
+    b, i, k = a.shape
+    m = k - k % 4
+    prod = a.double()[:, :, :, None] * x.double()[:, None, :, :]
+    lanes = prod[:, :, :m].reshape(b, i, m // 4, 4, -1)
+    acc = torch.zeros_like(lanes[:, :, 0], dtype=torch.float32)
+    for j in range(m // 4):
+        acc = (acc.double() + lanes[:, :, j]).float()
+    out = (acc[:, :, 0] + acc[:, :, 1]) + (acc[:, :, 2] + acc[:, :, 3])
+    for j in range(m, k):
+        out = (out.double() + prod[:, :, j]).float()
+    return out

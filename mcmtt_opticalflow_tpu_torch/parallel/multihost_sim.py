@@ -128,11 +128,6 @@ def spawn(num_processes: int, args, workdir: str, limit_s: float):
     return report, results
 
 
-def _host_fields(seed):
-    from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields
-    return GeneratorFields(torch.Generator().manual_seed(seed))
-
-
 def _solve_instance(bench: bool):
     """(weights, adj, valid, init, SolverConfig, iterations) as numpy."""
     from mcmtt_opticalflow_tpu_torch.config import SolverConfig
@@ -168,21 +163,22 @@ def run_solve(mesh, bench: bool, reps: int = REPS) -> dict:
     from mcmtt_opticalflow_tpu_torch.models.mwcp import solve_mwcp
     from mcmtt_opticalflow_tpu_torch.parallel import (block_sharding,
                                                       solve_mwcp_sharded)
+    from mcmtt_opticalflow_tpu_torch.utils import prng
     weights, adj, valid, init, scfg, iters = _solve_instance(bench)
     home = mesh.home
     ins = [torch.tensor(x, device=home) for x in (weights, adj, valid, init)]
     nblock = mesh.shape["block"]
 
+    key = prng.prng_key(3)
+
     def sharded():
-        out = solve_mwcp_sharded(*ins, [_host_fields(10 + b)
-                                        for b in range(nblock)],
-                                 mesh, scfg, iters=iters)
+        out = solve_mwcp_sharded(*ins, key, mesh, scfg, iters=iters)
         _sync(home)
         return out
 
     got = sharded()
-    blocks = [solve_mwcp(*ins, _host_fields(10 + b), scfg, iters)
-              for b in range(nblock)]
+    blocks = [solve_mwcp(*ins, k, scfg, iters)
+              for k in prng.split(key, nblock)]
     best = torch.stack([r.best_score.max() for r in blocks])
     b = int(torch.argmax(best))
     want = blocks[b].best_mask[int(torch.argmax(blocks[b].best_score))]
@@ -199,7 +195,7 @@ def run_solve(mesh, bench: bool, reps: int = REPS) -> dict:
     mesh_s = (time.perf_counter() - t0) / reps
     t0 = time.perf_counter()
     for _ in range(reps):
-        solve_mwcp(*ins, _host_fields(10), scfg, iters)
+        solve_mwcp(*ins, key, scfg, iters)
         _sync(home)
     one_s = (time.perf_counter() - t0) / reps
     return {"mesh": repr(mesh), "best_score": float(got[1]),
@@ -233,8 +229,10 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     """TrackingEngine(pipelined=True) on `mesh` for `frames_n` frames:
     each frame's ids and points, the wall time, the time spent in
     cross-process collectives and their count per process_frame / flush
-    call, and the LK kernel launches this process made.  `make_fields(cfg)`, when given, makes
-    the solver's field source."""
+    call, and the LK kernel launches this process made.  The solver draws
+    from the associator's key, which every process derives alike from the
+    seed; `make_fields(cfg)`, when given, makes a field source to draw
+    from instead."""
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
     from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
     from mcmtt_opticalflow_tpu_torch.parallel import mesh as mesh_mod
@@ -266,8 +264,6 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
     if make_fields is not None:
         eng.assoc.field_source = make_fields(cfg)
-    elif bench:
-        eng.assoc.field_source = _host_fields(1)
 
     # time spent in, and count of, the collectives of each process_frame
     # / flush call

@@ -1,7 +1,8 @@
 """Checkpoint / resume of the port's TrackingEngine: a run that saves a
 snapshot after 3 frames and resumes it in a fresh engine gives the same
 results as an uninterrupted run, sequential and pipelined (the solver's
-generator state travels in the snapshot); and the mirror of
+PRNG key travels in the snapshot, as in the JAX package's); the key
+equals the JAX engine's after the same frames; and the mirror of
 tests/test_aux.py::TestCheckpoint on the port."""
 
 import numpy as np
@@ -31,9 +32,19 @@ def _cfg():
                             solutions_per_replica=4, max_iterations=100))
 
 
-def _tracking_cfg():
+def _tracking_cfg(mod=None):
     """tests/test_torch_pipeline.py's engine: its scene yields 3D tracks
-    from the third frame on."""
+    from the third frame on (the JAX package's, given its config
+    module)."""
+    if mod is not None:
+        return mod.EngineConfig(
+            num_cameras=2, image_width=256, image_height=192,
+            tracker2d=mod.Tracker2DConfig(
+                max_detections=16, max_trackers=32, max_features=16,
+                lk_window=8, lk_pyramid_levels=2, lk_iterations=6),
+            solver=mod.SolverConfig(num_replicas=4, max_vertices=64,
+                                    solutions_per_replica=8,
+                                    max_iterations=200))
     return EngineConfig(
         num_cameras=2, image_width=256, image_height=192,
         tracker2d=Tracker2DConfig(max_detections=16, max_trackers=32,
@@ -97,9 +108,42 @@ def test_resumed_run_equals_uninterrupted_run(tracking_scene, tmp_path,
         np.testing.assert_array_equal(a.points, b.points)
     assert resumed.assoc.best_solution == straight.assoc.best_solution
     assert any(len(r.ids) for r in straight.results[3:])
-    # both drew the same solver fields: their generators end in one state
-    assert torch.equal(resumed.assoc.field_source.generator.get_state(),
-                       straight.assoc.field_source.generator.get_state())
+    # both drew the same solver fields: their keys end equal
+    assert torch.equal(resumed.assoc.solver_key, straight.assoc.solver_key)
+
+
+def test_solver_key_equals_the_jax_engines(tracking_scene, tmp_path):
+    """The JAX engine and the port, pipelined, over the same frames: one
+    split of the solver key per solved frame in both, so their keys and
+    their snapshots' "solver_key" entries are equal."""
+    import pickle
+
+    from mcmtt_opticalflow_tpu import config as jcfg
+    from mcmtt_opticalflow_tpu.checkpoint import save_snapshot as jax_save
+    from mcmtt_opticalflow_tpu.data import make_scenario as jax_scenario
+    from mcmtt_opticalflow_tpu.models.pipeline import \
+        TrackingEngine as JaxEngine
+
+    sc, frames = tracking_scene
+    jsc = jax_scenario(num_cameras=2, num_frames=NUM_FRAMES, num_people=3,
+                       image_size=(256, 192), arena=5000.0, seed=11)
+    jeng = JaxEngine(_tracking_cfg(jcfg), jsc.cameras, pipelined=True)
+    teng = TrackingEngine(_tracking_cfg(), sc.cameras, pipelined=True,
+                          device="cpu")
+    _run(jeng, jsc, frames, range(NUM_FRAMES))
+    _run(teng, sc, frames, range(NUM_FRAMES))
+    want = np.asarray(jeng.assoc.solver_key)
+    assert not np.array_equal(want, [0, 0])          # it was split
+    np.testing.assert_array_equal(teng.assoc.solver_key.numpy(), want)
+    paths = [str(tmp_path / n) for n in ("jax.pkl", "port.pkl")]
+    jax_save(jeng, paths[0])
+    save_snapshot(teng, paths[1])
+    keys = []
+    for path in paths:
+        with open(path, "rb") as f:
+            keys.append(pickle.load(f)["assoc"]["solver_key"])
+    assert keys[0].dtype == keys[1].dtype == np.uint32
+    np.testing.assert_array_equal(keys[1], keys[0])
 
 
 def test_snapshot_resume(scene, tmp_path):

@@ -17,8 +17,9 @@ from mcmtt_opticalflow_tpu import native as jax_native
 from mcmtt_opticalflow_tpu_torch import native
 from mcmtt_opticalflow_tpu_torch.config import SolverConfig
 from mcmtt_opticalflow_tpu_torch.data import write_detection_file
-from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields, solve_mwcp
+from mcmtt_opticalflow_tpu_torch.models.mwcp import ThreefryFields, solve_mwcp
 from mcmtt_opticalflow_tpu_torch.ops import hungarian_host
+from mcmtt_opticalflow_tpu_torch.utils import prng
 
 pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
@@ -113,7 +114,7 @@ class TestBls:
         res = solve_mwcp(torch.tensor(weights), torch.tensor(adj),
                          torch.tensor(valid), torch.zeros(n + pad,
                                                           dtype=torch.bool),
-                         GeneratorFields(torch.Generator().manual_seed(0)),
+                         ThreefryFields(prng.prng_key(0)),
                          cfg, 400)
         _, host, _, _ = native.bls_mwcp_solve(
             weights[:n].astype(np.float64), adj[:n, :n], 2000, seed=0)

@@ -84,8 +84,8 @@ def _body_without_imports(path):
 # else is compared as for the other carried modules.  main.py takes
 # --device (the card unless asked for the CPU), gives it to its engines
 # and reports it; snapshot.py moves the 2D state through
-# convert.py and saves the solver generator's state in place of the JAX
-# PRNG key.
+# convert.py and keeps the solver's PRNG key as a torch tensor (saved as
+# the JAX package's two uint32 words).
 _MUST_DIFFER = {
     "main.py": (
         ["        return TrackingEngine(cfg, sc.cameras)",
@@ -119,20 +119,21 @@ _MUST_DIFFER = {
         ["",
          "Port of mcmtt_opticalflow_tpu/checkpoint/snapshot.py with the "
          "same payload",
-         "layout, except: the 2D state goes through "
+         "layout, except that the 2D state goes through "
          "convert.tracker2d_state_to_numpy",
-         "and comes back onto the engine's device; and in place of the JAX "
-         "solver",
-         "key, the state of the solver's torch.Generator is saved and "
-         "restored, so a",
-         "resumed run draws the same random fields as an uninterrupted one.",
+         "and comes back onto the engine's device.  The solver key is saved "
+         "as the",
+         "JAX package saves it (two uint32 words), so a resumed run draws "
+         "the same",
+         "random fields as an uninterrupted one.",
+         "",
          '        "state2d": tracker2d_state_to_numpy(engine.state2d),',
-         '            "solver_generator_state":',
-         "                a.field_source.generator.get_state(),",
+         '            "solver_key": a.solver_key.cpu().numpy()'
+         '.astype(np.uint32),',
          "    engine.state2d = tracker2d_state_from_numpy(state_np, "
          "engine.device)",
-         '    a.field_source.generator.set_state(s["solver_generator_state"])'
-         ]),
+         "    a.solver_key = torch.from_numpy(",
+         '        np.asarray(s["solver_key"]).astype(np.int64))']),
 }
 
 

@@ -18,7 +18,7 @@ from mcmtt_opticalflow_tpu.parallel import \
 from mcmtt_opticalflow_tpu_torch.config import (EngineConfig, SolverConfig,
                                                 Tracker2DConfig)
 from mcmtt_opticalflow_tpu_torch.data import make_scenario
-from mcmtt_opticalflow_tpu_torch.models.mwcp import GeneratorFields, solve_mwcp
+from mcmtt_opticalflow_tpu_torch.models.mwcp import ThreefryFields, solve_mwcp
 from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
 from mcmtt_opticalflow_tpu_torch.parallel import (block_sharding,
                                                   cam_sharding, make_mesh,
@@ -28,7 +28,7 @@ from mcmtt_opticalflow_tpu_torch.models.associator3d import Associator3D
 from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
                                                        device_sharding, fetch,
                                                        join, shard_leaves)
-from mcmtt_opticalflow_tpu_torch.parallel.solver_parallel import split_fields
+from mcmtt_opticalflow_tpu_torch.utils import prng
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 from torch_parity import jax_mwcp_fields, to_torch_fields
 
@@ -163,26 +163,30 @@ class TestShardedSolver:
             len(members) - 1)
 
     def test_generator_equals_per_block_solves(self):
-        """A generator is split into one field source per block; the
-        result is the blocks' own solves plus the global argmax."""
+        """A key is split into one key per block (the generator of every
+        block's fields); the result is the blocks' own solves plus the
+        global argmax, and a field source per block draws the same."""
         cfg = SolverConfig(num_replicas=3, max_vertices=32,
                            solutions_per_replica=4)
         w, adj, valid, init = map(torch.tensor, _instance(seed=2))
         mesh = make_mesh(num_cam_shards=1, devices=["cpu"] * 3)
-        got = solve_mwcp_sharded(w, adj, valid, init,
-                                 torch.Generator().manual_seed(5), mesh,
+        got = solve_mwcp_sharded(w, adj, valid, init, prng.prng_key(5), mesh,
                                  cfg, iters=60)
-        blocks = [solve_mwcp(w, adj, valid, init, f, cfg, 60) for f in
-                  split_fields(torch.Generator().manual_seed(5),
-                               block_sharding(mesh).devices)]
+        keys = prng.split(prng.prng_key(5), len(block_sharding(mesh).devices))
+        blocks = [solve_mwcp(w, adj, valid, init, k, cfg, 60) for k in keys]
         best = [r.best_score.max() for r in blocks]
         b = int(torch.argmax(torch.stack(best)))
         assert float(got[1]) == float(best[b])
         assert torch.equal(got[0], blocks[b].best_mask[
             int(torch.argmax(blocks[b].best_score))])
         assert torch.equal(got[2], torch.cat([r.best_mask for r in blocks]))
-        assert isinstance(split_fields(torch.Generator(), ["cpu"])[0],
-                          GeneratorFields)
+        # a field source per block: each draws from its key's next subkey
+        again = solve_mwcp_sharded(w, adj, valid, init,
+                                   [ThreefryFields(k) for k in keys], mesh,
+                                   cfg, iters=60)
+        sub = [solve_mwcp(w, adj, valid, init, prng.split(k)[1], cfg, 60)
+               for k in keys]
+        assert torch.equal(again[2], torch.cat([r.best_mask for r in sub]))
 
 
 def _engine_cfg():
@@ -325,11 +329,9 @@ def test_fused_program_equals_no_mesh_bit_for_bit(fused_calls):
     plain = Associator3D(_engine_cfg(), sc.cameras, device="cpu")
     for args in calls:
         got = Associator3D._rescore_and_solve(
-            eng.assoc, *args[:13], GeneratorFields(torch.Generator().manual_seed(9)),
-            args[14], args[15])
+            eng.assoc, *args[:13], prng.prng_key(9), args[14], args[15])
         want = plain._rescore_and_solve(
-            *[_whole(x) for x in args[:13]],
-            GeneratorFields(torch.Generator().manual_seed(9)), args[14],
+            *[_whole(x) for x in args[:13]], prng.prng_key(9), args[14],
             args[15])
         for g, w in zip(got, want):
             assert g.dtype == w.dtype and torch.equal(g, w)

@@ -128,7 +128,7 @@ def test_clearmot_equal(runs, scene):
 def test_pipelined_matches_sequential(scene):
     """Frame pipelining reorders work but must not change any result
     (mirrors tests/test_pipeline_e2e.py::test_pipelined_matches_sequential),
-    with the same field source in both engines."""
+    on the same default solver stream in both engines."""
     _, frames = scene
     sc = t_make_scenario(num_cameras=2, num_frames=NUM_FRAMES, num_people=3,
                          image_size=(256, 192), arena=ARENA, seed=11)
