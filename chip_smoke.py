@@ -25,7 +25,22 @@ Phases (each prints its own lines; any failure exits non-zero):
      plain record, and a failure when a window's MOTA leaves it by more
      than MOTA_BOUND; then the solver's threefry field draw of one frame,
      timed alone.  The arguments of the 8 `lk_level` calls of frame
-     CAPTURE_FRAME are recorded (cloned) on the way;
+     CAPTURE_FRAME are recorded (cloned) on the way.  The fused 3D
+     program runs as CUDA graphs (models/associator3d.py::FrameProgram,
+     captured per bucket, three of them by precompile after warm-up):
+     graph replays > 0 and 0 calls of its eager body; the capture time
+     per bucket, the graph pool's bytes and the static buffers' bytes;
+  3c. graphs: GRAPH_FRAMES bench frames through a fresh pipelined engine,
+     every program run's inputs recorded: the replayed pack_a / pack_b
+     equal the eager body's (Associator3D._rescore_and_solve) on the
+     card on the same inputs and subkeys, bit for bit, over at least two
+     buckets; one dispatch's host ms (hyp.dispatch) and wall ms to
+     completion, eager against replay, on those inputs; the device ms of
+     each stage of the body (field draw, window scores, compatibility,
+     greedy start, BLS per iteration, K-best), each stage replayed as
+     one graph between CUDA events; then the bench main path again on
+     the eager body (run_bench with every engine routed to it): its
+     frames/s and hyp.dispatch beside phase 3's, and its MOTA equal;
   3b. both kernels on those recorded inputs: each call against the plain
      version at the limits of phase 2; the distribution of |final -
      initial estimate| (plain version) beside the kernel's staging
@@ -88,7 +103,7 @@ Phases (each prints its own lines; any failure exits non-zero):
      launches per frame, none on the CPU, no flat-gray frame), MOTA at
      w0/w3/w6 from the printed table's results.
 
-The whole script takes about 4 minutes on the card.  The line before the
+The whole script takes about 3 minutes on the card.  The line before the
 last is a JSON summary of the kernels, on the inputs of phase 3b: per
 bench frame (8 launches) `ms` (device-only), `plain_ms`, `bound_ms`;
 per launch `device_us_per_launch`, `bound_us`; `host_us_per_call`; what
@@ -116,6 +131,7 @@ CLI_FRAMES = 12
 MESH_FRAMES = 12
 MP_LIMIT_S = 240            # each process of the multiprocess phase
 PROFILE_FRAMES = 4
+GRAPH_FRAMES = 12
 CLI_CAM_IDS = (1, 5, 6, 8)
 # the largest |card - CPU| MOTA at any window the main path may show,
 # against the port's CPU run with the LK kernel's plain version
@@ -383,6 +399,44 @@ def phase_serial(frames, cfg):
     return (launches, worst) + time_kernel(frames, cfg, "serial")
 
 
+class EagerCount:
+    """Counts calls of the fused 3D program's eager body
+    (Associator3D._rescore_and_solve) while active."""
+
+    def __enter__(self):
+        from mcmtt_opticalflow_tpu_torch.models.associator3d import \
+            Associator3D
+        self.cls, self.orig, self.calls = Associator3D, \
+            Associator3D._rescore_and_solve, 0
+
+        def counted(assoc, *a, **k):
+            self.calls += 1
+            return self.orig(assoc, *a, **k)
+        Associator3D._rescore_and_solve = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._rescore_and_solve = self.orig
+
+
+def pool_bytes(pool):
+    """Bytes the CUDA caching allocator holds in a graph pool."""
+    import torch
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if pool is not None and seg["segment_pool_id"] == tuple(pool))
+
+
+def static_bytes(prog):
+    """Bytes of a FrameProgram's static buffers (uploads, key, fields)."""
+    return sum(t.numel() * t.element_size()
+               for t in (*prog.inputs, prog.key, *prog.fields))
+
+
+def replays_per_frame(progs):
+    return sorted({len(p.parts()) - (p.block is not None)
+                   + p.blocks for p in progs.values()})
+
+
 def _frame_ids(frames_json):
     return {f["frame"]: sorted(f["ids"]) for f in frames_json}
 
@@ -402,6 +456,7 @@ def phase_main_path(card):
     from mcmtt_opticalflow_tpu_torch.models.mwcp import threefry_fields
     from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
     from mcmtt_opticalflow_tpu_torch.utils import prng
+    from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
 
     total = WARMUP + MEASURED
     # count any LK work that runs on the CPU during the main path
@@ -430,16 +485,21 @@ def phase_main_path(card):
     tracker2d.solve_assignment_batch = timed_jv
     capture = LkCapture(CAPTURE_FRAME)
     capture.install()
+    eager = EagerCount()
     lk_kernel.lk_level.launches = 0
+    Graphed.replays = 0
     try:
-        run = bench.run_bench(MEASURED, "cuda",
-                              on_frame=lambda t: setattr(capture, "frame", t))
+        with eager:
+            run = bench.run_bench(
+                MEASURED, "cuda",
+                on_frame=lambda t: setattr(capture, "frame", t))
     finally:
         lk_kernel.lk_level_reference = orig_ref
         lk.lk_track_points = orig_pts
         tracker2d.solve_assignment_batch = orig_jv
         capture.remove()
     launches = lk_kernel.lk_level.launches
+    replays = Graphed.replays
     rec = run.record
     log(f"main path: run_bench({MEASURED}, 'cuda'), {total} frames, "
         f"lk_level launches={launches} (expected {8 * total}), CPU LK "
@@ -448,6 +508,18 @@ def phase_main_path(card):
         fail(f"expected {8 * total} LK kernel launches, got {launches}")
     if any(cpu_calls.values()):
         fail(f"LK ran on the CPU during the main path: {cpu_calls}")
+    assoc = run.engine.assoc
+    progs = assoc._programs
+    capture_s = {str(k): round(p.capture_s, 3) for k, p in progs.items()}
+    log(f"main path: fused 3D program: {replays} graph replays, "
+        f"{eager.calls} eager-body calls; capture s per bucket (nr, nb, "
+        f"iters) {json.dumps(capture_s)}; graph pool "
+        f"{pool_bytes(assoc._graph_pool) / 2**20:.1f} MiB, static buffers "
+        f"{sum(static_bytes(p) for p in progs.values()) / 2**20:.1f} MiB; "
+        f"{replays_per_frame(progs)} replays a frame")
+    if replays <= 0 or eager.calls:
+        fail(f"main path: {replays} graph replays and {eager.calls} eager "
+             f"calls of the fused 3D program (expected > 0 and 0)")
     if len(capture.calls) != 8:
         fail(f"recorded {len(capture.calls)} lk_level calls of frame "
              f"{CAPTURE_FRAME}, expected 8")
@@ -506,7 +578,190 @@ def phase_main_path(card):
     log(f"main path: threefry field draw (R={r}, V=1024, 150 iterations: "
         f"{2 * 150 * r * 1024 + 2 * 150 * r + r * 1024} numbers) "
         f"{draw_ms:.3f} ms a frame (CUDA events, median of 10) on {card}")
-    return launches, capture.calls
+    return launches, capture.calls, rec
+
+
+def _uploads(host, dev):
+    import numpy as np
+    import torch
+    return [torch.from_numpy(np.ascontiguousarray(x)).to(dev,
+                                                         non_blocking=True)
+            for x in host]
+
+
+def _eager_body(assoc, host, key, iters):
+    """The fused 3D program's eager body on the card, from host arrays, as
+    the engine's dispatch would run it without graphs."""
+    t = _uploads(host, assoc.device)
+    return assoc._rescore_and_solve(*t, key, iters, (t[7], t[9], t[10]))
+
+
+class _EagerRoute:
+    """While active, every engine runs the fused 3D program's eager body
+    in place of its captured program (the comparison run)."""
+
+    def __enter__(self):
+        from mcmtt_opticalflow_tpu_torch.models.associator3d import \
+            Associator3D
+        self.cls, self.orig = Associator3D, Associator3D._program
+
+        def program(assoc, nr, nb, iters):
+            return lambda host, key, field_source=None: _eager_body(
+                assoc, host, key if field_source is None else field_source,
+                iters)
+        Associator3D._program = program
+        return self
+
+    def __exit__(self, *exc):
+        self.cls._program = self.orig
+
+
+def _graph_ms(fn, reps=5, before=None):
+    """Device ms of fn's kernels: fn captured as one CUDA graph, replayed
+    between two CUDA events, median of `reps`; `before` runs ahead of
+    each replay, outside the events."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+    g = Graphed(fn, "cuda")
+    g.capture()
+    times = []
+    for _ in range(reps):
+        if before is not None:
+            before()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        g.graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return sorted(times)[reps // 2]
+
+
+def _stage_ms(assoc, host, key, iters):
+    """Device ms of each stage of the eager body on one frame's inputs,
+    each stage's kernels captured and replayed as one graph."""
+    from mcmtt_opticalflow_tpu_torch.models.associator3d import (
+        FrameProgram, _compat_from, incompat_rows)
+    from mcmtt_opticalflow_tpu_torch.models.costs import score_track_windows
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import (
+        bls_result, bls_start, bls_steps, iters_padded, threefry_fields)
+    cfg, acfg = assoc._solver_cfg_fused, assoc.acfg
+    r, vmax = cfg.num_replicas, cfg.max_vertices
+    ip = iters_padded(cfg, iters)
+    dev = assoc.device
+    t = _uploads(host, dev)
+    kd = key.to(dev)
+    cols = (t[7], t[9], t[10])
+    cols_f = (t[7], t[9].float(), t[10])
+    nb = t[7].shape[0]
+    f = threefry_fields(kd, r, vmax, ip, dev)
+    _, weights, adj, valid = assoc._score_graph(*t[:12], cols)
+    st = bls_start(weights, adj, valid, t[12], f, cfg, nb)
+    blk = FrameProgram.BLOCK
+    out = {
+        "field draw": _graph_ms(
+            lambda: threefry_fields(kd, r, vmax, ip, dev)),
+        "window scores": _graph_ms(lambda: score_track_windows(
+            t[0].float(), t[1].float(), t[2], t[3].float(), t[4],
+            assoc.cams, acfg)),
+        "compatibility": _graph_ms(lambda: _compat_from(
+            incompat_rows(*cols_f, cols_f, acfg), t[11])),
+        "scoring part (window scores, weights, compatibility)": _graph_ms(
+            lambda: assoc._score_graph(*t[:12], cols)),
+        "greedy start (bls_start)": _graph_ms(
+            lambda: bls_start(weights, adj, valid, t[12], f, cfg, nb)),
+        # each timed block starts at iteration 0, inside the fields
+        f"BLS per iteration (a block of {blk})": _graph_ms(
+            lambda: bls_steps(st, f, cfg, blk),
+            before=lambda: st.it.zero_()) / blk,
+        "K-best and packing": _graph_ms(
+            lambda: assoc._pack_k_best(bls_result(st))),
+    }
+    return {k: round(v, 4) for k, v in out.items()}
+
+
+def phase_graphs(cfg, sc, frames, card):
+    """The captured fused 3D program against its eager body on the card:
+    GRAPH_FRAMES bench frames through a pipelined engine, every program
+    run's inputs and outputs recorded; the eager body on the same inputs
+    and subkeys must give equal pack_a and pack_b bit for bit, over at
+    least two buckets.  Then, on those inputs: the host ms of one
+    dispatch, eager against replay (the engine's `hyp.dispatch`), and the
+    wall ms to the card's completion; the device ms of each stage of the
+    body; and the bench main path on the eager body (frames/s,
+    `hyp.dispatch` and MOTA, against phase 3's run on graphs)."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch import bench
+    from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
+    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+
+    eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
+    calls = []
+    orig = FrameProgram.__call__
+
+    def record(prog, host, key, field_source=None):
+        out = orig(prog, host, key, field_source)
+        calls.append((prog.bucket, [np.array(x) for x in host], key.clone(),
+                      tuple(o.clone() for o in out)))
+        return out
+    FrameProgram.__call__ = record
+    try:
+        _run_engine(eng, sc, frames, GRAPH_FRAMES)
+    finally:
+        FrameProgram.__call__ = orig
+    torch.cuda.synchronize()
+    assoc = eng.assoc
+    buckets = sorted({c[0] for c in calls})
+    for n, (bucket, host, key, out) in enumerate(calls):
+        want = _eager_body(assoc, host, key, bucket[2])
+        for name, g, w in zip(("pack_a", "pack_b"), out, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"graphs: the replayed {name} of solve {n} (bucket "
+                     f"{bucket}) differs from the eager body's")
+    log(f"graphs: {len(calls)} solves of {GRAPH_FRAMES} bench frames, "
+        f"replayed pack_a and pack_b == the eager body's bit for bit, "
+        f"buckets (nr, nb, iters) {buckets}; capture s "
+        f"{[round(p.capture_s, 3) for p in assoc._programs.values()]}")
+    if len(buckets) < 2:
+        fail(f"graphs: compared {len(buckets)} bucket(s), expected >= 2")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
+    rows = {"eager": [], "replay": []}
+    for bucket, host, key, _ in calls:
+        rows["eager"].append(timed(
+            lambda: _eager_body(assoc, host, key, bucket[2])))
+        rows["replay"].append(timed(
+            lambda: assoc._program(*bucket)(host, key)))
+    med = {k: [round(float(np.median([x[i] for x in v])), 3)
+               for i in (0, 1)] for k, v in rows.items()}
+    log(f"graphs: one dispatch on the same {len(calls)} inputs, median host "
+        f"ms (hyp.dispatch) eager {med['eager'][0]} replay "
+        f"{med['replay'][0]}; wall ms to the card's completion eager "
+        f"{med['eager'][1]} replay {med['replay'][1]} ({card})")
+    bucket, host, key, _ = max(calls, key=lambda c: c[0])
+    stages = _stage_ms(assoc, host, key, bucket[2])
+    log(f"graphs: device ms per stage of the body, bucket {bucket} "
+        f"(each stage replayed as one graph, CUDA events, median of 5; "
+        f"{card}): {json.dumps(stages)}")
+
+    with _EagerRoute(), EagerCount() as eager:
+        run = bench.run_bench(MEASURED, "cuda")
+    rec = run.record
+    log(f"graphs: bench main path on the eager body ({eager.calls} eager "
+        f"calls): {rec['value']} frames/s, hyp.dispatch "
+        f"{rec['stage_ms'].get('hyp.dispatch')} ms, tracks_peak "
+        f"{rec['tracks_peak']} ({card})")
+    if eager.calls <= 0:
+        fail("graphs: the eager-route bench run made no eager call")
+    return rec
 
 
 def phase_real_inputs(calls):
@@ -1083,7 +1338,8 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
 
 def phase_profile(cfg, sc, frames):
     """profile_trace around PROFILE_FRAMES steady frames of the bench main
-    path (a fresh pipelined engine, warmed up for WARMUP frames): the
+    path (a fresh pipelined engine, warmed up for WARMUP frames, then its
+    fused program precompiled as the bench does): the
     device's busy share over the window, device ms per frame, the top 5
     kernels, and the count of lk_level_kernel events, which must equal
     the wrapper's count of launches in the window (8 per frame)."""
@@ -1097,6 +1353,7 @@ def phase_profile(cfg, sc, frames):
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
     for t in range(WARMUP):
         eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+    eng.assoc.precompile()      # as the bench does: no capture in the window
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
         lk_kernel.lk_level.launches = 0
@@ -1318,8 +1575,18 @@ def main():
                            extra=[unaligned_call(frames, cfg)])
     call_ms, _ = time_kernel(frames, cfg, "batched")
     paths = {}
-    launches, calls = phase_main_path(card)
+    launches, calls, graph_rec = phase_main_path(card)
     paths["main"] = launches
+    eager_rec = phase_graphs(cfg, sc, frames, card)
+    mota = [[r[f"mota_w{w}"] for w in WINDOWS] for r in (graph_rec,
+                                                         eager_rec)]
+    log(f"graphs: frames/s {graph_rec['value']} on graphs (phase 3) "
+        f"against {eager_rec['value']} on the eager body; hyp.dispatch ms "
+        f"{graph_rec['stage_ms'].get('hyp.dispatch')} against "
+        f"{eager_rec['stage_ms'].get('hyp.dispatch')}; MOTA {mota[0]} "
+        f"against {mota[1]} ({card})")
+    if mota[0] != mota[1]:
+        fail("graphs: the eager body's bench MOTA differs from the graphs'")
     real = phase_real_inputs(calls)
     phase_modes_agree(cfg, sc, frames)
     phase_cpu_reference()

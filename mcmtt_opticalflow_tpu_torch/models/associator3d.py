@@ -4,8 +4,9 @@ reference's CPSNWhere_Associator3D, psn_where/PSNWhere_Associator3D.cpp).
 
 The host side (registry, trees, enumeration, hypothesis bookkeeping,
 pruning) is carried over unchanged; the device boundary is PyTorch: the
-fused per-frame rescore + compatibility + BLS solve program
-(`_build_device_fns`), host->device placement (`_dev`), the solve
+fused per-frame rescore + compatibility + BLS solve program (captured
+as CUDA graphs per bucket, `FrameProgram`; eager on a mesh,
+`_rescore_and_solve`), host->device placement (`_dev`), the solve
 download (a non-blocking copy behind a CUDA event, `DeviceFetch`) and the
 solver's random numbers (the JAX package's threefry stream,
 utils/prng.py).
@@ -45,7 +46,8 @@ from mcmtt_opticalflow_tpu_torch.geometry.sidemaps import (
 from mcmtt_opticalflow_tpu_torch.models.costs import (WindowScore,
                                                       score_track_windows)
 from mcmtt_opticalflow_tpu_torch.models.mwcp import (
-    solve_mwcp, device_k_best, NEG as _SOLVER_NEG)
+    MwcpFields, bls_result, bls_start, bls_steps, device_k_best, draw_fields,
+    iters_padded, threefry_fields, NEG as _SOLVER_NEG)
 from mcmtt_opticalflow_tpu_torch.models.trees import (
     Track, TrackRegistry, Tracklet, TrackTree)
 from mcmtt_opticalflow_tpu_torch.ops.sgsmooth import smoothing_matrix_np
@@ -54,6 +56,7 @@ from mcmtt_opticalflow_tpu_torch.parallel.mesh import (Shards,
                                                        join)
 from mcmtt_opticalflow_tpu_torch.utils import prng
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
+from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
 
@@ -155,6 +158,130 @@ class Track3DResult:
         default_factory=list)         # per object [T, 3] (newest last)
     recent_proj: List[np.ndarray] = dataclasses.field(
         default_factory=list)         # per object [C, T, 2] image coords
+
+
+class FrameProgram:
+    """The fused 3D program of one bucket — `nr` rescoring rows, `nb`
+    graph rows, `iters` BLS iterations — on static buffers, as the JAX
+    package compiles `rescore_and_solve` once per bucket.
+
+    The buffers hold the host's uploads (`inputs`, in the order of
+    `Associator3D._rescore_and_solve`'s first 13 arguments), the
+    solver's subkey (`key`) and its random fields (`fields`).  The
+    program runs in parts, each a `Graphed`: the field draw, the head
+    (window scores, weights, the compatibility graph, the solver's
+    start), a block of BLOCK iterations replayed iters/BLOCK times, a
+    block of the remaining iterations, and the tail (the last record,
+    the K-best selection and the packing).  On the card `capture()`
+    captures every part into the associator's graph pool; elsewhere the
+    parts run eagerly from the same buffers."""
+
+    BLOCK = 50
+
+    def __init__(self, assoc: "Associator3D", nr: int, nb: int, iters: int,
+                 pool=None):
+        cfg = assoc._solver_cfg_fused
+        dev = assoc.device
+        vmax, r = cfg.max_vertices, cfg.num_replicas
+        w, wg, c = assoc.win_rescore, assoc.win, assoc.num_cams
+        self.bucket = (nr, nb, iters)
+        ip = iters_padded(cfg, iters)
+
+        def zeros(shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+
+        f16, b = torch.float16, torch.bool
+        self.inputs = (
+            zeros((nr, w, 3), f16), zeros((nr, w, c, 3), f16),
+            zeros((nr, w, c), b), zeros((nr, w), f16),
+            zeros((nr,), torch.int32), zeros((vmax,), torch.int32),
+            zeros((vmax,)), zeros((nb,), torch.int32),
+            zeros((nb, (nb + 7) // 8), torch.uint8),
+            zeros((nb, wg, 3), f16), zeros((nb, wg), b), zeros((nb,), b),
+            zeros((assoc.acfg.k_best_size, vmax), b))
+        self.key = zeros((2,), torch.int64)
+        self.fields = MwcpFields(
+            noise=zeros((r, vmax)), u_dir=zeros((ip, r)),
+            g_dir=zeros((ip, r, vmax)), u_ten=zeros((ip, r)),
+            g_rnd=zeros((ip, r, vmax)))
+
+        def draw():
+            self._fill_fields(threefry_fields(self.key, r, vmax, ip, dev))
+
+        def head():
+            (pts, raws, rmask, merr, lens, row_map, host_base, tree_ids,
+             shared, pos_grid, have, pvalid, init_masks) = self.inputs
+            pack_a, weights, adj, valid = assoc._score_graph(
+                pts, raws, rmask, merr, lens, row_map, host_base, tree_ids,
+                shared, pos_grid, have, pvalid, (tree_ids, pos_grid, have))
+            return pack_a, bls_start(weights, adj, valid, init_masks,
+                                     self.fields, cfg, nb)
+
+        def steps(n):
+            return lambda: bls_steps(self.head.out[1], self.fields, cfg, n)
+
+        def tail():
+            return assoc._pack_k_best(bls_result(self.head.out[1]))
+
+        self.draw = Graphed(draw, dev, pool)
+        self.head = Graphed(head, dev, pool)
+        self.blocks = ip // self.BLOCK
+        self.block = Graphed(steps(self.BLOCK), dev, pool) \
+            if self.blocks else None
+        self.rest = Graphed(steps(ip % self.BLOCK), dev, pool) \
+            if ip % self.BLOCK else None
+        self.tail = Graphed(tail, dev, pool)
+        self._draw_args = (r, vmax, ip, dev)
+
+    def parts(self) -> List[Graphed]:
+        return [p for p in (self.draw, self.head, self.block, self.rest,
+                            self.tail) if p is not None]
+
+    @property
+    def capture_s(self) -> float:
+        return sum(p.capture_s for p in self.parts())
+
+    def capture(self) -> None:
+        """Capture every part not yet captured, in the order they run;
+        nothing off the card.  A part's warm-up runs it once on what the
+        parts before it wrote, so the head runs before each block's
+        capture: the solver state its warm-up advances starts at
+        iteration 0 (a block run past the last iteration would read its
+        fields out of range)."""
+        for part in self.parts():
+            if not part.on_card or part.graph is not None:
+                continue
+            if part in (self.block, self.rest):
+                self.head.graph.replay()
+            part.capture()
+
+    def _fill_fields(self, fields: MwcpFields) -> None:
+        for dst, src in zip(self.fields, fields):
+            dst.copy_(src)
+
+    def __call__(self, host: Sequence[np.ndarray], key: torch.Tensor,
+                 field_source=None):
+        """Run one frame: copy the host arrays and the subkey into the
+        buffers (or a field source's fields, when one is given, in place
+        of the draw), then every part.  Returns (pack_a, pack_b), the
+        program's own output tensors: the next run overwrites them, so a
+        caller enqueues its download before that (`DeviceFetch` does, on
+        the same stream)."""
+        self.capture()
+        for buf, x in zip(self.inputs, host):
+            buf.copy_(torch.from_numpy(np.ascontiguousarray(x)),
+                      non_blocking=True)
+        if field_source is None:
+            self.key.copy_(key, non_blocking=True)
+            self.draw()
+        else:
+            self._fill_fields(field_source.draw(*self._draw_args))
+        pack_a, _ = self.head()
+        for _ in range(self.blocks):
+            self.block()
+        if self.rest is not None:
+            self.rest()
+        return pack_a, self.tail()
 
 
 class Associator3D:
@@ -272,6 +399,10 @@ class Associator3D:
         # recorded-graph corpus for the solver quality harness
         # (tests/test_solver_quality.py)
         self.graph_dump: Optional[List[dict]] = None
+        # the fused program of each bucket met (FrameProgram), and the
+        # memory pool every bucket's graphs share on the card
+        self._programs: Dict[Tuple[int, int, int], FrameProgram] = {}
+        self._graph_pool = None
         from mcmtt_opticalflow_tpu_torch.utils.timing import StageTimer
         self.timer = StageTimer()
 
@@ -309,11 +440,13 @@ class Associator3D:
     def _rescore_and_solve(self, pts, raws, rmask, merr, lens, row_map,
                            host_base, tree_ids, shared, pos_grid, have,
                            pvalid, init_masks, fields, iters, cols):
-        """The whole 3D scoring tail of a frame on the device: window
+        """The whole 3D scoring tail of a frame on the device, eagerly: window
         re-smoothing/re-costing of every updated track and branch
         candidate, track weights (host cost prefix + device window cost),
         the compatibility graph, the replica-parallel BLS solve and the
-        K-best selection.
+        K-best selection.  Without a mesh the engine runs the same parts
+        as a `FrameProgram`; this is the mesh's route, and the reference
+        the captured program is held against.
 
         Position arrays arrive as float16 (as the JAX package ships them,
         so both packages score the same quantised inputs) and widen to
@@ -324,10 +457,28 @@ class Associator3D:
         and the compatibility rows are then computed chunk by chunk on
         the chunks' devices (`_on_rows`) and joined here, on
         `self.device`, with one cross-process all-gather when chunks live
-        in other processes.  Returns the two download leaves
-        `_unpack_solve` reads: pack_a [nr, 5w+2] f16 (smoothed |
-        cost_recon | cost_link | window_cost | valid) and pack_b
-        [K, vmax/8 + 4] u8 (bit-packed K-best masks | score bytes)."""
+        in other processes.  `fields` is the solver's PRNG key or a field
+        source.  Returns the two download leaves `_unpack_solve` reads:
+        pack_a [nr, 5w+2] f16 (smoothed | cost_recon | cost_link |
+        window_cost | valid) and pack_b [K, vmax/8 + 4] u8 (bit-packed
+        K-best masks | score bytes)."""
+        cfg = self._solver_cfg_fused
+        iters_pad = iters_padded(cfg, iters)
+        f = draw_fields(fields, cfg.num_replicas, cfg.max_vertices,
+                        iters_pad, self.device)
+        pack_a, weights, adj, valid = self._score_graph(
+            pts, raws, rmask, merr, lens, row_map, host_base, tree_ids,
+            shared, pos_grid, have, pvalid, cols)
+        st = bls_start(weights, adj, valid, init_masks, f, cfg,
+                       cols[0].shape[0])
+        bls_steps(st, f, cfg, iters_pad)
+        return pack_a, self._pack_k_best(bls_result(st))
+
+    def _score_graph(self, pts, raws, rmask, merr, lens, row_map, host_base,
+                     tree_ids, shared, pos_grid, have, pvalid, cols):
+        """The fused program up to the solve (arguments as
+        `_rescore_and_solve`): pack_a, and the solver's graph — weights
+        [vmax], adjacency [vmax, vmax] and validity [vmax]."""
         acfg = self.acfg
         solver_cfg = self._solver_cfg_fused
         ws = self._on_rows(
@@ -372,25 +523,28 @@ class Associator3D:
         in_graph = torch.zeros((vmax,), dtype=torch.bool, device=dev)
         in_graph[:nb] = pvalid
         valid = vert_ok & in_graph
-        res = solve_mwcp(weights, adj, valid, init_masks, fields,
-                         solver_cfg, iters)
-        kb_masks, kb_scores = device_k_best(res, acfg.k_best_size)
-        k = kb_masks.shape[0]
-        weights8 = (1 << torch.arange(7, -1, -1, device=dev)).to(torch.uint8)
-        kb_packed = torch.sum(
-            kb_masks.reshape(k, -1, 8).to(torch.uint8) * weights8, -1,
-            dtype=torch.uint8)
         nr = smoothed.shape[0]
         pack_a = torch.cat([
             smoothed.half().reshape(nr, -1),
             cost_recon.half(), cost_link.half(),
             window_cost.half()[:, None],
             wvalid.half()[:, None]], dim=1)
-        pack_b = torch.cat([
+        return pack_a, weights, adj, valid
+
+    def _pack_k_best(self, res):
+        """The K-best local optima of a solve, packed as pack_b: bit-packed
+        masks, then each score's four bytes."""
+        kb_masks, kb_scores = device_k_best(res, self.acfg.k_best_size)
+        k = kb_masks.shape[0]
+        weights8 = (1 << torch.arange(7, -1, -1, device=kb_masks.device)
+                    ).to(torch.uint8)
+        kb_packed = torch.sum(
+            kb_masks.reshape(k, -1, 8).to(torch.uint8) * weights8, -1,
+            dtype=torch.uint8)
+        return torch.cat([
             kb_packed,
             kb_scores.float().contiguous().view(torch.uint8).reshape(k, 4)],
             dim=1)
-        return pack_a, pack_b
 
     # ------------------------------------------------------------------
     # host -> device placement
@@ -2563,24 +2717,28 @@ class Associator3D:
         self.solver_key, k = prng.split(self.solver_key)
         self.timer.pop()
         with self.timer.stage("hyp.dispatch"):
-            # position arrays ship as f16 (see _rescore_and_solve); the
-            # compatibility columns go up once, replicated, and are the
-            # rows too where _dev does not split them
-            col_in = (tree_ids, pos_grid.astype(np.float16), have)
-            cols = tuple(self._dev(x) for x in col_in)
-            rows = [self._dev(x, True) if self._splits(x) else c
-                    for x, c in zip(col_in, cols)]
-            out = self._rescore_and_solve(
-                self._dev(pts.astype(np.float16), True),
-                self._dev(raws.astype(np.float16), True),
-                self._dev(rmask, True),
-                self._dev(merr.astype(np.float16), True),
-                self._dev(lens, True),
-                self._dev(row_map), self._dev(host_base), rows[0],
-                self._dev(np.packbits(shared, axis=1)), rows[1], rows[2],
-                self._dev(pvalid, True), self._dev(init_masks),
-                k if self.field_source is None else self.field_source,
-                iters, cols)
+            # position arrays ship as f16 (see _rescore_and_solve)
+            host = (pts.astype(np.float16), raws.astype(np.float16), rmask,
+                    merr.astype(np.float16), lens, row_map, host_base,
+                    tree_ids, np.packbits(shared, axis=1),
+                    pos_grid.astype(np.float16), have, pvalid, init_masks)
+            if self.mesh is None:
+                out = self._program(len(lens), nb, iters)(
+                    host, k, self.field_source)
+            else:
+                # the compatibility columns go up once, replicated, and
+                # are the rows too where _dev does not split them
+                col_in = (host[7], host[9], host[10])
+                cols = tuple(self._dev(x) for x in col_in)
+                rows = [self._dev(x, True) if self._splits(x) else c
+                        for x, c in zip(col_in, cols)]
+                out = self._rescore_and_solve(
+                    *[self._dev(x, True) for x in host[:5]],
+                    self._dev(row_map), self._dev(host_base), rows[0],
+                    self._dev(host[8]), rows[1], rows[2],
+                    self._dev(pvalid, True), self._dev(init_masks),
+                    k if self.field_source is None else self.field_source,
+                    iters, cols)
         # new_track consumption point (the related-set expansion above was
         # this frame's only reader)
         for t in reg.tracks.values():
@@ -2592,18 +2750,38 @@ class Associator3D:
                     init_masks=init_masks, tree_ids=tree_ids,
                     shared=shared, pos_grid=pos_grid, have=have,
                     pvalid=pvalid)
-        # the download starts now, behind the solve on the device stream,
-        # and overlaps the host work until _collect_solve joins it
+        # the download starts now, behind the solve on the device stream
+        # (so before any later replay overwrites the program's outputs,
+        # deferred or not), and overlaps the host work until
+        # _collect_solve joins it
         pend["fetch"] = DeviceFetch(out)
         if self.deferred_solve:
             self._pending_solve = pend
             return
         self._collect_solve(pend)
 
-    def precompile(self, pairs=()):
-        """Kept for the JAX package's API: eager PyTorch compiles nothing
-        ahead of time."""
-        del pairs
+    def _program(self, nr: int, nb: int, iters: int) -> FrameProgram:
+        """The bucket's program, made (and on the card captured) when
+        first met, as JAX compiles a bucket at its first call."""
+        prog = self._programs.get((nr, nb, iters))
+        if prog is None:
+            if self._graph_pool is None and self.device.type == "cuda":
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            prog = FrameProgram(self, nr, nb, iters, self._graph_pool)
+            prog.capture()
+            self._programs[(nr, nb, iters)] = prog
+        return prog
+
+    def precompile(self, pairs=((256, 1024), (512, 512), (512, 1024))):
+        """Capture the fused program ahead of the measured frames at the
+        given (rescore bucket, graph bucket) pairs, from zero-filled
+        buffers, as the JAX package compiles them (its precompile); pairs
+        beyond max_vertices are skipped.  Off the card it makes their
+        buffers.  Call after the engine's own warm-up frames."""
+        vmax = self.cfg.solver.max_vertices
+        for nr, nb in pairs:
+            if nb <= vmax:
+                self._program(nr, nb, self.cfg.solver.max_iterations)
 
     def _unpack_solve(self, flat, nr):
         """Host inverse of rescore_and_solve's single-leaf packing.

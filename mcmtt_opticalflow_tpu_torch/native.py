@@ -1,8 +1,12 @@
 """ctypes bindings for the native host runtime.
 
-Builds and loads the same library as the JAX package (native/
-mcmtt_native.cpp with native/Makefile, at the repository root); no C++
-is copied here.  Every binding has the JAX package's signature and
+Builds and loads its own copy of the JAX package's library: the same
+source (native/mcmtt_native.cpp, at the repository root) by the same
+native/Makefile, into ``_build/`` beside this package (named by the
+source's hash; see .gitignore), under a file lock, and moved into place
+only when whole.  So it never writes native/libmcmtt_native.so, and
+processes that load it at once never see a half-written file; no C++ is
+copied here.  Every binding has the JAX package's signature and
 return types, and raises RuntimeError when the library is unavailable
 (no toolchain): callers check `available()` first.  The engine uses
 `rgb_to_gray_u8` and falls back to the numpy formula, which gives the
@@ -12,6 +16,8 @@ same bytes, when there is no library.
 from __future__ import annotations
 
 import ctypes
+import fcntl
+import hashlib
 import os
 import subprocess
 from typing import Optional, Tuple
@@ -20,7 +26,9 @@ import numpy as np
 
 _NATIVE_DIR = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "native")
-_LIB_PATH = os.path.join(_NATIVE_DIR, "libmcmtt_native.so")
+_SRC = os.path.join(_NATIVE_DIR, "mcmtt_native.cpp")
+_BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "_build")
 
 _F64 = ctypes.POINTER(ctypes.c_double)
 _U8 = ctypes.POINTER(ctypes.c_uint8)
@@ -37,15 +45,9 @@ def _load() -> Optional[ctypes.CDLL]:
     if _Lib.handle is not None or _Lib.tried:
         return _Lib.handle
     _Lib.tried = True
-    if not os.path.exists(_LIB_PATH):
-        try:
-            subprocess.run(["make", "-C", _NATIVE_DIR], check=True,
-                           capture_output=True, timeout=120)
-        except (OSError, subprocess.SubprocessError):
-            return None
     try:
-        lib = ctypes.CDLL(_LIB_PATH)
-    except OSError:
+        lib = ctypes.CDLL(build())
+    except (OSError, subprocess.SubprocessError):
         return None
     lib.lap_solve.restype = ctypes.c_double
     lib.lap_solve.argtypes = [_F64, ctypes.c_int, ctypes.c_int, _I32]
@@ -59,6 +61,33 @@ def _load() -> Optional[ctypes.CDLL]:
     lib.rgb_to_gray_u8.argtypes = [_U8, ctypes.c_longlong, _U8]
     _Lib.handle = lib
     return lib
+
+
+def build() -> str:
+    """Path of the built library, building it first when missing:
+    `make -C native TARGET=<temporary file>` (the command line overrides
+    the Makefile's TARGET), then an atomic rename, under an exclusive
+    lock on ``_build/native.lock`` so that concurrent processes build
+    once.  Raises OSError or SubprocessError without a toolchain."""
+    with open(_SRC, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    path = os.path.join(_BUILD_DIR, f"libmcmtt_native_{digest}.so")
+    if os.path.exists(path):
+        return path
+    os.makedirs(_BUILD_DIR, exist_ok=True)
+    with open(os.path.join(_BUILD_DIR, "native.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(path):
+            tmp = f"{path}.{os.getpid()}.tmp"
+            try:
+                subprocess.run(["make", "-B", "-C", _NATIVE_DIR,
+                                f"TARGET={tmp}"], check=True,
+                               capture_output=True, timeout=120)
+                os.replace(tmp, path)
+            finally:
+                if os.path.exists(tmp):
+                    os.unlink(tmp)
+    return path
 
 
 def available() -> bool:

@@ -1,0 +1,74 @@
+"""CUDA graphs for the port's fixed-shape device programs.
+
+A `Graphed` holds a function of static buffers: it takes no arguments,
+reads the tensors it closes over and returns its outputs.  On a CUDA
+device `capture()` records it into a CUDA graph (after one eager run on
+a side stream, which fills lazy state such as library handles and
+cached constants) and each call replays the graph: one launch of all the
+recorded work on the current stream, writing the same output tensors,
+whatever the buffers hold then.  On any other device each call runs the
+function eagerly.  This is the card's counterpart of a jitted XLA
+executable, built once per static shape.
+
+There is no fallback: a capture or replay that fails raises.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Callable
+
+import torch
+
+
+class Graphed:
+    """`fn` captured as a CUDA graph on a CUDA `device` (into `pool`, a
+    `torch.cuda.graph_pool_handle()` that the graphs of one program
+    share), called eagerly elsewhere.  `out` is fn's latest output: on
+    the card the graph's static output tensors.  `Graphed.replays`
+    counts replays, over every instance, since it was last set to 0."""
+
+    replays = 0
+
+    def __init__(self, fn: Callable, device, pool=None):
+        self.fn = fn
+        self.device = torch.device(device)
+        self.pool = pool
+        self.graph = None
+        self.out = None
+        self.capture_s = 0.0
+
+    @property
+    def on_card(self) -> bool:
+        return self.device.type == "cuda"
+
+    def capture(self) -> None:
+        """Warm up and capture.  Capturing runs nothing: `out` holds the
+        graph's output tensors, whose values the first replay writes.
+        Nothing to do off the card or when already captured."""
+        if not self.on_card or self.graph is not None:
+            return
+        t0 = time.perf_counter()
+        with torch.cuda.device(self.device):
+            current = torch.cuda.current_stream()
+            side = torch.cuda.Stream()
+            side.wait_stream(current)
+            with torch.cuda.stream(side):
+                self.fn()
+            current.wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self.pool):
+                self.out = self.fn()
+        self.graph = graph
+        self.capture_s = time.perf_counter() - t0
+
+    def __call__(self):
+        if not self.on_card:
+            self.out = self.fn()
+            return self.out
+        if self.graph is None:
+            raise RuntimeError("Graphed: call capture() before the first "
+                               "replay")
+        self.graph.replay()
+        Graphed.replays += 1
+        return self.out

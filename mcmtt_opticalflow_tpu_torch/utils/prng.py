@@ -102,8 +102,9 @@ def uniform(key: torch.Tensor, shape: Sequence[int], minval: float = 0.0,
     bits = random_bits(key, shape)
     floats = ((bits >> 9) | 0x3F800000).to(torch.int32).view(
         torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=key.device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=key.device)
+    # filled on the device (no host copy, so a CUDA graph can hold it)
+    lo = torch.full((), minval, dtype=torch.float32, device=key.device)
+    hi = torch.full((), maxval, dtype=torch.float32, device=key.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
 
 

@@ -5,7 +5,12 @@ brute-force optimal on 5 seeds and deterministic for a seed, agreement
 with the port's solve_mwcp on the CPU (abs 1e-3), the detection parser
 round-tripping the port's write_detection_file (rtol 1e-6), and every
 binding's output equal to the JAX package's binding on the same inputs.
-Skipped, like tests/test_native.py, without a native toolchain."""
+Skipped, like tests/test_native.py, without a native toolchain.
+
+The JAX binding is loaded here from the port's finished library (the
+same source, built whole into the port's _build/): its own loader builds
+native/libmcmtt_native.so in place, and a worker that opens that file
+while another worker writes it caches the failure for its life."""
 
 import itertools
 
@@ -25,6 +30,17 @@ pytestmark = pytest.mark.skipif(not native.available(),
                                 reason="native toolchain unavailable")
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def jax_binding_on_the_port_library():
+    """Point the JAX binding at the port's finished library and reload it
+    there; restore its path and load state afterwards."""
+    saved = (jax_native._LIB_PATH, jax_native._TRIED, jax_native._LIB)
+    jax_native._LIB_PATH = native.build()
+    jax_native._TRIED, jax_native._LIB = False, None
+    yield
+    jax_native._LIB_PATH, jax_native._TRIED, jax_native._LIB = saved
 
 
 def _graph(rng, n, p=0.5):
