@@ -3,9 +3,13 @@
 
     python3 chip_smoke.py
 
-Phases (each prints its own lines; any failure exits non-zero):
+Phases (each prints its own lines; any failure exits non-zero), run in
+the order 1, 2, 3d, 3e, 3f, 3c, 3b, 4-8b, 10, 9, 3, 3g, 10 counted:
+every timed phase comes before the first CUPTI session (phase 3's kernel
+count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
-     level kernel is built from ops/csrc/lk_level.cu with nvcc;
+     level kernel (ops/csrc/lk_level.cu) and the JV assignment kernel
+     (ops/csrc/jv_assign.cu) are built with nvcc, both at once;
   2. the LK kernel against its plain PyTorch version at synthetic bench
      shapes (4 cameras, 576x768 and 288x384 levels, 6912 and 9216
      feature slots, points uniform over the image, ~25% active at
@@ -17,19 +21,64 @@ Phases (each prints its own lines; any failure exits non-zero):
      included;
   3. main path: mcmtt_opticalflow_tpu_torch.bench.run_bench(30, "cuda"),
      bench.py's protocol at its config and scene (37 frames, 7 of
-     warm-up), with exactly 8 LK kernel launches per processed frame and
-     no LK work on the CPU; frames/s, stage medians, tracks_peak,
+     warm-up).  The 2D step runs as one CUDA graph
+     (models/pipeline.py::Tracker2DProgram, captured at frame 0): 37
+     replays and no eager 2D step but the capture's two calls (its
+     warm-up and its recording).  The kernels the card runs are counted
+     by CUPTI (utils/kernel_events.py::KernelEvents, around the whole
+     run; a replay's kernels one by one): 8 LK and 1 JV kernels per
+     replay plus those of the warm-up; the wrappers, which replays do not
+     pass through, launch 16 LK and 2 JV kernels (the capture's two
+     calls); no LK work on the CPU; ids and points equal to phase 3d's
+     run of the same route on every frame; frames/s (under the counter:
+     the route's times are phase 3d's), stage medians,
+     tracks_peak,
      pool_dropped, the MOTA triple at w0/w3/w6 beside the CPU record
      (bench_reference.json: the JAX engine, and the port with the LK
      kernel's plain version), the first frame whose 3D ids leave the
      plain record, and a failure when a window's MOTA leaves it by more
-     than MOTA_BOUND; then the solver's threefry field draw of one frame,
-     timed alone.  The arguments of the 8 `lk_level` calls of frame
-     CAPTURE_FRAME are recorded (cloned) on the way.  The fused 3D
+     than MOTA_BOUND.  The fused 3D
      program runs as CUDA graphs (models/associator3d.py::FrameProgram,
      captured per bucket, three of them by precompile after warm-up):
      graph replays > 0 and 0 calls of its eager body; the capture time
      per bucket, the graph pool's bytes and the static buffers' bytes;
+  3d. both 2D routes, no counter running: run_bench on the main path's
+     route, then again with every 2D step run eagerly (no graph) and its
+     assignment downloaded to the plain JV on the host and the matching
+     uploaded (the route before the 2D graph, made here by patching the
+     engine, never by a switch in the package): frames/s and stage
+     medians of both routes (tracker2d, get2d, hyp.solve, hyp.collect
+     called out), the host JV's ms a frame, ids and points equal on every
+     frame; then the solver's threefry field draw of one frame, timed
+     alone.  On the way it
+     records every frame's assignment inputs (phase 3f) and the
+     arguments of the 8 `lk_level` calls of frame CAPTURE_FRAME (phase
+     3b), which replays do not pass through;
+  3e. the 2D graph: GRAPH_FRAMES bench frames through a fresh pipelined
+     engine; after each frame the program's state buffers (every leaf)
+     and its packed output equal, bit for bit, an eager tracker2d_step
+     on the card on the same inputs, stepped alongside; the dispatch of
+     every frame after the capture (gray upload, box / mask upload, frame
+     number, replay) runs under torch.cuda.set_sync_debug_mode("error"),
+     which fails on any host synchronisation; no eager 2D step after the
+     capture; dispatch host ms against the eager step's, a replay's
+     device ms against the eager step's ms to completion, capture s and
+     the graph pool's bytes;
+  3f. the JV kernel (jv_assign) against its plain version on every
+     frame's recorded [4, 48, 64] assignment of phase 3d and on 300
+     seeded random cases (tests/test_torch_ops.py's random and tie-heavy
+     generators at its shapes and the bench's, and more rows than
+     columns, up to [2, 300, 100]): col_of_row equal and match_cost equal
+     bit for bit; per frame the device-only µs per launch (timed as in
+     phase 3b), the wrapper's host µs per call, the plain version's ms
+     (the download and the host JV), the serial Dijkstra steps (the sum
+     over rows: the kernel's latency floor) and the bound: the larger of
+     the bytes over 3.35 TB/s and the float32 operations over 67 TFLOP/s
+     (ops/hungarian.py::jv_work); an empty kernel's launch beside it;
+  3g. the eager 2D route once more, under the CUPTI counter: every LK
+     launch passes through the wrapper there, so the card's count equals
+     the wrapper's (296 LK, 0 JV on the card): the check of phase 3's
+     counter;
   3c. graphs: GRAPH_FRAMES bench frames through a fresh pipelined engine,
      every program run's inputs recorded: the replayed pack_a / pack_b
      equal the eager body's (Associator3D._rescore_and_solve) on the
@@ -40,13 +89,15 @@ Phases (each prints its own lines; any failure exits non-zero):
      greedy start, BLS per iteration, K-best), each stage replayed as
      one graph between CUDA events; then the bench main path again on
      the eager body (run_bench with every engine routed to it): its
-     frames/s and hyp.dispatch beside phase 3's, and its MOTA equal;
-  3b. both kernels on those recorded inputs: each call against the plain
-     version at the limits of phase 2; the distribution of |final -
-     initial estimate| (plain version) beside the kernel's staging
-     margin; per call the kernel's device-only time (REPS back-to-back
-     launches on prepared tensors, queued behind a sleep kernel so the
-     host cannot starve the card, between two CUDA events, over REPS),
+     frames/s and hyp.dispatch beside phase 3d's graph route, and its
+     MOTA equal;
+  3b. both kernels on the LK calls recorded in phase 3d: each call
+     against the plain version at the limits of phase 2; the
+     distribution of |final - initial estimate| (plain version) beside
+     the kernel's staging margin; per call the kernel's device-only
+     time (REPS back-to-back launches on prepared tensors, queued behind
+     a sleep kernel so the host cannot starve the card, between two
+     CUDA events, over REPS),
      the wrapper's host time per `lk_level` call (perf_counter over REPS
      calls, no synchronisation between them), the plain version's time,
      and the bound: the larger of the bytes these inputs need over
@@ -95,22 +146,32 @@ Phases (each prints its own lines; any failure exits non-zero):
      scaling_report;
   9. profile: utils/timing.py::profile_trace (torch.profiler) around
      PROFILE_FRAMES steady bench frames: device busy share, device ms
-     per frame, top 5 kernels, and lk_level_kernel events (8 per frame);
+     per frame, top 5 kernels, and the events of lk_level_kernel (8 per
+     frame) and jv_assign_kernel (1 per frame), all in 2D graph replays,
+     none through a wrapper;
   10. the dataset CLI: the bench scene (12 frames) written in the
      reference's layout (Tsai XML, detection files, .ppm frames, ground
      truth, parameters.txt), run through `main.py <parameters.txt>` in
-     process at the default EngineConfig (3 pyramid levels: 12 LK kernel
-     launches per frame, none on the CPU, no flat-gray frame), MOTA at
-     w0/w3/w6 from the printed table's results.
+     process at the default EngineConfig (3 pyramid levels: counted as in
+     phase 3, 12 LK and 1 JV kernels run per 2D replay plus the capture's
+     warm-up, the wrappers launch those of the capture's two calls, none
+     on the CPU, no flat-gray frame), MOTA at w0/w3/w6 from the printed
+     table's results; run twice: timed, then counted.
 
-The whole script takes about 3 minutes on the card.  The line before the
-last is a JSON summary of the kernels, on the inputs of phase 3b: per
-bench frame (8 launches) `ms` (device-only), `plain_ms`, `bound_ms`;
+The whole script takes about 4 minutes on the card.  The line before the
+last is a JSON summary of the kernels.  The LK kernels, on the inputs of
+phase 3b: per bench frame (8 launches) `ms` (device-only), `plain_ms`,
+`bound_ms`;
 per launch `device_us_per_launch`, `bound_us`; `host_us_per_call`; what
 binds (`bound_by`); `library_ms` null (no single PyTorch call computes
 an LK level); `call_ms_synthetic`, phase 2's per-frame time with the
 wrapper's host work; `launches_by_path`, the launches of each path that
-runs the kernel, each counted from 0 (`launches` is the main path's).
+runs the kernel, each counted from 0 (`launches` is the main path's):
+kernel runs counted on the card for the graphed paths (main, cli:
+CUPTI; profile: trace events), the wrapper's count for the eager ones;
+`wrapper_launches` and `graph_replays_2d`, measured beside the card's
+counts on the graphed paths.  The JV kernel, on phase 3f's recorded
+frames, per bench frame (1 launch): the same keys, with `serial_steps`.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -441,75 +502,100 @@ def _frame_ids(frames_json):
     return {f["frame"]: sorted(f["ids"]) for f in frames_json}
 
 
-def phase_main_path(card):
+def _count_calls(mod, name):
+    """Wrap mod.<name> with a call counter; returns (counts, restore)."""
+    fn = getattr(mod, name)
+    counts = {"n": 0}
+
+    def wrapped(*a, **k):
+        counts["n"] += 1
+        return fn(*a, **k)
+    setattr(mod, name, wrapped)
+    return counts, lambda: setattr(mod, name, fn)
+
+
+def kernel_runs(ev):
+    """(batched LK, serial LK, JV) kernel runs that a KernelEvents session
+    counted on the card."""
+    return (ev.count("lk_level_kernel<false"),
+            ev.count("lk_level_kernel<true"), ev.count("jv_assign_kernel"))
+
+
+def phase_main_path(card, timed):
     """mcmtt_opticalflow_tpu_torch.bench.run_bench on the card: bench.py's
-    protocol at its config and scene, its LK launches counted from 0, its
-    CPU LK calls counted, frame CAPTURE_FRAME's lk_level calls recorded
-    and the host JV timed; its MOTA triple held against the CPU record
-    (bench_reference.json: `jax`, the JAX engine; `plain`, the port with
-    the LK kernel's plain version); then the solver's threefry draw
-    timed alone."""
+    protocol at its config and scene, the kernels the card runs counted
+    from 0 by CUPTI (utils/kernel_events.py: graph replays' kernels one by
+    one) and the wrappers' launches from 0, its CPU LK calls and eager 2D
+    steps counted; its MOTA triple held
+    against the CPU record (bench_reference.json: `jax`, the JAX engine;
+    `plain`, the port with the LK kernel's plain version); its results
+    equal, frame by frame, to `timed`, phase 3d's run of the same route
+    with no counter.  The counter slows graph launches (CUPTI records
+    their kernels), so the route's times are `timed`'s."""
     import numpy as np
-    import torch
     from mcmtt_opticalflow_tpu_torch import bench
-    from mcmtt_opticalflow_tpu_torch.models import tracker2d
-    from mcmtt_opticalflow_tpu_torch.models.mwcp import threefry_fields
-    from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
-    from mcmtt_opticalflow_tpu_torch.utils import prng
-    from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+    from mcmtt_opticalflow_tpu_torch.models import pipeline
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     total = WARMUP + MEASURED
-    # count any LK work that runs on the CPU during the main path
-    cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0}
-
-    def counting(mod, name):
-        fn = getattr(mod, name)
-
-        def wrapped(*a, **k):
-            cpu_calls[name] += 1
-            return fn(*a, **k)
-        setattr(mod, name, wrapped)
-        return fn
-
-    orig_ref = counting(lk_kernel, "lk_level_reference")
-    orig_pts = counting(lk, "lk_track_points")
-    # host time of the 2D stage's assignment (numpy JV), per frame
-    jv_s = []
-    orig_jv = tracker2d.solve_assignment_batch
-
-    def timed_jv(*a):
-        t0 = time.perf_counter()
-        out = orig_jv(*a)
-        jv_s.append(time.perf_counter() - t0)
-        return out
-    tracker2d.solve_assignment_batch = timed_jv
-    capture = LkCapture(CAPTURE_FRAME)
-    capture.install()
+    # any LK work that runs on the CPU during the main path, and the eager
+    # 2D steps: the program's capture makes two (its warm-up and its
+    # recording), replays none
+    counted = {(mod, name): _count_calls(mod, name) for mod, name in (
+        (lk_kernel, "lk_level_reference"), (lk, "lk_track_points"),
+        (pipeline, "tracker2d_step"))}
     eager = EagerCount()
-    lk_kernel.lk_level.launches = 0
-    Graphed.replays = 0
+    lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
+    hungarian.jv_assign.launches = 0
     try:
-        with eager:
-            run = bench.run_bench(
-                MEASURED, "cuda",
-                on_frame=lambda t: setattr(capture, "frame", t))
+        with eager, KernelEvents() as ev:
+            run = bench.run_bench(MEASURED, "cuda")
     finally:
-        lk_kernel.lk_level_reference = orig_ref
-        lk.lk_track_points = orig_pts
-        tracker2d.solve_assignment_batch = orig_jv
-        capture.remove()
-    launches = lk_kernel.lk_level.launches
-    replays = Graphed.replays
-    rec = run.record
-    log(f"main path: run_bench({MEASURED}, 'cuda'), {total} frames, "
-        f"lk_level launches={launches} (expected {8 * total}), CPU LK "
-        f"calls={cpu_calls}")
-    if launches != 8 * total:
-        fail(f"expected {8 * total} LK kernel launches, got {launches}")
-    if any(cpu_calls.values()):
-        fail(f"LK ran on the CPU during the main path: {cpu_calls}")
+        for _, restore in counted.values():
+            restore()
+    cpu_calls = {name: n["n"] for (mod, name), (n, _) in counted.items()
+                 if mod is not pipeline}
+    steps2d = counted[(pipeline, "tracker2d_step")][0]
+    wrapper = (lk_kernel.lk_level.launches,
+               lk_kernel.lk_level.serial_launches,
+               hungarian.jv_assign.launches)
+    runs = kernel_runs(ev)
+    prog2d = run.engine._prog2d
+    replays2d = prog2d.graph.n_replays
     assoc = run.engine.assoc
     progs = assoc._programs
+    replays = sum(g.n_replays for p in progs.values() for g in p.parts())
+    rec = run.record
+    # the card runs 8 LK and 1 JV kernels a replay and in the capture's
+    # warm-up; the wrappers see the capture's two eager calls only
+    want_runs = (8 * (replays2d + 1), 0, replays2d + 1)
+    want_wrapper = (8 * steps2d["n"], 0, steps2d["n"])
+    log(f"main path: run_bench({MEASURED}, 'cuda'), {total} frames: 2D "
+        f"program {replays2d} graph replays (expected {total}), "
+        f"{steps2d['n']} eager tracker2d_step calls (expected 2: the "
+        f"capture's warm-up and recording), capture "
+        f"{prog2d.graph.capture_s:.3f} s, graph pool "
+        f"{pool_bytes(prog2d.graph.pool) / 2**20:.1f} MiB; kernels run on "
+        f"the card (CUPTI): lk_level={runs[0]} (expected {want_runs[0]}: 8 "
+        f"a replay and 8 in the warm-up), lk_level_serial={runs[1]}, "
+        f"jv_assign={runs[2]} (expected {want_runs[2]}), "
+        f"{ev.total} kernels in all, {ev.total / total:.0f} a frame; "
+        f"wrapper launches lk_level={wrapper[0]} serial={wrapper[1]} "
+        f"jv_assign={wrapper[2]} (expected {want_wrapper}: the capture's "
+        f"two calls); CPU LK calls={cpu_calls}")
+    if replays2d != total or steps2d["n"] != 2:
+        fail(f"main path: the 2D step ran {replays2d} replays and "
+             f"{steps2d['n']} eager calls (expected {total} and 2)")
+    if runs != want_runs:
+        fail(f"main path: the card ran (lk_level, lk_level_serial, "
+             f"jv_assign) {runs} times, expected {want_runs}")
+    if wrapper != want_wrapper:
+        fail(f"main path: the wrappers launched (lk_level, "
+             f"lk_level_serial, jv_assign) {wrapper} times, expected "
+             f"{want_wrapper}")
+    if any(cpu_calls.values()):
+        fail(f"LK ran on the CPU during the main path: {cpu_calls}")
     capture_s = {str(k): round(p.capture_s, 3) for k, p in progs.items()}
     log(f"main path: fused 3D program: {replays} graph replays, "
         f"{eager.calls} eager-body calls; capture s per bucket (nr, nb, "
@@ -520,9 +606,6 @@ def phase_main_path(card):
     if replays <= 0 or eager.calls:
         fail(f"main path: {replays} graph replays and {eager.calls} eager "
              f"calls of the fused 3D program (expected > 0 and 0)")
-    if len(capture.calls) != 8:
-        fail(f"recorded {len(capture.calls)} lk_level calls of frame "
-             f"{CAPTURE_FRAME}, expected 8")
     if rec["lk_route"] != "cuda" or rec["frames"] != MEASURED:
         fail(f"main path: unexpected record {rec}")
     for r in run.engine.results:
@@ -530,13 +613,12 @@ def phase_main_path(card):
         if len(r.ids) != len(pts) or (pts.size and (
                 pts.shape[1] != 3 or not np.isfinite(pts).all())):
             fail(f"malformed result at frame {r.frame_idx}")
+    same_results(timed, run, "main path (counted)", "phase 3d's run")
     log(f"main path: {rec['value']} frames/s median over "
-        f"{len(run.per_frame)} frames on {card}")
+        f"{len(run.per_frame)} frames under the CUPTI counter (phase 3d "
+        f"{timed.record['value']} without it) on {card}")
     log(f"main path: per-frame s {[round(x, 4) for x in run.per_frame]}")
     log(f"main path: stage medians ms {json.dumps(rec['stage_ms'])}")
-    log(f"main path: host solve_assignment_batch median "
-        f"{1e3 * float(np.median(jv_s[WARMUP:])):.3f} ms/frame "
-        f"(max {1e3 * max(jv_s[WARMUP:]):.3f})")
     quality = {f"mota_w{w}": run.evals[w].mota for w in WINDOWS}
     log(f"main path: tracks_peak={rec['tracks_peak']} "
         f"pool_dropped={rec['pool_dropped']} {json.dumps(quality)}")
@@ -568,6 +650,113 @@ def phase_main_path(card):
     if gap > MOTA_BOUND:
         fail(f"the card's MOTA leaves the plain CPU record by {gap:.4f} "
              f"(bound {MOTA_BOUND})")
+    counts = {"runs": runs, "wrapper": wrapper, "replays": replays2d}
+    return counts, run
+
+
+class _Eager2DRoute:
+    """While active, every engine's 2D program runs its function eagerly
+    (no graph: nothing is captured) and the assignment in it downloads
+    the cost matrix and the masks, runs the plain JV on the host and
+    uploads the matching: the route before the 2D graph.  Records every
+    assignment's inputs (cloned) and its host seconds."""
+
+    def __enter__(self):
+        from mcmtt_opticalflow_tpu_torch.models import pipeline, tracker2d
+        from mcmtt_opticalflow_tpu_torch.ops import hungarian
+        self.inputs, self.host_s = [], []
+        self.cls = pipeline.Tracker2DProgram
+        self.orig = self.cls.__call__, self.cls.capture
+        self.mod, self.orig_jv = tracker2d, tracker2d.solve_assignment_batch
+
+        def call(prog, boxes, mask, frame_idx):
+            prog.boxes.copy_(pipeline._staged(boxes, prog.device),
+                             non_blocking=True)
+            prog.mask.copy_(pipeline._staged(mask, prog.device),
+                            non_blocking=True)
+            prog.frame_idx.fill_(frame_idx)
+            prog.graph.out = prog.graph.fn()
+            return prog.graph.out
+
+        def host_jv(cost, row_mask, col_mask):
+            self.inputs.append((cost.clone(), row_mask.clone(),
+                                col_mask.clone()))
+            t0 = time.perf_counter()
+            out = [x.to(cost.device) for x in hungarian.jv_assign_reference(
+                cost, row_mask, col_mask)]
+            self.host_s.append(time.perf_counter() - t0)
+            return out
+        self.cls.__call__, self.cls.capture = call, lambda prog: None
+        tracker2d.solve_assignment_batch = host_jv
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__, self.cls.capture = self.orig
+        self.mod.solve_assignment_batch = self.orig_jv
+
+
+STAGES_2D = ("tracker2d", "get2d", "hyp.solve", "hyp.collect", "upload")
+
+
+def same_results(a, b, name_b, name_a):
+    """Fail unless two bench runs gave the same ids and points on every
+    frame."""
+    import numpy as np
+    if len(a.results) != len(b.results):
+        fail(f"{name_b}: {len(b.results)} frames against {len(a.results)}")
+    for x, y in zip(a.results, b.results):
+        if x["frame"] != y["frame"] or x["ids"] != y["ids"] or \
+                not np.array_equal(x["points"], y["points"]):
+            fail(f"{name_b}: frame {x['frame']}'s results differ from "
+                 f"{name_a}'s")
+
+
+def phase_routes(card):
+    """The bench protocol on both 2D routes in this call, no counter
+    running: the graph route (the main path as a user runs it) and the
+    eager 2D route (_Eager2DRoute); frames/s and stage medians of both,
+    the host JV's ms a frame, ids and points equal on every frame; then
+    the solver's threefry draw timed alone.  Records the LK calls of
+    frame CAPTURE_FRAME (phase 3b) and every frame's assignment inputs
+    (phase 3f) on the eager route.  Returns (the LK calls, the
+    assignment inputs, the graph route's run)."""
+    import numpy as np
+    from mcmtt_opticalflow_tpu_torch import bench
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import threefry_fields
+    from mcmtt_opticalflow_tpu_torch.utils import prng
+
+    graph_run = bench.run_bench(MEASURED, "cuda")
+    capture = LkCapture(CAPTURE_FRAME)
+    capture.install()
+    try:
+        with _Eager2DRoute() as route:
+            run = bench.run_bench(
+                MEASURED, "cuda",
+                on_frame=lambda t: setattr(capture, "frame", t))
+    finally:
+        capture.remove()
+    total = WARMUP + MEASURED
+    if len(route.inputs) != total or len(capture.calls) != 8:
+        fail(f"eager 2D route: {len(route.inputs)} assignments and "
+             f"{len(capture.calls)} lk_level calls of frame {CAPTURE_FRAME}"
+             f" recorded (expected {total} and 8)")
+    same_results(graph_run, run, "eager 2D route", "the 2D graph route")
+    for name, r in (("graph 2D, device JV", graph_run),
+                    ("eager 2D, host JV", run)):
+        rec = r.record
+        called = {k: rec["stage_ms"].get(k) for k in STAGES_2D}
+        mota = [rec[f"mota_w{w}"] for w in WINDOWS]
+        log(f"2D routes: {name}: {rec['value']} frames/s, stage ms "
+            f"{json.dumps(called)}, MOTA {mota} ({card})")
+        log(f"2D routes: {name}: all stage medians ms "
+            f"{json.dumps(rec['stage_ms'])}")
+        log(f"2D routes: {name}: per-frame s "
+            f"{[round(x, 4) for x in r.per_frame]}")
+    jv_ms = 1e3 * np.asarray(route.host_s[WARMUP:])
+    log(f"2D routes: eager route's host JV (download, numpy JV, upload) "
+        f"median {float(np.median(jv_ms)):.3f} ms a frame (max "
+        f"{float(jv_ms.max()):.3f}); ids and points equal to the graph "
+        f"route's on all {len(run.results)} frames")
 
     # the solver's random fields of one bench frame, drawn alone
     r = bench.bench_config().solver.num_replicas + \
@@ -575,10 +764,163 @@ def phase_main_path(card):
     key = prng.split(prng.prng_key(0))[1]
     draw_ms = time_ms(lambda: threefry_fields(key, r, 1024, 150, "cuda"),
                       reps=10)
-    log(f"main path: threefry field draw (R={r}, V=1024, 150 iterations: "
+    log(f"2D routes: threefry field draw (R={r}, V=1024, 150 iterations: "
         f"{2 * 150 * r * 1024 + 2 * 150 * r + r * 1024} numbers) "
         f"{draw_ms:.3f} ms a frame (CUDA events, median of 10) on {card}")
-    return launches, capture.calls, rec
+    return capture.calls, route.inputs, graph_run
+
+
+def phase_eager_counted(card):
+    """The eager 2D route once more, under the CUPTI counter as the main
+    path is: every LK launch of this route passes through the wrapper, so
+    the card's count of kernel runs must equal the wrapper's (the check
+    of the counter), and the JV runs on the host (0 on the card)."""
+    from mcmtt_opticalflow_tpu_torch import bench
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
+
+    lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
+    hungarian.jv_assign.launches = 0
+    with _Eager2DRoute(), KernelEvents() as ev:
+        run = bench.run_bench(MEASURED, "cuda")
+    total = WARMUP + MEASURED
+    runs = kernel_runs(ev)
+    wrapper = (lk_kernel.lk_level.launches,
+               lk_kernel.lk_level.serial_launches,
+               hungarian.jv_assign.launches)
+    log(f"eager 2D route, counted: kernels run on the card (CUPTI) "
+        f"(lk_level, lk_level_serial, jv_assign) {runs}, wrapper launches "
+        f"{wrapper} (expected both {(8 * total, 0, 0)}); {ev.total} kernels "
+        f"in all, {ev.total / total:.0f} a frame; {run.record['value']} "
+        f"frames/s under the counter ({card})")
+    if runs != wrapper or runs != (8 * total, 0, 0):
+        fail(f"eager 2D route: the card ran {runs} kernels, the wrappers "
+             f"launched {wrapper}, expected {(8 * total, 0, 0)} both")
+
+
+def _bits_equal(a, b) -> bool:
+    """Equal bit for bit (NaN and the sign of zero included)."""
+    import torch
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def phase_graph2d(cfg, sc, frames, card):
+    """The 2D program as one CUDA graph against the eager step: a fresh
+    pipelined engine over GRAPH_FRAMES bench frames; after each frame its
+    state buffers and packed output equal an eager tracker2d_step on the
+    card stepped alongside on the same inputs, bit for bit.  Every
+    dispatch after the capture runs under set_sync_debug_mode("error");
+    no eager 2D step follows the capture.  Then the host ms of a
+    dispatch (in the pipeline, under the debug mode, and alone on an idle
+    card) against an eager step's, and a replay's device ms against the
+    eager step's ms to completion."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models import pipeline
+    from mcmtt_opticalflow_tpu_torch.models.tracker2d import tracker2d_step
+    from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
+
+    eng = pipeline.TrackingEngine(cfg, sc.cameras, pipelined=True,
+                                  device="cuda")
+    prog = eng._prog2d
+    ref = tree_map(torch.clone, prog.state)
+    cls = pipeline.Tracker2DProgram
+    orig_call, orig_put = cls.__call__, cls.put_gray
+    host_ms, steady = {"put_gray": [], "call": []}, {"on": False}
+
+    def strict(fn, name):
+        def wrapped(p, *a):
+            t0 = time.perf_counter()
+            if steady["on"]:
+                torch.cuda.set_sync_debug_mode("error")
+            try:
+                return fn(p, *a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+                if steady["on"]:
+                    host_ms[name].append(1e3 * (time.perf_counter() - t0))
+        return wrapped
+    steps2d, restore = _count_calls(pipeline, "tracker2d_step")
+    cls.__call__ = strict(orig_call, "call")
+    cls.put_gray = strict(orig_put, "put_gray")
+    compared = 0
+    try:
+        for t in range(GRAPH_FRAMES):
+            steady["on"] = prog.graph.graph is not None
+            eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+            if t == 0 and steps2d["n"] != 2:
+                fail(f"2D graph: {steps2d['n']} eager steps at the capture")
+            ref, out = tracker2d_step(
+                ref, prog.gray_u8.float() * (1.0 / 255.0), prog.boxes,
+                prog.mask, eng.cams, t, cfg.tracker2d)
+            want = [pipeline._pack2d(out)] + tree_leaves(ref)
+            got = [prog.graph.out] + tree_leaves(prog.state)
+            for i, (g, w) in enumerate(zip(got, want)):
+                if not _bits_equal(g, w):
+                    fail(f"2D graph: frame {t}: the replayed "
+                         f"{'pack' if i == 0 else f'state leaf {i - 1}'}"
+                         f" differs from the eager step's")
+            compared += 1
+    finally:
+        cls.__call__, cls.put_gray = orig_call, orig_put
+        restore()
+        torch.cuda.set_sync_debug_mode(0)
+    while eng.flush() is not None:
+        pass
+    if steps2d["n"] != 2 or prog.graph.n_replays != GRAPH_FRAMES:
+        fail(f"2D graph: {steps2d['n']} eager steps, "
+             f"{prog.graph.n_replays} replays (expected 2 and "
+             f"{GRAPH_FRAMES})")
+    # timing on the last frame's buffers (the engine is done with them)
+    torch.cuda.synchronize()
+    host_in = [x.cpu().numpy() for x in (prog.gray_u8, prog.boxes,
+                                         prog.mask)]
+    idle_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prog.put_gray(host_in[0])
+        prog(host_in[1], host_in[2], GRAPH_FRAMES)
+        idle_ms.append(1e3 * (time.perf_counter() - t0))
+    torch.cuda.synchronize()
+    gray = prog.gray_u8.float() * (1.0 / 255.0)
+    eager_host, eager_wall = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tracker2d_step(ref, gray, prog.boxes, prog.mask, eng.cams,
+                       GRAPH_FRAMES, cfg.tracker2d)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        eager_host.append(1e3 * (t1 - t0))
+        eager_wall.append(1e3 * (time.perf_counter() - t0))
+    replay_ms = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        prog.graph.graph.replay()
+        b.record()
+        b.synchronize()
+        replay_ms.append(a.elapsed_time(b))
+    med = lambda x: round(float(np.median(x)), 3)   # noqa: E731
+    log(f"2D graph: {compared} frames, replayed state (every leaf) and "
+        f"pack == the eager step's bit for bit; {GRAPH_FRAMES - 1} steady "
+        f"dispatches under set_sync_debug_mode('error'); "
+        f"{steps2d['n']} eager steps (the capture's); capture "
+        f"{prog.graph.capture_s:.3f} s, graph pool "
+        f"{pool_bytes(prog.graph.pool) / 2**20:.1f} MiB ({card})")
+    log(f"2D graph: dispatch host ms, medians: in the pipeline under the "
+        f"debug mode, gray upload {med(host_ms['put_gray'])} and boxes + "
+        f"mask + frame number + replay {med(host_ms['call'])}; alone on an "
+        f"idle card (the same, 5 times) {med(idle_ms)}; against the eager "
+        f"step's host ms {med(eager_host)}.  A replay's device ms "
+        f"{med(replay_ms)} against the eager step's ms to completion "
+        f"{med(eager_wall)} (CUDA events / host clock, median of 5; {card})")
 
 
 def _uploads(host, dev):
@@ -690,7 +1032,7 @@ def phase_graphs(cfg, sc, frames, card):
     dispatch, eager against replay (the engine's `hyp.dispatch`), and the
     wall ms to the card's completion; the device ms of each stage of the
     body; and the bench main path on the eager body (frames/s,
-    `hyp.dispatch` and MOTA, against phase 3's run on graphs)."""
+    `hyp.dispatch` and MOTA, against phase 3d's run on graphs)."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch import bench
@@ -762,6 +1104,122 @@ def phase_graphs(cfg, sc, frames, card):
     if eager.calls <= 0:
         fail("graphs: the eager-route bench run made no eager call")
     return rec
+
+
+def jv_cases(n=100):
+    """Seeded random assignment cases: `n` each of tests/test_torch_ops.py's
+    random generator (costs over five decades, 20% forbidden) and its
+    tie-heavy one (five values, 30% forbidden), 85% of rows and columns
+    valid, at its shapes and the tracker's, and `n` with more rows than
+    columns (the transposed solve), up to [2, 300, 100] (shared memory
+    above 48 KB)."""
+    import numpy as np
+    rng = np.random.RandomState(0)
+    square = [(3, 5, 7), (2, 6, 6), (4, 16, 32), (4, 32, 64), (4, 48, 64),
+              (1, 1, 1), (3, 1, 9), (2, 128, 256)]
+    tall = [(4, 8, 5), (4, 64, 48), (2, 70, 40), (3, 9, 1), (2, 300, 100)]
+    out = []
+    for kind, shapes in (("random", square), ("ties", square),
+                         ("rows > columns", tall)):
+        for k in range(n):
+            c, r, t = shapes[k % len(shapes)]
+            ties = kind == "ties" or (kind != "random" and k % 2)
+            if ties:
+                cost = rng.choice([0.0, 1.0, 2.0, 2.5, np.inf], (c, r, t),
+                                  p=[0.2, 0.2, 0.2, 0.1, 0.3])
+            else:
+                cost = rng.rand(c, r, t) * 10 ** rng.uniform(-2, 3)
+                cost[rng.rand(c, r, t) < 0.2] = np.inf
+            out.append((kind, cost.astype(np.float32), rng.rand(c, r) < 0.85,
+                        rng.rand(c, t) < 0.85))
+    return out
+
+
+def jv_prepared(cost, row_mask, col_mask):
+    """A zero-argument launch of the JV kernel on inputs made ready once
+    (contiguous, the kernel's types, outputs allocated): no checks, no
+    count."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian
+    c, r, _ = cost.shape
+    ins = (cost.contiguous().float(), row_mask.contiguous().bool(),
+           col_mask.contiguous().bool())
+    outs = (torch.empty((c, r), dtype=torch.int32, device=cost.device),
+            torch.empty((c, r), device=cost.device))
+    return lambda: hungarian._launch(*ins, *outs)
+
+
+def jv_compare(cost, row_mask, col_mask, label):
+    """One kernel launch against the plain version on the same inputs:
+    col_of_row equal and match_cost equal bit for bit, or fail."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian
+    col_k, mc_k = hungarian.jv_assign(cost, row_mask, col_mask)
+    torch.cuda.synchronize()
+    col_r, mc_r = hungarian.jv_assign_reference(cost, row_mask, col_mask)
+    if not torch.equal(col_k.cpu(), col_r) or \
+            not _bits_equal(mc_k.cpu(), mc_r):
+        fail(f"jv_assign: the kernel differs from its plain version on "
+             f"{label} {tuple(cost.shape)}")
+    return int((col_r >= 0).sum())
+
+
+def phase_jv(recorded, card):
+    """The JV kernel on the card against its plain version on every
+    recorded bench assignment and on jv_cases(); then per recorded frame
+    its device-only µs (as phase 3b times the LK kernel), the wrapper's
+    host µs per call, the plain version's ms, the serial Dijkstra steps
+    and the bound (ops/hungarian.py::jv_work).  Returns the kernels-line
+    summary."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+
+    matched = [jv_compare(*x, f"bench frame {t}")
+               for t, x in enumerate(recorded)]
+    kinds = {}
+    for n, (kind, *case) in enumerate(jv_cases()):
+        args = [torch.tensor(x, device="cuda") for x in case]
+        jv_compare(*args, f"case {n} ({kind})")
+        kinds[kind] = kinds.get(kind, 0) + 1
+    log(f"jv: kernel == plain version (col_of_row equal, match_cost bit "
+        f"for bit) on all {len(recorded)} bench frames' "
+        f"{list(recorded[0][0].shape)} assignments ({sum(matched)} "
+        f"matches) and on {sum(kinds.values())} random cases "
+        f"{json.dumps(kinds)}")
+    lib = lk_kernel.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    noop = device_us(lambda: lib.lk_noop_launch(stream))
+    rows = []
+    for cost, rm, cm in recorded:
+        dev = device_us(jv_prepared(cost, rm, cm))
+        host = host_us(lambda: hungarian.jv_assign(cost, rm, cm))
+        plain = time_ms(lambda: hungarian.jv_assign_reference(cost, rm, cm),
+                        reps=5)
+        work = hungarian.jv_work(cost, rm, cm)
+        t_bytes = 1e6 * work["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e6 * work["flops"] / FP32_FLOPS_PER_S
+        rows.append((dev, host, plain, t_bytes, t_ops, work["steps"],
+                     work["max_steps"], work["bytes"], work["flops"]))
+    a = np.asarray(rows, np.float64)
+    mean = a.mean(0)
+    bound = np.maximum(a[:, 3], a[:, 4])
+    bound_by = "bytes" if mean[3] >= mean[4] else "operations"
+    log(f"jv: per bench frame (1 launch, {len(rows)} frames; {card}): "
+        f"device-only {mean[0]:.3f} us (min {a[:, 0].min():.3f}, max "
+        f"{a[:, 0].max():.3f}), wrapper host {mean[1]:.3f} us/call, plain "
+        f"(download + host JV) {mean[2]:.4f} ms; work {mean[7]:.0f} B, "
+        f"{mean[8]:.0f} flop; bound {bound.mean():.5f} us ({bound_by}), "
+        f"roofline share {bound.mean() / mean[0]:.5f}; serial Dijkstra "
+        f"steps: {mean[5]:.1f} over the 4 cameras, {mean[6]:.1f} in the "
+        f"slowest (max {a[:, 6].max():.0f}), {1e3 * mean[0] / mean[6]:.1f} "
+        f"ns a step of the slowest camera; empty-kernel floor "
+        f"{noop:.3f} us")
+    return {"ms": mean[0] / 1e3, "plain_ms": mean[2],
+            "bound_ms": bound.mean() / 1e3, "bound_by": bound_by,
+            "device_us_per_launch": mean[0], "host_us_per_call": mean[1],
+            "bound_us": bound.mean(), "serial_steps": mean[5],
+            "serial_steps_slowest_camera": mean[6], "max_abs_err": 0.0}
 
 
 def phase_real_inputs(calls):
@@ -1200,7 +1658,7 @@ def phase_mesh(cfg, sc, frames):
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
-    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
     from mcmtt_opticalflow_tpu_torch.parallel import make_mesh
     from mcmtt_opticalflow_tpu_torch.parallel.multihost_sim import run_solve
 
@@ -1212,12 +1670,13 @@ def phase_mesh(cfg, sc, frames):
     wall_plain = time.perf_counter() - t0
     mesh = make_mesh(devices=[card0] * 4)
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
-    lk_kernel.lk_level.launches = 0
+    lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
     t0 = time.perf_counter()
     rb = _run_engine(eng, sc, frames, MESH_FRAMES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lk_kernel.lk_level.launches
+    jv_launches = hungarian.jv_assign.launches
     if mesh.shape != {"cam": 4, "block": 1} or len(eng.state2d_groups) != 4:
         fail(f"mesh: expected 4 camera groups, got {mesh.shape}")
     if len(ra) != len(rb) or not ra:
@@ -1234,12 +1693,14 @@ def phase_mesh(cfg, sc, frames):
     log(f"mesh: {mesh} engine == engine without a mesh over {MESH_FRAMES} "
         f"frames ({n_obj} tracked objects, max |d point| {d_pts:.3e} mm); "
         f"lk_level launches={launches} (expected {32 * MESH_FRAMES}: 8 per "
-        f"camera group per frame); {wall:.2f} s against {wall_plain:.2f} s "
-        f"without the mesh")
+        f"camera group per frame, eager), jv_assign launches={jv_launches} "
+        f"(expected {4 * MESH_FRAMES}); {wall:.2f} s against "
+        f"{wall_plain:.2f} s without the mesh")
     if d_pts > 1.0:
         fail(f"mesh: points differ by {d_pts} mm (limit 1.0)")
-    if launches <= 0:
-        fail("mesh: the mesh run launched no LK kernel")
+    if launches != 32 * MESH_FRAMES or jv_launches != 4 * MESH_FRAMES:
+        fail(f"mesh: {launches} LK and {jv_launches} JV launches, "
+             f"expected {32 * MESH_FRAMES} and {4 * MESH_FRAMES}")
 
     bmesh = make_mesh(num_cam_shards=1, devices=[card0] * 2)
     s = run_solve(bmesh, bench=True, reps=1)
@@ -1250,7 +1711,7 @@ def phase_mesh(cfg, sc, frames):
         f"{s['one_s']:.2f} s)")
     if not (s["equals_per_block"] and s["clique"]):
         fail("mesh: solve_mwcp_sharded differs from its per-block solves")
-    return launches, rb, wall
+    return (launches, jv_launches), rb, wall
 
 
 def phase_multiprocess(mesh_results, mesh_wall, card):
@@ -1264,7 +1725,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
     ids frame by frame, points within 1 mm.  Their solve over a 1 x 4
     mesh (two blocks each) must equal its per-block solves plus the
     argmax, the same in both.  Each process is killed at MP_LIMIT_S.
-    Returns the LK launches of both processes."""
+    Returns the LK and JV launches of both processes."""
     import tempfile
     import numpy as np
     from mcmtt_opticalflow_tpu_torch.parallel import multihost_sim
@@ -1288,7 +1749,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             for r in mesh_results]
     keys = ("best_score", "best_mask", "all_masks_sha256",
             "all_scores_sha256")
-    launches = 0
+    launches = [0, 0]
     for pid, (*_, res) in enumerate(outs):
         eng, solver = res["engine"], res["solver"]
         got = [(f["frame"], f["ids"], np.reshape(f["points"], (-1, 3)))
@@ -1307,7 +1768,9 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             f"{eng['groups_here']}, blocks {solver['blocks_here']}; ids == "
             f"the mesh run over {MESH_FRAMES} frames, max |d point| "
             f"{d_pts:.3e} mm; lk_level launches={eng['lk_launches']} "
-            f"(expected {16 * MESH_FRAMES}); engine {eng['wall_s']:.2f} s "
+            f"(expected {16 * MESH_FRAMES}), jv_assign launches="
+            f"{eng['jv_launches']} (expected {2 * MESH_FRAMES}); engine "
+            f"{eng['wall_s']:.2f} s "
             f"against {mesh_wall:.2f} s for the one-process mesh run; "
             f"median {1e3 * coll:.3f} ms a frame in {n_coll:g} "
             f"collectives; solve best "
@@ -1316,9 +1779,12 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             f"sharded against {solver['one_s']:.3f} s for one block")
         if d_pts > 1.0:
             fail(f"multiprocess: points differ by {d_pts} mm (limit 1.0)")
-        if eng["lk_launches"] != 16 * MESH_FRAMES:
+        if eng["lk_launches"] != 16 * MESH_FRAMES or \
+                eng["jv_launches"] != 2 * MESH_FRAMES:
             fail(f"multiprocess: process {pid} launched the LK kernel "
-                 f"{eng['lk_launches']} times, expected {16 * MESH_FRAMES}")
+                 f"{eng['lk_launches']} and the JV kernel "
+                 f"{eng['jv_launches']} times, expected {16 * MESH_FRAMES} "
+                 f"and {2 * MESH_FRAMES}")
         if not (solver["equals_per_block"] and solver["clique"]
                 and res["fetch_ok"]):
             fail(f"multiprocess: process {pid}'s solve or fetch failed its "
@@ -1329,7 +1795,8 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
         if eng["collectives_per_call"] != \
                 outs[0][3]["engine"]["collectives_per_call"]:
             fail("multiprocess: the processes made different collectives")
-        launches += eng["lk_launches"]
+        launches[0] += eng["lk_launches"]
+        launches[1] += eng["jv_launches"]
     report.pop("frames")
     log(f"multiprocess: scaling_report {json.dumps(report)} on {card}; both "
         f"processes in {wall:.1f} s")
@@ -1341,45 +1808,55 @@ def phase_profile(cfg, sc, frames):
     path (a fresh pipelined engine, warmed up for WARMUP frames, then its
     fused program precompiled as the bench does): the
     device's busy share over the window, device ms per frame, the top 5
-    kernels, and the count of lk_level_kernel events, which must equal
-    the wrapper's count of launches in the window (8 per frame)."""
+    kernels, and the count of lk_level_kernel events (8 per frame) and of
+    jv_assign_kernel events (1 per frame), all inside 2D graph replays:
+    the wrappers launch nothing in the window."""
     import tempfile
     import torch
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
-    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
     from mcmtt_opticalflow_tpu_torch.utils import profile_trace
     from mcmtt_opticalflow_tpu_torch.utils.timing import summarize_trace
 
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
     for t in range(WARMUP):
         eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
-    eng.assoc.precompile()      # as the bench does: no capture in the window
+    eng.precompile()            # as the bench does: no capture in the window
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
-        lk_kernel.lk_level.launches = 0
+        lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
         t0 = time.perf_counter()
         with profile_trace(logdir):
             for t in range(WARMUP, WARMUP + PROFILE_FRAMES):
                 eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
         wall = time.perf_counter() - t0
         launches = lk_kernel.lk_level.launches
+        jv_launches = hungarian.jv_assign.launches
         s = summarize_trace(logdir)
     n_lk = sum(c for k, c in s.kernel_counts.items()
                if "lk_level_kernel" in k)
+    n_jv = sum(c for k, c in s.kernel_counts.items()
+               if "jv_assign_kernel" in k)
     top = [(k[:60], round(ms, 4), c) for k, ms, c in s.top_kernels]
     log(f"profile: {PROFILE_FRAMES} steady bench frames under "
         f"torch.profiler ({wall:.2f} s): device busy share "
         f"{s.busy_share:.4f} of the window, {s.device_ms / PROFILE_FRAMES:.3f}"
         f" device ms per frame, {sum(s.kernel_counts.values())} kernel "
-        f"events, lk_level_kernel events={n_lk} (wrapper launches "
-        f"{launches}, expected {8 * PROFILE_FRAMES}); top 5 kernels "
-        f"(name, ms, count) {json.dumps(top)}")
+        f"events, lk_level_kernel events={n_lk} (expected "
+        f"{8 * PROFILE_FRAMES}), jv_assign_kernel events={n_jv} (expected "
+        f"{PROFILE_FRAMES}), wrapper launches {launches} and {jv_launches} "
+        f"(expected 0: graph replays only); top 5 kernels (name, ms, "
+        f"count) {json.dumps(top)}")
     if not s.kernel_counts or s.busy_share <= 0.0:
         fail("profile: the trace holds no device activity")
-    if n_lk != 8 * PROFILE_FRAMES or launches != n_lk:
-        fail(f"profile: {n_lk} lk_level_kernel events in the trace, "
-             f"{launches} launches, expected {8 * PROFILE_FRAMES}")
-    return launches
+    if n_lk != 8 * PROFILE_FRAMES or n_jv != PROFILE_FRAMES:
+        fail(f"profile: {n_lk} lk_level_kernel and {n_jv} jv_assign_kernel "
+             f"events in the trace, expected {8 * PROFILE_FRAMES} and "
+             f"{PROFILE_FRAMES}")
+    if launches or jv_launches:
+        fail(f"profile: the wrappers launched {launches} LK and "
+             f"{jv_launches} JV kernels in a window of replays")
+    return n_lk, n_jv
 
 
 def write_dataset(root, sc, frames):
@@ -1420,22 +1897,25 @@ def write_dataset(root, sc, frames):
     return params
 
 
-def phase_cli(card):
+def phase_cli(card, counted):
     """`python -m mcmtt_opticalflow_tpu_torch.main <parameters.txt>` in
     process on the bench scene in the reference layout, at the default
-    EngineConfig; the only cut is the sequence length."""
+    EngineConfig; the only cut is the sequence length.  `counted`: the
+    kernels the card runs are counted by CUPTI (which slows graph
+    launches: the CLI's times come from a run with counted=False), the
+    wrappers' launches beside them either way."""
     import contextlib
     import io
     import tempfile
     import numpy as np
-    import torch
     from mcmtt_opticalflow_tpu_torch import main as cli
     from mcmtt_opticalflow_tpu_torch.config import EngineConfig
     from mcmtt_opticalflow_tpu_torch.data import images
     from mcmtt_opticalflow_tpu_torch.eval import experiment
     from mcmtt_opticalflow_tpu_torch.bench import bench_scene
     from mcmtt_opticalflow_tpu_torch.models import pipeline
-    from mcmtt_opticalflow_tpu_torch.ops import lk, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     sc, frames = bench_scene(CLI_FRAMES)
     engines, per_frame, sweeps, missing = [], [], [], []
@@ -1487,56 +1967,78 @@ def phase_cli(card):
             setattr(mod, name, fn)
         sys.argv = ["mcmtt_opticalflow_tpu_torch.main", params]
         lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
+        hungarian.jv_assign.launches = 0
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(out):
+            with contextlib.redirect_stdout(out), \
+                    (KernelEvents() if counted else contextlib.nullcontext()
+                     ) as ev:
                 cli.main()
-            torch.cuda.synchronize()
         finally:
             sys.argv = argv
             for mod, name, _ in patches:
                 setattr(mod, name, orig[name])
         wall = time.perf_counter() - t0
-    launches = lk_kernel.lk_level.launches
+    wrapper = (lk_kernel.lk_level.launches,
+               lk_kernel.lk_level.serial_launches,
+               hungarian.jv_assign.launches)
+    name = "cli (counted)" if counted else "cli"
+    runs = kernel_runs(ev) if counted else None
     table = out.getvalue()
     for line in table.splitlines():
-        log(f"cli| {line}")
+        log(f"{name}| {line}")
     levels = EngineConfig().tracker2d.lk_pyramid_levels
     lk_per_frame = 4 * levels      # backtrack_interval - 1 backward + 1
-    log(f"cli: {len(engines)} engine(s) on "
-        f"{sorted({str(e.device) for e in engines})}, lk_level launches="
-        f"{launches} (expected {lk_per_frame * CLI_FRAMES}), serial="
-        f"{lk_kernel.lk_level.serial_launches}, CPU LK calls={cpu_calls}, "
-        f"frames without an image={len(missing)}")
+    # each engine's 2D program: its replays, plus one eager run in its
+    # capture's warm-up, on the card; the wrappers see the capture's two
+    # calls
+    replays = sum(e._prog2d.graph.n_replays for e in engines)
+    captured = sum(e._prog2d.graph.graph is not None for e in engines)
+    steps = replays + captured
+    want_runs = (lk_per_frame * steps, 0, steps)
+    want_wrapper = (2 * lk_per_frame * captured, 0, 2 * captured)
+    on_card = (f"kernels run on the card (CUPTI) lk_level={runs[0]} "
+               f"(expected {want_runs[0]}: {lk_per_frame} a replay and in "
+               f"each capture's warm-up), lk_level_serial={runs[1]}, "
+               f"jv_assign={runs[2]} (expected {want_runs[2]}), {ev.total} "
+               f"kernels in all; " if counted else "")
+    log(f"{name}: {len(engines)} engine(s) on "
+        f"{sorted({str(e.device) for e in engines})}, {replays} 2D graph "
+        f"replays (expected {CLI_FRAMES}); {on_card}wrapper launches "
+        f"{wrapper} (expected {want_wrapper}: the captures' two calls); "
+        f"CPU LK calls={cpu_calls}, frames without an image="
+        f"{len(missing)}")
     if not engines or any(e.device.type != "cuda" for e in engines):
-        fail("cli: an engine did not run on the card")
-    if launches != lk_per_frame * CLI_FRAMES:
-        fail(f"cli: expected {lk_per_frame * CLI_FRAMES} LK kernel "
-             f"launches, got {launches}")
+        fail(f"{name}: an engine did not run on the card")
+    if replays != CLI_FRAMES or wrapper != want_wrapper or \
+            (counted and runs != want_runs):
+        fail(f"{name}: expected {CLI_FRAMES} 2D replays, kernel runs "
+             f"{want_runs} and wrapper launches {want_wrapper}, got "
+             f"{replays}, {runs} and {wrapper}")
     if any(cpu_calls.values()):
-        fail(f"cli: LK ran on the CPU: {cpu_calls}")
+        fail(f"{name}: LK ran on the CPU: {cpu_calls}")
     if missing:
-        fail(f"cli: FrameSource fell back to flat gray for {missing[:3]}")
+        fail(f"{name}: FrameSource fell back to flat gray for {missing[:3]}")
     if "== K=10 repeat=0" not in table or table.count("window=") != 11:
-        fail("cli: the CLEAR-MOT table was not printed")
+        fail(f"{name}: the CLEAR-MOT table was not printed")
     (res,), = sweeps
     mota = {f"mota_w{w}": res.per_window[w].mota for w in WINDOWS}
     if not all(np.isfinite(list(mota.values()))) or mota["mota_w0"] <= 0.5:
-        fail(f"cli: MOTA out of range: {mota}")
+        fail(f"{name}: MOTA out of range: {mota}")
     timer = engines[0].assoc.timer
-    stage_ms = {name: round(1e3 * sorted(timer.samples[name])
-                            [timer.counts[name] // 2], 3)
-                for name in sorted(timer.totals,
-                                   key=lambda n: -timer.totals[n])
-                if not name.startswith("_")}
-    log(f"cli: {CLI_FRAMES} frames in {wall:.1f} s on {card}, k_sweep "
+    stage_ms = {st: round(1e3 * sorted(timer.samples[st])
+                          [timer.counts[st] // 2], 3)
+                for st in sorted(timer.totals,
+                                 key=lambda n: -timer.totals[n])
+                if not st.startswith("_")}
+    log(f"{name}: {CLI_FRAMES} frames in {wall:.1f} s on {card}, k_sweep "
         f"{res.fps:.4f} frames/s, median process_frame "
         f"{float(np.median(per_frame)):.4f} s")
-    log(f"cli: per-frame s {[round(x, 4) for x in per_frame]}")
-    log(f"cli: stage medians ms {json.dumps(stage_ms)}")
-    log(f"cli: pool_dropped={engines[0].assoc.pool_dropped_total} "
+    log(f"{name}: per-frame s {[round(x, 4) for x in per_frame]}")
+    log(f"{name}: stage medians ms {json.dumps(stage_ms)}")
+    log(f"{name}: pool_dropped={engines[0].assoc.pool_dropped_total} "
         f"{json.dumps(mota)}")
-    return launches
+    return {"runs": runs, "wrapper": wrapper, "replays": replays}
 
 
 def main():
@@ -1550,9 +2052,12 @@ def main():
         log("MCMTT_LK_BACKEND cleared: the CPU references here are the LK "
             "kernel's plain version")
     try:
+        from concurrent.futures import ThreadPoolExecutor
         from mcmtt_opticalflow_tpu_torch.bench import (bench_config,
                                                        bench_scene)
-        from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+        from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+        from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import build_library
+        from mcmtt_opticalflow_tpu_torch.utils import kernel_events
     except ImportError as e:
         fail(f"run from the repository root: {e}")
     t_start = time.perf_counter()
@@ -1561,26 +2066,37 @@ def main():
     name = torch.cuda.get_device_name(0)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} device {name}")
 
+    # one nvcc for each source, started together
     t0 = time.perf_counter()
-    lk_kernel.build()
-    log(f"build: lk_level.cu (batched + serial kernels) built and loaded in "
+    with ThreadPoolExecutor(3) as pool:
+        for job in [pool.submit(lk_kernel.build),
+                    pool.submit(hungarian.build),
+                    pool.submit(kernel_events.build)]:
+            job.result()
+    log(f"build: lk_level.cu (batched + serial kernels), jv_assign.cu and "
+        f"the CUPTI kernel counter (kernel_events.cpp) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    for line in lk_kernel._Kernel.build_log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"build: {line.strip()}")
+    for source in ("lk_level.cu", "jv_assign.cu"):
+        for line in build_library(source)[2].splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"build: {line.strip()}")
 
     cfg = bench_config()
     sc, frames = bench_scene(WARMUP + MEASURED)
     d_tr, _ = check_kernel(frames, cfg, "batched",
                            extra=[unaligned_call(frames, cfg)])
     call_ms, _ = time_kernel(frames, cfg, "batched")
-    paths = {}
-    launches, calls, graph_rec = phase_main_path(card)
-    paths["main"] = launches
+    paths, jv_paths = {}, {}
+    # every timed phase runs before the first CUPTI session (the main
+    # path's count), which slows graph launches for the rest of the process
+    calls, jv_inputs, graph_run = phase_routes(card)
+    phase_graph2d(cfg, sc, frames, card)
+    jv = phase_jv(jv_inputs, card)
+    graph_rec = graph_run.record
     eager_rec = phase_graphs(cfg, sc, frames, card)
     mota = [[r[f"mota_w{w}"] for w in WINDOWS] for r in (graph_rec,
                                                          eager_rec)]
-    log(f"graphs: frames/s {graph_rec['value']} on graphs (phase 3) "
+    log(f"graphs: frames/s {graph_rec['value']} on graphs (phase 3d) "
         f"against {eager_rec['value']} on the eager body; hyp.dispatch ms "
         f"{graph_rec['stage_ms'].get('hyp.dispatch')} against "
         f"{eager_rec['stage_ms'].get('hyp.dispatch')}; MOTA {mota[0]} "
@@ -1593,16 +2109,31 @@ def main():
     s_launches, s_tr, s_call_ms, _ = phase_serial(frames, cfg)
     phase_api(cfg, sc, frames)
     paths["lk_track_pyramid"] = phase_lk_track_pyramid(frames)
-    paths["mesh"], mesh_results, mesh_wall = phase_mesh(cfg, sc, frames)
-    paths["multiprocess"] = phase_multiprocess(mesh_results, mesh_wall, card)
-    paths["profile"] = phase_profile(cfg, sc, frames)
-    paths["cli"] = phase_cli(card)
+    (paths["mesh"], jv_paths["mesh"]), mesh_results, mesh_wall = \
+        phase_mesh(cfg, sc, frames)
+    paths["multiprocess"], jv_paths["multiprocess"] = phase_multiprocess(
+        mesh_results, mesh_wall, card)
+    phase_cli(card, counted=False)
+    paths["profile"], jv_paths["profile"] = phase_profile(cfg, sc, frames)
+    main_counts, _ = phase_main_path(card, graph_run)
+    paths["main"], _, jv_paths["main"] = main_counts["runs"]
+    phase_eager_counted(card)
+    cli_counts = phase_cli(card, counted=True)
+    paths["cli"], _, jv_paths["cli"] = cli_counts["runs"]
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu"
+    # the wrappers' launches (eager calls and graph recordings) and the 2D
+    # graph's replays of the paths whose kernels the card counted
+    graphed = {name: {"wrapper_launches": {"main": main_counts["wrapper"][i],
+                                           "cli": cli_counts["wrapper"][i]},
+                      "graph_replays_2d": {"main": main_counts["replays"],
+                                           "cli": cli_counts["replays"]}}
+               for i, name in ((0, "lk_level"), (2, "jv_assign"))}
     kernels = []
     for kname, variant, line, n, err, call, by_path in (
-            ("lk_level", "batched", 250, launches, d_tr, call_ms, paths),
+            ("lk_level", "batched", 250, paths["main"], d_tr, call_ms,
+             paths),
             ("lk_level_serial", "serial", 35, s_launches, s_tr, s_call_ms,
              {"serial": s_launches})):
         r = real[variant]
@@ -1616,7 +2147,13 @@ def main():
             "device_us_per_launch": r["device_us_per_launch"],
             "host_us_per_call": r["host_us_per_call"],
             "bound_us": r["bound_us"], "call_ms_synthetic": call,
-            "launches_by_path": by_path})
+            "launches_by_path": by_path, **graphed.get(kname, {})})
+    kernels.append({
+        "name": "jv_assign", "route": "cuda",
+        "source": "mcmtt_opticalflow_tpu_torch/ops/csrc/jv_assign.cu",
+        "replaces": "mcmtt_opticalflow_tpu/ops/hungarian.py:54",
+        "launches": jv_paths["main"], "library_ms": None, **jv,
+        "launches_by_path": jv_paths, **graphed["jv_assign"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -128,7 +128,7 @@ def run_bench(frames: int = MEASURED, device=None,
         if on_frame is not None:
             on_frame(t)
         if t == WARMUP:
-            eng.assoc.precompile()
+            eng.precompile()
             eng.assoc.timer.reset()        # steady-state stage times only
         f0 = time.perf_counter()
         eng.process_frame(imgs[t], sc.detections[t], frame_idx=t)

@@ -151,7 +151,10 @@ def image_to_world(cam: TsaiCamera, point2d: torch.Tensor, zw) -> torch.Tensor:
     """Back-project image [..., 2] at world height zw -> world [..., 3]
     (closed-form inverse projection, ref cameraModel.cpp:494-533)."""
     xi, yi = point2d[..., 0], point2d[..., 1]
-    zw = torch.as_tensor(zw, dtype=xi.dtype, device=xi.device)
+    # a Python zw stays a scalar operand: no host-to-device copy, so a
+    # CUDA graph can capture the call
+    if isinstance(zw, torch.Tensor):
+        zw = zw.to(dtype=xi.dtype, device=xi.device)
     xd = cam.dpx * (xi - cam.cx) / cam.sx
     yd = cam.dpy * (yi - cam.cy)
     xu, yu = _distorted_to_undistorted_sensor(cam, xd, yd)
@@ -171,7 +174,9 @@ def image_to_world(cam: TsaiCamera, point2d: torch.Tensor, zw) -> torch.Tensor:
            + (cam.r11 * cam.tz - cam.r31 * cam.tx) * yu
            + (cam.r31 * cam.ty - cam.r21 * cam.tz) * xu
            - cam.focal * cam.r11 * cam.ty + cam.focal * cam.r21 * cam.tx) / den
-    return torch.stack([xw, yw, torch.broadcast_to(zw, xw.shape)], dim=-1)
+    zs = (torch.broadcast_to(zw, xw.shape) if isinstance(zw, torch.Tensor)
+          else torch.full_like(xw, zw))
+    return torch.stack([xw, yw, zs], dim=-1)
 
 
 def back_projection_line(cam: TsaiCamera, point2d: torch.Tensor,

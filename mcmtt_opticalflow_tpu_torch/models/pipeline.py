@@ -10,8 +10,13 @@ Per frame:
 The whole 8-bit gray frame goes up from pinned memory with a non-blocking
 copy; the 2D result comes down as one packed f32 tensor per camera group
 through parallel/mesh.py's `AsyncFetch` (non-blocking copies behind CUDA
-events).  With a mesh the cameras split into one group per 'cam' row,
-each stepping its own slice of the 2D state on that row's first device;
+events).  Without a mesh the 2D step of every camera and the packing of
+its outputs are one program on static buffers (`Tracker2DProgram`): on
+the card one CUDA graph, captured at the first frame, replayed once a
+frame and read by the host only through that download, as the JAX
+package dispatches its jitted step2d.  With a mesh the cameras split into
+one group per 'cam' row, each stepping its own slice of the 2D state on
+that row's first device, eagerly;
 on a mesh over several processes each process steps only the groups it
 owns, and every frame's packed 2D outputs reach every process with one
 all-gather, in camera order, so that the host 3D stage runs alike in
@@ -36,7 +41,8 @@ from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
                                                        cam_sharding,
                                                        shard_leaves)
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
-from mcmtt_opticalflow_tpu_torch.utils.tree import tree_map
+from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
 def _unpack2d(a):
@@ -49,6 +55,88 @@ def _pack2d(out2d):
     (ids are exact in f32 below 2^24)."""
     return torch.cat([out2d.ids.float()[..., None],
                       out2d.mask.float()[..., None], out2d.boxes], -1)
+
+
+def _staged(x: np.ndarray, device) -> torch.Tensor:
+    """A host array as a tensor to copy to `device` from: pinned for the
+    card (the caching host allocator keeps the block until the copy has
+    run), the array itself for the CPU."""
+    t = torch.from_numpy(np.ascontiguousarray(x))
+    return t.pin_memory() if device.type == "cuda" else t
+
+
+class Tracker2DProgram:
+    """The 2D step of every camera and the packing of its outputs
+    (`_pack2d`) on static buffers: the counterpart of the JAX package's
+    jitted, vmapped step2d (models/tracker2d.py:459-472), built once per
+    engine (the shapes are static, so there are no buckets).
+
+    The buffers are the 2D state (`state`), this frame's 8-bit gray
+    frames, detection boxes and mask, and the frame number as a 0-dim
+    int32 tensor.  The program's function reads them, runs
+    `tracker2d_step`, copies the new state into the state buffers and
+    returns the packed [C, T, 6] outputs.  On the card it is one CUDA
+    graph (`Graphed`), captured at the first call or by `capture()`; the
+    capture's eager warm-up would advance the state, so the state is
+    saved around it and put back.  Elsewhere the function runs eagerly
+    from the same buffers."""
+
+    def __init__(self, cfg: EngineConfig, cams: TsaiCamera, device,
+                 pool=None):
+        t2 = cfg.tracker2d
+        c, h, w = cfg.num_cameras, cfg.image_height, cfg.image_width
+        self.device = torch.device(device)
+        self.state = init_tracker2d_state(t2, h, w, num_cameras=c,
+                                          device=device)
+        self.gray_u8 = torch.zeros((c, h, w), dtype=torch.uint8,
+                                   device=device)
+        self.boxes = torch.zeros((c, t2.max_detections, 4), device=device)
+        self.mask = torch.zeros((c, t2.max_detections), dtype=torch.bool,
+                                device=device)
+        self.frame_idx = torch.zeros((), dtype=torch.int32, device=device)
+        self._leaves = tree_leaves(self.state)
+
+        def step():
+            gray = self.gray_u8.float() * (1.0 / 255.0)
+            new_state, out2d = tracker2d_step(
+                self.state, gray, self.boxes, self.mask, cams,
+                self.frame_idx, t2)
+            self._load_leaves(tree_leaves(new_state))
+            return _pack2d(out2d)
+        self.graph = Graphed(step, device, pool)
+
+    def capture(self) -> None:
+        """Capture the graph (nothing off the card or when captured),
+        leaving the state as it was."""
+        if not self.graph.on_card or self.graph.graph is not None:
+            return
+        saved = [x.clone() for x in self._leaves]
+        self.graph.capture()
+        self._load_leaves(saved)
+
+    def _load_leaves(self, leaves) -> None:
+        for dst, src in zip(self._leaves, leaves):
+            dst.copy_(src)
+
+    def load(self, state: Tracker2DState) -> None:
+        """Copy a 2D state into the state buffers."""
+        self._load_leaves(tree_leaves(state))
+
+    def put_gray(self, gray_u8: np.ndarray) -> None:
+        """Enqueue this frame's [C, H, W] u8 gray into its buffer."""
+        self.gray_u8.copy_(_staged(gray_u8, self.device), non_blocking=True)
+
+    def __call__(self, boxes: np.ndarray, mask: np.ndarray,
+                 frame_idx: int) -> torch.Tensor:
+        """One frame on the gray last put: returns the packed outputs, the
+        program's own output tensor on the card (the next run overwrites
+        it, so a download is enqueued before that; `DeviceFetch` does, on
+        the same stream)."""
+        self.capture()
+        self.boxes.copy_(_staged(boxes, self.device), non_blocking=True)
+        self.mask.copy_(_staged(mask, self.device), non_blocking=True)
+        self.frame_idx.fill_(frame_idx)
+        return self.graph()
 
 
 class TrackingEngine:
@@ -97,9 +185,17 @@ class TrackingEngine:
         self.cfg = cfg
         self.cameras = list(cameras)
         self.cams = stack_cameras(cameras, self.device)
-        self.state2d = init_tracker2d_state(
-            cfg.tracker2d, cfg.image_height, cfg.image_width,
-            num_cameras=cfg.num_cameras, device=self.device)
+        self._prog2d = None
+        if mesh is None:
+            self._prog2d = Tracker2DProgram(
+                cfg, self.cams, self.device,
+                torch.cuda.graph_pool_handle()
+                if self.device.type == "cuda" else None)
+            self.state2d_groups = [self._prog2d.state]
+        else:
+            self.state2d = init_tracker2d_state(
+                cfg.tracker2d, cfg.image_height, cfg.image_width,
+                num_cameras=cfg.num_cameras, device=self.device)
         self._group_devices = ([self.device] if mesh is None
                                else self._cam_split.devices)
         self._group_cams = self._split(self.cams)
@@ -124,10 +220,13 @@ class TrackingEngine:
 
     @property
     def state2d(self) -> Tracker2DState:
-        """The 2D state of every camera; with a mesh, the groups' slices
-        joined on the engine's device (the groups keep stepping theirs).
-        Raises on a mesh over several processes, where no process holds
-        every group."""
+        """The 2D state of every camera: without a mesh a copy of the 2D
+        program's state buffers (the next frame overwrites them); with a
+        mesh, the groups' slices joined on the engine's device (the
+        groups keep stepping theirs).  Raises on a mesh over several
+        processes, where no process holds every group."""
+        if self._prog2d is not None:
+            return tree_map(torch.clone, self._prog2d.state)
         if any(g is None for g in self.state2d_groups):
             raise RuntimeError("the 2D state of a mesh over several "
                                "processes is split between them")
@@ -139,21 +238,34 @@ class TrackingEngine:
 
     @state2d.setter
     def state2d(self, state: Tracker2DState):
-        self.state2d_groups = self._split(state)
+        if self._prog2d is not None:
+            self._prog2d.load(state)     # into the program's buffers
+        else:
+            self.state2d_groups = self._split(state)
+
+    def precompile(self) -> None:
+        """Capture the 2D program and the fused 3D program's usual buckets
+        ahead of the measured frames (Associator3D.precompile); call
+        after the engine's own warm-up frames.  Off the card it makes the
+        3D programs' buffers."""
+        if self._prog2d is not None:
+            self._prog2d.capture()
+        self.assoc.precompile()
 
     def _upload(self, x: np.ndarray, device) -> torch.Tensor:
-        t = torch.from_numpy(np.ascontiguousarray(x))
-        if device.type == "cuda":
-            t = t.pin_memory()
-        return t.to(device, non_blocking=True)
+        return _staged(x, device).to(device, non_blocking=True)
 
     def _group_slices(self, x: np.ndarray) -> List[np.ndarray]:
         """A [C, ...] host array cut into the camera groups' slices."""
         return np.split(x, len(self._group_devices))
 
-    def _upload_gray(self, gray_u8: np.ndarray) -> List[torch.Tensor]:
+    def _upload_gray(self, gray_u8: np.ndarray):
         """[C, H, W] u8 gray -> per camera group, f32 in [0, 1] on the
-        group's device (None for the groups of other processes)."""
+        group's device (None for the groups of other processes).  Without
+        a mesh it goes into the 2D program's buffer instead (None)."""
+        if self._prog2d is not None:
+            self._prog2d.put_gray(gray_u8)
+            return None
         return [None if state is None
                 else self._upload(g, dev).float() * (1.0 / 255.0)
                 for g, dev, state in zip(self._group_slices(gray_u8),
@@ -175,7 +287,10 @@ class TrackingEngine:
     def _step2d(self, grays, boxes, mask):
         """The 2D step of every camera group this process holds; returns
         the packed outputs, [C, T, 6] (as Shards over the camera groups
-        with a mesh)."""
+        with a mesh).  Without a mesh: one run of the 2D program, on the
+        gray `_upload_gray` put in its buffer (`grays` is None)."""
+        if self._prog2d is not None:
+            return self._prog2d(boxes, mask, self.frame_idx)
         packs = []
         for g, (dev, cams, gray, box, msk) in enumerate(zip(
                 self._group_devices, self._group_cams, grays,

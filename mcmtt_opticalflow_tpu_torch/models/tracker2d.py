@@ -12,8 +12,12 @@ mirrors the reference's Run (ref Tracker2D.cpp:251-373):
   4. forward LK of live trackers + box-chain cost    (ref :851-1025)
   5. assignment + gate validation + lifecycle        (ref :1038-1182)
 
-The assignment (step 5) runs on the host (ops/hungarian.py): the
-[C, D, T] cost matrix goes down and the matching comes back up.
+The assignment (step 5) runs where the cost matrix lies
+(ops/hungarian.py): the JV kernel on the card, its plain version on the
+CPU.  The step reads no device value on the host (no .item(), no
+boolean indexing, no host branch on a tensor, no host-to-device copy), so
+on the card it is captured whole as one CUDA graph
+(models/pipeline.py::Tracker2DProgram), as the JAX package jits it.
 """
 
 from __future__ import annotations
@@ -113,13 +117,14 @@ def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def _scatter_drop(size: int, idx: torch.Tensor, values: torch.Tensor,
                   fill) -> torch.Tensor:
     """Per-camera `full(size, fill).at[idx].set(values, mode="drop")`:
-    indices outside [0, size) are filtered out, then index_put_."""
+    indices outside [0, size) write to a spare column that is cut off
+    (the callers' kept indices are distinct per camera)."""
     c = idx.shape[0]
-    out = torch.full((c, size), fill, dtype=values.dtype, device=idx.device)
+    out = torch.full((c, size + 1), fill, dtype=values.dtype,
+                     device=idx.device)
     keep = (idx >= 0) & (idx < size)
-    cam = torch.arange(c, device=idx.device)[:, None].expand_as(idx)
-    out.index_put_((cam[keep], idx[keep].long()), values[keep])
-    return out
+    out.scatter_(1, torch.where(keep, idx, size).long(), values)
+    return out[:, :size]
 
 
 # ---------------------------------------------------------------------------
@@ -138,8 +143,7 @@ def estimate_detection_height(cam: TsaiCamera, boxes: torch.Tensor):
     p11 = image_to_world(cam, top, 0.0)
     p12 = image_to_world(cam, top, 2000.0)
     p21 = image_to_world(cam, bottom, 0.0)
-    p22 = p21 + torch.tensor([0.0, 0.0, 2000.0], dtype=boxes.dtype,
-                             device=boxes.device)
+    p22 = torch.cat([p21[..., :2] + 0.0, p21[..., 2:] + 2000.0], -1)
     top_pt, _ = triangulate_two_lines(p11, p12, p21, p22)
     height = _norm(top_pt - p21)
     return height, p21
@@ -234,7 +238,7 @@ def tracker2d_step(state: Tracker2DState,
                    det_boxes: torch.Tensor,
                    det_mask: torch.Tensor,
                    cam: TsaiCamera,
-                   frame_idx: int,
+                   frame_idx,
                    cfg: Tracker2DConfig):
     """One frame for every camera.
 
@@ -244,7 +248,8 @@ def tracker2d_step(state: Tracker2DState,
       det_boxes: [C, D, 4] padded detections (x, y, w, h).
       det_mask:  [C, D] bool.
       cam:       stacked TsaiCamera ([C] fields).
-      frame_idx: frame number.
+      frame_idx: frame number: an int, or a 0-dim int32 tensor on the
+                 frames' device (as the JAX package's jnp.int32).
 
     Returns (new_state, Track2DOutput).
     """
@@ -386,11 +391,8 @@ def tracker2d_step(state: Tracker2DState,
     veto = (total > 0) & (major <= cfg.min_flow_majority_ratio * total)
     cost = torch.where(veto[..., None], torch.inf, cost)
 
-    # ---- 5. assignment (ref :1038-1107), on the host ------------------------
-    match_np, _ = solve_assignment_batch(cost.cpu().numpy(),
-                                         det_valid.cpu().numpy(),
-                                         trk_predict_ok.cpu().numpy())
-    match_col = torch.from_numpy(match_np).to(dev)
+    # ---- 5. assignment (ref :1038-1107) ------------------------------------
+    match_col, _ = solve_assignment_batch(cost, det_valid, trk_predict_ok)
     matched_det = match_col >= 0                                   # [C, D]
     det_ar = torch.arange(n_det, dtype=torch.int32, device=dev).expand(
         n_cam, n_det)

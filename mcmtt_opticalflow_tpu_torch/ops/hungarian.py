@@ -1,16 +1,22 @@
 """Linear assignment (detection <-> tracker matching), port of
 mcmtt_opticalflow_tpu/ops/hungarian.py.
 
-The JAX package runs Jonker-Volgenant shortest augmenting paths as a
-device while_loop; eager PyTorch could only run that with one host sync
-per Dijkstra step.  `solve_assignment_batch` is a numpy transcription of
-the same algorithm (hungarian.py:90-169), run on the host in lockstep
-over a leading batch axis: every Dijkstra step is one vectorised [C, T]
-min/argmin/where.  The arithmetic is float32 in the same order as the
-device version, and ties go to the first index as jnp.argmin does, so the
-matching is identical (tracklet ids drift otherwise).  As in the JAX
-package, `solve_assignment` takes one [R, T] matrix and
-`solve_assignment_batch` a [C, R, T] stack (its vmap there);
+The JAX package runs Jonker-Volgenant shortest augmenting paths as device
+while_loops inside the 2D tracker's jitted step.  Here the same algorithm
+is a hand-written CUDA kernel (csrc/jv_assign.cu, one warp per camera)
+wrapped by `jv_assign`, with its plain version beside it:
+`jv_assign_reference`, a numpy transcription of hungarian.py:90-169 run
+on the host in lockstep over the camera axis (every Dijkstra step one
+vectorised [C, T] min/argmin/where).  Both compute in float32 in the
+device version's order, and ties go to the first index as jnp.argmin
+breaks them, so the matching is identical (tracklet ids drift
+otherwise).  `jv_assign` takes the plain version only for tensors on the
+CPU; for CUDA tensors it launches the kernel or raises, on the current
+stream and with no host synchronisation, so a CUDA graph can capture it.
+
+As in the JAX package, `solve_assignment` takes one [R, T] matrix and
+`solve_assignment_batch` a [C, R, T] stack (its vmap there); both take
+tensors or numpy arrays and return tensors on the input's device.
 `hungarian_host` is the exact scipy reference (carried over unchanged).
 
 Forbidden (inf / masked) entries are replaced by (finite max + 100) in
@@ -20,7 +26,13 @@ entry is reported unmatched (ref PSNWhere_Tracker2D.cpp:1040-1063).
 
 from __future__ import annotations
 
+import ctypes
+from typing import Optional
+
 import numpy as np
+import torch
+
+from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import build_library
 
 _INF = np.float32(1e18)
 
@@ -44,8 +56,7 @@ def hungarian_host(cost: np.ndarray):
     return rows[keep], cols[keep]
 
 
-def solve_assignment(cost: np.ndarray, row_mask: np.ndarray,
-                     col_mask: np.ndarray, num_iters: int = 2000):
+def solve_assignment(cost, row_mask, col_mask, num_iters: int = 2000):
     """Exact min-cost assignment of one matrix.
 
     Args:
@@ -56,17 +67,16 @@ def solve_assignment(cost: np.ndarray, row_mask: np.ndarray,
         bounded by the matrix dimensions).
 
     Returns (col_of_row [R] int32, -1 when unmatched;
-             match_cost [R] float32, inf when unmatched).
+             match_cost [R] float32, inf when unmatched), on the input's
+    device.
     """
     del num_iters
-    col, mcost = solve_assignment_batch(np.asarray(cost)[None],
-                                        np.asarray(row_mask)[None],
-                                        np.asarray(col_mask)[None])
+    col, mcost = solve_assignment_batch(*(torch.as_tensor(x)[None] for x in
+                                          (cost, row_mask, col_mask)))
     return col[0], mcost[0]
 
 
-def solve_assignment_batch(cost: np.ndarray, row_mask: np.ndarray,
-                           col_mask: np.ndarray):
+def solve_assignment_batch(cost, row_mask, col_mask):
     """Exact min-cost assignment for a batch of matrices (cameras).
 
     Args:
@@ -75,18 +85,28 @@ def solve_assignment_batch(cost: np.ndarray, row_mask: np.ndarray,
       col_mask: [C, T] bool, valid columns.
 
     Returns (col_of_row [C, R] int32, -1 when unmatched;
-             match_cost [C, R] float32, inf when unmatched).
+             match_cost [C, R] float32, inf when unmatched), on the
+    input's device: the kernel on the card, the plain version on the CPU.
     """
-    cost = np.asarray(cost, np.float32)
-    row_mask = np.asarray(row_mask, bool)
-    col_mask = np.asarray(col_mask, bool)
+    return jv_assign(*(torch.as_tensor(x) for x in
+                       (cost, row_mask, col_mask)))
+
+
+# ---------------------------------------------------------------------------
+# the plain version
+# ---------------------------------------------------------------------------
+
+def _jv_numpy(cost: np.ndarray, row_mask: np.ndarray, col_mask: np.ndarray,
+              steps: Optional[np.ndarray] = None):
+    """hungarian.py:75-169 in numpy, in lockstep over the leading camera
+    axis.  `steps` [C] (optional) receives each camera's Dijkstra steps."""
     nc, r, c = cost.shape
     cams = np.arange(nc)
     if r > c:
         # JV augments one row at a time and needs rows <= cols: solve the
         # transposed problem and invert the matching
-        row_of_col, _ = solve_assignment_batch(cost.transpose(0, 2, 1),
-                                               col_mask, row_mask)
+        row_of_col, _ = _jv_numpy(cost.transpose(0, 2, 1), col_mask,
+                                  row_mask, steps)
         col_of_row = np.full((nc, r), -1, np.int32)
         ci, cj = np.nonzero(row_of_col >= 0)
         col_of_row[ci, row_of_col[ci, cj]] = cj
@@ -130,6 +150,8 @@ def solve_assignment_batch(cost: np.ndarray, row_mask: np.ndarray,
             run = sink < 0
             if not run.any():
                 break
+            if steps is not None:
+                steps[cs[run]] += 1
             dmask = np.where(visited, _INF, dist)
             j = np.argmin(dmask, axis=1)
             dj = dmask[ks, j]
@@ -167,3 +189,120 @@ def solve_assignment_batch(cost: np.ndarray, row_mask: np.ndarray,
     valid = matched & np.isfinite(mcost) & finite[cams[:, None], rows, safe]
     return (np.where(valid, y, -1).astype(np.int32),
             np.where(valid, mcost, np.float32(np.inf)).astype(np.float32))
+
+
+def _host(x: torch.Tensor, dtype) -> np.ndarray:
+    return x.detach().cpu().numpy().astype(dtype, copy=False)
+
+
+def jv_assign_reference(cost: torch.Tensor, row_mask: torch.Tensor,
+                        col_mask: torch.Tensor):
+    """Plain version of the JV kernel (`_jv_numpy` on the host): the same
+    arguments and results as `jv_assign`, as CPU tensors."""
+    col, mcost = _jv_numpy(_host(cost, np.float32),
+                           _host(row_mask, np.bool_),
+                           _host(col_mask, np.bool_))
+    return torch.from_numpy(col), torch.from_numpy(mcost)
+
+
+def jv_work(cost, row_mask, col_mask) -> dict:
+    """The bytes and float32 operations one `jv_assign` call needs on these
+    inputs, for its bound on a device.
+
+    - bytes: the cost matrices (4 B an entry) and masks (1 B) read once,
+      col_of_row and match_cost (4 B each per row) written once.
+    - flops: 4 per entry for the normalisation (min, max, subtract,
+      divide); per Dijkstra step 5 per working column (its masked argmin
+      and its relaxation: two subtractions, an addition, a comparison);
+      per solved row 3 per working column (its distance start and its
+      potential update).  The walk moves indices only.
+
+    Returns {"bytes", "flops", "steps", "max_steps"} as Python ints:
+    `steps` the Dijkstra steps of every camera (the sum over its rows of
+    each row's steps, counted by running the plain version: the kernel's
+    serial chain), `max_steps` those of the slowest camera (the cameras'
+    blocks run side by side).
+    """
+    c, r, t = cost.shape
+    nc = max(r, t)
+    steps = np.zeros(c, np.int64)
+    _jv_numpy(_host(cost, np.float32), _host(row_mask, np.bool_),
+              _host(col_mask, np.bool_), steps)
+    rows = int(_host(col_mask if r > t else row_mask, np.bool_).sum())
+    return {"bytes": c * r * t * 4 + c * (r + t) + c * r * 8,
+            "flops": 4 * c * r * t + 5 * nc * int(steps.sum())
+            + 3 * nc * rows,
+            "steps": int(steps.sum()), "max_steps": int(steps.max(
+                initial=0))}
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+def build() -> ctypes.CDLL:
+    """The library of csrc/jv_assign.cu, built at first use (once per
+    source hash) and loaded once."""
+    lib, _, _ = build_library("jv_assign.cu")
+    if lib.jv_assign_launch.argtypes is None:
+        lib.jv_assign_launch.restype = ctypes.c_int
+        lib.jv_assign_launch.argtypes = ([ctypes.c_void_p] * 3
+                                         + [ctypes.c_int] * 3
+                                         + [ctypes.c_void_p] * 3)
+    return lib
+
+
+def _check(cost, row_mask, col_mask):
+    if cost.dim() != 3:
+        raise ValueError(f"cost must be [C, R, T], got {tuple(cost.shape)}")
+    c, r, t = cost.shape
+    if tuple(row_mask.shape) != (c, r) or tuple(col_mask.shape) != (c, t):
+        raise ValueError(f"masks must be [C, R] and [C, T] for cost "
+                         f"{tuple(cost.shape)}: {tuple(row_mask.shape)} "
+                         f"{tuple(col_mask.shape)}")
+
+
+def _launch(cost, row_mask, col_mask, col_of_row, match_cost) -> None:
+    """Launch the kernel on prepared tensors (contiguous, of the kernel's
+    types, outputs allocated) on the current stream: no checks, no count.
+    jv_assign's launch path, and a timing loop's."""
+    c, r, t = cost.shape
+    lib = build()
+    # the launch and its shared-memory attribute go to the current device
+    with torch.cuda.device(cost.device):
+        err = lib.jv_assign_launch(
+            cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), c, r,
+            t, col_of_row.data_ptr(), match_cost.data_ptr(),
+            torch.cuda.current_stream(cost.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"jv_assign kernel launch failed: CUDA error "
+                           f"{err}")
+
+
+def jv_assign(cost: torch.Tensor, row_mask: torch.Tensor,
+              col_mask: torch.Tensor):
+    """Exact min-cost assignment of [C, R, T] float32 matrices with [C, R]
+    and [C, T] bool masks, on the tensors' device: the CUDA kernel for
+    CUDA tensors, its plain version (`jv_assign_reference`) for CPU
+    tensors.  Returns (col_of_row [C, R] int32, -1 when unmatched;
+    match_cost [C, R] float32, inf when unmatched).  `jv_assign.launches`
+    counts kernel launches."""
+    _check(cost, row_mask, col_mask)
+    if cost.device.type == "cpu":
+        return jv_assign_reference(cost, row_mask, col_mask)
+    if cost.device.type != "cuda":
+        raise ValueError(f"jv_assign: no kernel for device {cost.device}")
+    if row_mask.device != cost.device or col_mask.device != cost.device:
+        raise ValueError("jv_assign: all inputs must be on one device")
+    c, r, _ = cost.shape
+    col_of_row = torch.empty((c, r), dtype=torch.int32, device=cost.device)
+    match_cost = torch.empty((c, r), dtype=torch.float32, device=cost.device)
+    # no-ops for inputs already of the kernel's types (the tracker's)
+    _launch(cost.contiguous().float(), row_mask.contiguous().bool(),
+            col_mask.contiguous().bool(), col_of_row, match_cost)
+    if c and r:
+        jv_assign.launches += 1
+    return col_of_row, match_cost
+
+
+jv_assign.launches = 0

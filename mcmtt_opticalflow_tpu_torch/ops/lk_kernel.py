@@ -23,20 +23,17 @@ and in how a tap is blended:
 
 `lk_level` takes the plain version only for tensors on the CPU; for CUDA
 tensors it launches the kernel or raises.  The kernels build with nvcc at
-first use into ``_build/`` beside the package (see .gitignore).
+first use into ``_build/`` beside the package (see .gitignore;
+ops/nvcc_build.py).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import time
 
 import torch
+
+from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import build_library
 
 PH = 40                  # patch rows of the TPU kernel (lk_pallas.PH)
 PW = 256                 # patch columns
@@ -45,69 +42,25 @@ SUBW = 128
 MAX_WINDOW = 16          # per-lane register arrays in the CUDA kernel
 VARIANTS = ("batched", "serial")
 
-_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
-                    "lk_level.cu")
-_BUILD_DIR = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "_build")
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC"]
-
-
-class _Kernel:
-    """The built library (one per process, loaded at first use)."""
-    lib = None
-    build_seconds = None
-    build_log = ""
-
-
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the LK kernel cannot be built")
-
 
 def build() -> ctypes.CDLL:
-    """Compile csrc/lk_level.cu into a shared library (named by the source
-    hash, so an edited source rebuilds) and load it."""
-    if _Kernel.lib is not None:
-        return _Kernel.lib
-    with open(_SRC, "rb") as f:
-        src = f.read()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    so_path = os.path.join(_BUILD_DIR, f"lk_level_{digest[:16]}.so")
-    t0 = time.perf_counter()
-    if not os.path.exists(so_path):
-        os.makedirs(_BUILD_DIR, exist_ok=True)
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-        os.close(fd)
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, _SRC],
-                              capture_output=True, text=True)
-        _Kernel.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError("nvcc failed on lk_level.cu:\n"
-                               + _Kernel.build_log)
-        os.replace(tmp, so_path)
-    lib = ctypes.CDLL(so_path)
-    for fn in (lib.lk_level_launch, lib.lk_level_serial_launch):
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * 9 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
-    lib.lk_level_max_window.restype = ctypes.c_int
-    lib.lk_level_max_window.argtypes = []
-    lib.lk_noop_launch.restype = ctypes.c_int
-    lib.lk_noop_launch.argtypes = [ctypes.c_void_p]
-    lib.lk_level_stage_margin.restype = ctypes.c_int
-    lib.lk_level_stage_margin.argtypes = []
-    if lib.lk_level_max_window() != MAX_WINDOW:
-        raise RuntimeError("lk_level.cu and lk_kernel.py disagree on the "
-                           "largest window")
-    _Kernel.build_seconds = time.perf_counter() - t0
-    _Kernel.lib = lib
+    """The library of csrc/lk_level.cu, built at first use (named by the
+    source hash, so an edited source rebuilds) and loaded once."""
+    lib, _, _ = build_library("lk_level.cu")
+    if lib.lk_level_launch.argtypes is None:
+        for fn in (lib.lk_level_launch, lib.lk_level_serial_launch):
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
+                           + [ctypes.c_void_p])
+        lib.lk_level_max_window.restype = ctypes.c_int
+        lib.lk_level_max_window.argtypes = []
+        lib.lk_noop_launch.restype = ctypes.c_int
+        lib.lk_noop_launch.argtypes = [ctypes.c_void_p]
+        lib.lk_level_stage_margin.restype = ctypes.c_int
+        lib.lk_level_stage_margin.argtypes = []
+        if lib.lk_level_max_window() != MAX_WINDOW:
+            raise RuntimeError("lk_level.cu and lk_kernel.py disagree on "
+                               "the largest window")
     return lib
 
 
@@ -396,12 +349,13 @@ def _launch(variant, prev, next_img, cam_idx, points, guess, active,
     lib = build()
     launch = (lib.lk_level_launch if variant == "batched"
               else lib.lk_level_serial_launch)
-    err = launch(
-        prev.data_ptr(), next_img.data_ptr(), cam_idx.data_ptr(),
-        points.data_ptr(), guess.data_ptr(), active.data_ptr(),
-        tracked.data_ptr(), valid.data_ptr(), resid.data_ptr(),
-        h, wid, points.shape[0], window, iters, ph, pw,
-        torch.cuda.current_stream(prev.device).cuda_stream)
+    with torch.cuda.device(prev.device):     # the launch's device
+        err = launch(
+            prev.data_ptr(), next_img.data_ptr(), cam_idx.data_ptr(),
+            points.data_ptr(), guess.data_ptr(), active.data_ptr(),
+            tracked.data_ptr(), valid.data_ptr(), resid.data_ptr(),
+            h, wid, points.shape[0], window, iters, ph, pw,
+            torch.cuda.current_stream(prev.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"lk_level ({variant}) kernel launch failed: "
                            f"CUDA error {err}")

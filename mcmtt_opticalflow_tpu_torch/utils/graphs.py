@@ -11,6 +11,11 @@ function eagerly.  This is the card's counterpart of a jitted XLA
 executable, built once per static shape.
 
 There is no fallback: a capture or replay that fails raises.
+
+A replay runs no Python: the port's kernel wrappers count the launches
+of the capture's two calls (the warm-up, which runs, and the recording,
+which does not) and none of its replays.  What the card ran is counted
+on the card (utils/kernel_events.py).
 """
 
 from __future__ import annotations
@@ -25,10 +30,8 @@ class Graphed:
     """`fn` captured as a CUDA graph on a CUDA `device` (into `pool`, a
     `torch.cuda.graph_pool_handle()` that the graphs of one program
     share), called eagerly elsewhere.  `out` is fn's latest output: on
-    the card the graph's static output tensors.  `Graphed.replays`
-    counts replays, over every instance, since it was last set to 0."""
-
-    replays = 0
+    the card the graph's static output tensors.  `n_replays` counts its
+    replays."""
 
     def __init__(self, fn: Callable, device, pool=None):
         self.fn = fn
@@ -37,6 +40,7 @@ class Graphed:
         self.graph = None
         self.out = None
         self.capture_s = 0.0
+        self.n_replays = 0
 
     @property
     def on_card(self) -> bool:
@@ -70,5 +74,5 @@ class Graphed:
             raise RuntimeError("Graphed: call capture() before the first "
                                "replay")
         self.graph.replay()
-        Graphed.replays += 1
+        self.n_replays += 1
         return self.out

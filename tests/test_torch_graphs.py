@@ -17,8 +17,22 @@ each part runs eagerly from the program's static buffers.
 - the program's parts read no device value on the host;
 - precompile makes exactly the pairs that fit max_vertices.
 
+The 2D step as a program on static buffers (models/pipeline.py::
+Tracker2DProgram), on the 10-frame pipeline scene:
+- the program equals tracker2d_step bit for bit, every frame's packed
+  output and every state leaf;
+- tracker2d_step reads no device value on the host (the assignment's
+  plain version, the JV kernel's place on the card, aside);
+- a capture (a stand-in here: its eager warm-up writes the state) does
+  not advance the state;
+- a checkpoint round trip restores the program's buffers;
+- a replay passes through no kernel wrapper and leaves their counts as
+  they are; the card's kernel runs are counted on the card
+  (utils/kernel_events.py), which needs a card and CUPTI.
+
 The capture itself (CUDA graphs) runs only on a card: chip_smoke.py's
-graph phase holds the replays against the eager body there."""
+graph phases hold the replays against the eager body and the eager 2D
+step there."""
 
 import jax
 import jax.numpy as jnp
@@ -37,8 +51,18 @@ from mcmtt_opticalflow_tpu_torch.models.associator3d import (Associator3D,
                                                              FrameProgram)
 from mcmtt_opticalflow_tpu_torch.models.mwcp import (MwcpResult,
                                                      threefry_fields)
-from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
-from mcmtt_opticalflow_tpu_torch.utils import prng
+from mcmtt_opticalflow_tpu_torch.checkpoint import (load_snapshot,
+                                                    save_snapshot)
+from mcmtt_opticalflow_tpu_torch.models.pipeline import (TrackingEngine,
+                                                         _pack2d)
+from mcmtt_opticalflow_tpu_torch.models.tracker2d import (
+    init_tracker2d_state, tracker2d_step)
+from mcmtt_opticalflow_tpu_torch.ops import hungarian
+from mcmtt_opticalflow_tpu_torch.ops.lk_kernel import lk_level
+from mcmtt_opticalflow_tpu_torch.utils import kernel_events, prng
+from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
+from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves
 from torch_parity import jax_mwcp_fields, to_torch_fields
 
 torch.set_num_threads(2)
@@ -444,3 +468,234 @@ def test_precompile_builds_the_pairs_that_fit(vmax, want):
     assert sorted(assoc._programs) == [(nr, nb, 3) for nr, nb in want]
     for (nr, nb, _), prog in assoc._programs.items():
         assert prog.inputs[0].shape[0] == nr and prog.inputs[7].shape == (nb,)
+
+
+# ------------------------------------------------------ the 2D step program
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+def _same_bits(got, want):
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and torch.equal(_bits(g), _bits(w))
+
+
+@pytest.fixture(scope="module")
+def recorded2d():
+    """The port's engine (no mesh: its 2D program, run eagerly from its
+    static buffers on the CPU) on the 10-frame pipeline scene: after each
+    frame, the program's inputs (8-bit gray, boxes, mask), its packed
+    output and its state buffers."""
+    sc = make_scenario(num_cameras=2, num_frames=NUM_FRAMES, num_people=3,
+                       image_size=(256, 192), arena=5000.0, seed=11)
+    eng = TrackingEngine(_cfg(tcfg), sc.cameras, device="cpu")
+    prog = eng._prog2d
+    frames = []
+    for t in range(NUM_FRAMES):
+        eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
+                          frame_idx=t)
+        frames.append({
+            "inputs": [x.clone() for x in (prog.gray_u8, prog.boxes,
+                                           prog.mask)],
+            "frame_idx": int(prog.frame_idx),
+            "pack": prog.graph.out.clone(),
+            "state": [x.clone() for x in tree_leaves(prog.state)]})
+    assert any(f["pack"][..., 1].sum() > 0 for f in frames[2:]), \
+        "the scene emitted no tracklet: the tests would be vacuous"
+    return sc, eng, frames
+
+
+def _eager_2d(eng, frames, n):
+    """tracker2d_step itself over the first n recorded frames, from a
+    zero state, frame numbers as Python ints: [(pack, state leaves)]."""
+    cfg = eng.cfg
+    state = init_tracker2d_state(cfg.tracker2d, cfg.image_height,
+                                 cfg.image_width, cfg.num_cameras,
+                                 device="cpu")
+    out = []
+    for t, f in enumerate(frames[:n]):
+        gray_u8, boxes, mask = f["inputs"]
+        state, o = tracker2d_step(state, gray_u8.float() * (1.0 / 255.0),
+                                  boxes, mask, eng.cams, t, cfg.tracker2d)
+        out.append((_pack2d(o), tree_leaves(state)))
+    return out
+
+
+def test_2d_program_equals_the_eager_step(recorded2d):
+    """The program from its buffers (frame number a 0-dim int32 tensor)
+    equals tracker2d_step (frame number an int) bit for bit: every
+    frame's pack and every state leaf.  tests/test_torch_pipeline.py
+    holds the same engine's 2D outputs against the JAX engine's."""
+    _, eng, frames = recorded2d
+    for t, (pack, state) in enumerate(_eager_2d(eng, frames, NUM_FRAMES)):
+        assert frames[t]["frame_idx"] == t
+        _same_bits([frames[t]["pack"]] + frames[t]["state"], [pack] + state)
+
+
+def test_tracker2d_step_reads_nothing_on_the_host(recorded2d, monkeypatch):
+    """tracker2d_step over the scene with the host reads of device values
+    (item, tolist, cpu, numpy, truth and number conversions, nonzero),
+    boolean-mask indexing and indexed writes of host values patched to
+    raise; only the assignment's plain version, the JV kernel's place on
+    the card, runs unpatched.  Its results stay the program's."""
+    _, eng, frames = recorded2d
+    refuse_names = ("item", "tolist", "cpu", "numpy", "__bool__", "__int__",
+                    "__float__", "__index__")
+    orig = {n: getattr(torch.Tensor, n) for n in refuse_names}
+    getitem, setitem = torch.Tensor.__getitem__, torch.Tensor.__setitem__
+
+    def refuse(*a, **k):
+        raise AssertionError("host read of a device value")
+
+    def indices(index):
+        return index if isinstance(index, tuple) else (index,)
+
+    def no_mask(t, index):
+        if any(isinstance(i, torch.Tensor) and i.dtype == torch.bool
+               for i in indices(index)):
+            raise AssertionError("boolean-mask indexing (a host sync)")
+        return getitem(t, index)
+
+    def device_values_only(t, index, value):
+        advanced = any(isinstance(i, torch.Tensor) for i in indices(index))
+        if advanced and not isinstance(value, torch.Tensor):
+            raise AssertionError("indexed write of a host value")
+        return setitem(t, index, value)
+
+    def patch():
+        for n in refuse_names:
+            setattr(torch.Tensor, n, refuse)
+        torch.Tensor.__getitem__ = no_mask
+        torch.Tensor.__setitem__ = device_values_only
+        torch.nonzero = refuse
+
+    def unpatch():
+        for n, fn in orig.items():
+            setattr(torch.Tensor, n, fn)
+        torch.Tensor.__getitem__, torch.Tensor.__setitem__ = getitem, setitem
+        torch.nonzero = nonzero
+
+    nonzero = torch.nonzero
+    plain = hungarian.jv_assign_reference
+
+    def plain_unpatched(*a):
+        unpatch()
+        try:
+            return plain(*a)
+        finally:
+            patch()
+    monkeypatch.setattr(hungarian, "jv_assign_reference", plain_unpatched)
+    want = _eager_2d(eng, frames, 4)
+    patch()
+    try:
+        got = _eager_2d(eng, frames, 4)
+    finally:
+        unpatch()
+    for (gp, gs), (wp, ws) in zip(got, want):
+        _same_bits([gp] + gs, [wp] + ws)
+
+
+class _Replayed:
+    """A stand-in CUDA graph: replaying runs the Graphed's function."""
+
+    def __init__(self, graphed):
+        self.graphed, self.replays = graphed, 0
+
+    def replay(self):
+        self.replays += 1
+        self.graphed.out = self.graphed.fn()
+
+
+def _stand_in_capture(g):
+    """What Graphed.capture does off the card's API: one eager warm-up
+    run, then a graph (here a stand-in)."""
+    g.fn()
+    g.graph = _Replayed(g)
+
+
+def test_2d_capture_does_not_advance_the_state(recorded2d, monkeypatch):
+    """A capture runs the step once eagerly (its warm-up), which writes
+    the new state into the buffers; the program puts the state back, so
+    the replay that follows advances it exactly one frame."""
+    sc, _, frames = recorded2d
+    eng = TrackingEngine(_cfg(tcfg), sc.cameras, device="cpu")
+    for t in range(3):
+        eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
+                          frame_idx=t)
+    prog = eng._prog2d
+    before = [x.clone() for x in tree_leaves(prog.state)]
+    monkeypatch.setattr(Graphed, "on_card", property(lambda g: True))
+    monkeypatch.setattr(Graphed, "capture", _stand_in_capture)
+    prog.capture()
+    assert isinstance(prog.graph.graph, _Replayed)
+    _same_bits(tree_leaves(prog.state), before)
+    prog.capture()                  # captured: nothing more to do
+    assert prog.graph.graph.replays == 0
+    eng.process_frame(np.stack(sc.frames(3)), sc.detections[3], frame_idx=3)
+    assert prog.graph.graph.replays == 1
+    _same_bits([prog.graph.out] + tree_leaves(prog.state),
+               [frames[3]["pack"]] + frames[3]["state"])
+
+
+def test_2d_checkpoint_round_trip_restores_the_program_buffers(
+        recorded2d, tmp_path):
+    """save_snapshot reads the program's state; load_snapshot writes it
+    into a fresh engine's buffers (they stay the program's), and both
+    engines then give the same 2D outputs."""
+    sc, _, frames = recorded2d
+    a = TrackingEngine(_cfg(tcfg), sc.cameras, device="cpu")
+    for t in range(4):
+        a.process_frame(np.stack(sc.frames(t)), sc.detections[t],
+                        frame_idx=t)
+    path = str(tmp_path / "snap.pkl")
+    save_snapshot(a, path)
+    b = TrackingEngine(_cfg(tcfg), sc.cameras, device="cpu")
+    buffers = tree_leaves(b._prog2d.state)
+    assert load_snapshot(b, path) == 3
+    assert b.state2d_groups[0] is b._prog2d.state
+    assert all(x is y for x, y in zip(tree_leaves(b._prog2d.state),
+                                      buffers))
+    _same_bits(tree_leaves(b._prog2d.state), frames[3]["state"])
+    for eng in (a, b):
+        eng.process_frame(np.stack(sc.frames(4)), sc.detections[4],
+                          frame_idx=4)
+    _same_bits([b._prog2d.graph.out] + tree_leaves(b._prog2d.state),
+               [frames[4]["pack"]] + frames[4]["state"])
+    # the getter hands out a copy: the next frame leaves it as it was
+    held = b.state2d
+    b.process_frame(np.stack(sc.frames(5)), sc.detections[5], frame_idx=5)
+    _same_bits(tree_leaves(held), frames[4]["state"])
+
+
+def test_a_replay_leaves_the_wrappers_counts(monkeypatch):
+    """A replay runs no Python, so no kernel wrapper sees it: Graphed
+    counts its replays and touches no launch count."""
+    g = Graphed(lambda: None, "cpu")
+    monkeypatch.setattr(Graphed, "on_card", property(lambda g: True))
+    g.graph = _Replayed(g)
+    counts = (lk_level.launches, lk_level.serial_launches,
+              hungarian.jv_assign.launches)
+    g()
+    g()
+    assert g.n_replays == 2 and g.graph.replays == 2
+    assert (lk_level.launches, lk_level.serial_launches,
+            hungarian.jv_assign.launches) == counts
+
+
+def test_kernel_events_needs_a_card_and_cupti(monkeypatch, tmp_path):
+    """The counter of the card's kernel runs refuses to start without a
+    card, finds no CUPTI where there is none, and sums its counts by part
+    of the demangled name."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        with KernelEvents():
+            pass
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="CUPTI not found"):
+        kernel_events.build()
+    ev = KernelEvents()
+    ev.counts = {"void lk_level_kernel<false, 16>(float const*)": 304,
+                 "void lk_level_kernel<true, 16>(float const*)": 6,
+                 "(anonymous namespace)::jv_assign_kernel(float const*)": 38}
+    assert (ev.count("lk_level_kernel<false"), ev.count("lk_level_kernel"),
+            ev.count("jv_assign_kernel"), ev.total) == (304, 310, 38, 348)

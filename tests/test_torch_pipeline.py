@@ -77,11 +77,11 @@ def runs(scene):
     tseen = _record_2d(teng)
     tres = [teng.process_frame(frames[t], tsc.detections[t], frame_idx=t)
             for t in range(NUM_FRAMES)]
-    return jseen, jres, tseen, tres
+    return jseen, jres, tseen, tres, teng
 
 
 def test_2d_outputs_equal_every_frame(runs):
-    jseen, _, tseen, _ = runs
+    jseen, _, tseen, _, _ = runs
     assert len(jseen) == len(tseen) == NUM_FRAMES
     for t, (j, g) in enumerate(zip(jseen, tseen)):
         np.testing.assert_array_equal(g[2], j[2], err_msg=f"mask, frame {t}")
@@ -92,8 +92,22 @@ def test_2d_outputs_equal_every_frame(runs):
                                    err_msg=f"boxes, frame {t}")
 
 
+def test_2d_outputs_come_from_the_2d_program(runs):
+    """Without a mesh the 2D outputs compared above are the 2D program's
+    (models/pipeline.py::Tracker2DProgram, run eagerly from its static
+    buffers on the CPU): its buffers hold the last frame, and the
+    engine's 2D state is those buffers."""
+    teng = runs[4]
+    prog = teng._prog2d
+    assert prog is not None and teng.state2d_groups == [prog.state]
+    assert int(prog.frame_idx) == NUM_FRAMES - 1
+    assert prog.graph.out.shape == (2, 32, 6)
+    assert torch.equal(prog.state.frame_count, torch.full(
+        (2,), teng.cfg.tracker2d.backtrack_interval, dtype=torch.int32))
+
+
 def test_track3d_results_equal_every_frame(runs):
-    _, jres, _, tres = runs
+    _, jres, _, tres, _ = runs
     first_diff = None
     for t, (j, g) in enumerate(zip(jres, tres)):
         assert j.frame_idx == g.frame_idx == t
@@ -111,7 +125,7 @@ def test_track3d_results_equal_every_frame(runs):
 
 def test_clearmot_equal(runs, scene):
     sc, _ = scene
-    _, jres, _, tres = runs
+    _, jres, _, tres, _ = runs
     gx, gy = sc.gt_matrices()
     zone = (-ARENA * 2, -ARENA * 2, ARENA * 2, ARENA * 2)
     motas = []
