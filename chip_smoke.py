@@ -4,12 +4,15 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero), run in
-the order 1, 2, 3d, 3e, 3f, 3c, 3b, 4-8b, 10, 9, 3, 3g, 10 counted:
+the order 1, 2, 3d, 3e, 3f, 3c, 3b, 4-8b, 10, 11, 9, 3, 3g, 10 counted:
 every timed phase comes before the first CUPTI session (phase 3's kernel
 count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
-     level kernel (ops/csrc/lk_level.cu) and the JV assignment kernel
-     (ops/csrc/jv_assign.cu) are built with nvcc, both at once;
+     level kernel (ops/csrc/lk_level.cu), the JV assignment kernel
+     (ops/csrc/jv_assign.cu), the solver's greedy start, BLS and clique
+     weight kernels (ops/csrc/mwcp_bls.cu) and the CUPTI counter are
+     built with nvcc,
+     all at once;
   2. the LK kernel against its plain PyTorch version at synthetic bench
      shapes (4 cameras, 576x768 and 288x384 levels, 6912 and 9216
      feature slots, points uniform over the image, ~25% active at
@@ -42,6 +45,12 @@ count), which slows graph launches for the rest of the process:
      captured per bucket, three of them by precompile after warm-up):
      graph replays > 0 and 0 calls of its eager body; the capture time
      per bucket, the graph pool's bytes and the static buffers' bytes;
+     the solver's greedy_start_kernel, bls_steps_kernel and
+     clique_weight_kernel runs counted by CUPTI equal to those of each
+     captured program's head and
+     iteration parts (warm-ups, replays, the head's replay before each
+     iteration part's capture), their wrappers' launches those of the
+     captures' two calls, and no plain version (LK or solver) called;
   3d. both 2D routes, no counter running: run_bench on the main path's
      route, then again with every 2D step run eagerly (no graph) and its
      assignment downloaded to the plain JV on the host and the matching
@@ -51,9 +60,9 @@ count), which slows graph launches for the rest of the process:
      called out), the host JV's ms a frame, ids and points equal on every
      frame; then the solver's threefry field draw of one frame, timed
      alone.  On the way it
-     records every frame's assignment inputs (phase 3f) and the
-     arguments of the 8 `lk_level` calls of frame CAPTURE_FRAME (phase
-     3b), which replays do not pass through;
+     records every frame's assignment inputs (phase 3f), every solve's
+     inputs (phase 11) and the arguments of the 8 `lk_level` calls of
+     frame CAPTURE_FRAME (phase 3b), which replays do not pass through;
   3e. the 2D graph: GRAPH_FRAMES bench frames through a fresh pipelined
      engine; after each frame the program's state buffers (every leaf)
      and its packed output equal, bit for bit, an eager tracker2d_step
@@ -118,7 +127,10 @@ count), which slows graph launches for the rest of the process:
      N-view reconstructions, gaussian_blur_3x3, sg_smooth,
      rgb_histogram, rgb_cost, the enter / exit / connectivity costs,
      solve_mwcp_batch with collect_k_best) on the card and on the CPU on
-     the same seeded inputs, at the CPU parity tests' tolerances; the
+     the same seeded inputs, at the CPU parity tests' tolerances (a
+     solve instance whose masks differ: the card's BLS kernel and the
+     CPU's plain version part, in lockstep, at a comparison within the
+     sums' rounding, as in phase 11); the
      device RGB histogram of a bench frame with 48 boxes equals
      host_rgb_histogram exactly; and the LK backend switch, which only
      a CPU run honours: with MCMTT_LK_BACKEND=xla, set here for one
@@ -135,7 +147,8 @@ count), which slows graph launches for the rest of the process:
      3D program's row inputs split in 4 chunks): equal ids, points
      within 1 mm, LK launches counted; solve_mwcp_sharded at V=1024,
      R=38, 150 iterations over 2 blocks equals its per-block solves plus
-     the global argmax;
+     the global argmax; the solver's wrappers launch once each per eager
+     3D program call;
   8b. multiprocess: parallel/multihost_sim.py --bench in two processes on
      the one card, joined by gloo, each with two cuda:0 entries of the
      global cam 4 x block 1 mesh: 16 LK launches per process per frame,
@@ -143,12 +156,14 @@ count), which slows graph launches for the rest of the process:
      the solve of phase 8 over a 1 x 4 mesh with two blocks in each
      process equals its per-block solves plus the argmax; wall time
      against phase 8's, the median time per frame in collectives, and
-     scaling_report;
+     scaling_report; each process launches the solver's kernels as often
+     as the other;
   9. profile: utils/timing.py::profile_trace (torch.profiler) around
      PROFILE_FRAMES steady bench frames: device busy share, device ms
      per frame, top 5 kernels, and the events of lk_level_kernel (8 per
      frame) and jv_assign_kernel (1 per frame), all in 2D graph replays,
-     none through a wrapper;
+     and of the solver's three kernels (the window's 3D
+     head and iteration-part replays), none through a wrapper;
   10. the dataset CLI: the bench scene (12 frames) written in the
      reference's layout (Tsai XML, detection files, .ppm frames, ground
      truth, parameters.txt), run through `main.py <parameters.txt>` in
@@ -156,9 +171,26 @@ count), which slows graph launches for the rest of the process:
      phase 3, 12 LK and 1 JV kernels run per 2D replay plus the capture's
      warm-up, the wrappers launch those of the capture's two calls, none
      on the CPU, no flat-gray frame), MOTA at w0/w3/w6 from the printed
-     table's results; run twice: timed, then counted.
+     table's results; run twice: timed (recording every solve's inputs
+     for phase 11), then counted (the solver's kernels as in phase 3);
+  11. mwcp: the solver's kernels (ops/mwcp_kernel.py) against their
+     plain versions on the card, on the recorded solves of phase 3d (the
+     bench, 37) and phase 10 (the CLI, 12): the greedy kernel bit-equal
+     on every replica; the BLS kernel from the same start and fields:
+     the solves whose K-best masks and scores are equal, and for each
+     that is not, the first iteration whose decisions part and the
+     comparisons the summation order flipped there, with their operands
+     (a fault when they lie more than 1e-5 relative apart, or when none
+     flipped); every K-best entry a clique of valid vertices scoring its
+     weight sum within 1e-4, no clique twice, the top score >= 0.99 x
+     the plain version's; the clique-weight kernel's start scores equal
+     to ascending float32 sums bit for bit and to torch.sum within 1e-5
+     relative.  Per bench solve: each kernel's device-only µs (timed as
+     in phase 3b), its wrapper's host µs, the plain version's ms and the
+     bound (ops/mwcp_kernel.py::greedy_work, bls_work, clique_work), and
+     the serial steps (greedy rounds, BLS iterations, additions).
 
-The whole script takes about 4 minutes on the card.  The line before the
+The whole script takes about 5 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
 phase 3b: per bench frame (8 launches) `ms` (device-only), `plain_ms`,
 `bound_ms`;
@@ -172,6 +204,11 @@ CUPTI; profile: trace events), the wrapper's count for the eager ones;
 `wrapper_launches` and `graph_replays_2d`, measured beside the card's
 counts on the graphed paths.  The JV kernel, on phase 3f's recorded
 frames, per bench frame (1 launch): the same keys, with `serial_steps`.
+The solver's kernels, on phase 11's recorded bench solves, per solve (a
+greedy start, the start's clique weights: 1 launch each; the BLS: its
+150 iterations, timed as 1 launch): the same keys, with `serial_steps`
+(and the BLS's `device_us_per_iteration`); their main-path and CLI
+launches are kernel runs counted by CUPTI.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -198,6 +235,8 @@ CLI_CAM_IDS = (1, 5, 6, 8)
 # against the port's CPU run with the LK kernel's plain version
 # (bench_reference.json `plain`; PERF.md section 2)
 MOTA_BOUND = 0.01
+NEG_SCORE = -1e30           # models/mwcp.py's NEG: an empty K-best slot
+PLAIN_EVERY = 4             # phase 11 times the plain versions on these
 
 
 def log(msg):
@@ -521,6 +560,50 @@ def kernel_runs(ev):
             ev.count("lk_level_kernel<true"), ev.count("jv_assign_kernel"))
 
 
+# the solver's kernels: wrapper (ops/mwcp_kernel.py), CUDA kernel name
+SOLVER_KERNELS = (("greedy_start", "greedy_start_kernel"),
+                  ("bls_steps", "bls_steps_kernel"),
+                  ("clique_weights", "clique_weight_kernel"))
+
+
+def solver_kernel_runs(ev):
+    """(greedy start, BLS, clique weight) kernel runs that a KernelEvents
+    session counted on the card."""
+    return tuple(ev.count(k) for _, k in SOLVER_KERNELS)
+
+
+def solver_runs_expected(assocs):
+    """The solver kernels' (greedy start, BLS, clique weight) runs on the
+    card that the captured 3D programs of `assocs` made, and their
+    wrappers' launches: per program the head's warm-up, its replays, and
+    one replay before each iteration part's capture (FrameProgram.capture)
+    run the greedy start and the clique weights; per iteration part its
+    warm-up and its replays run the BLS.  A wrapper counts each part's
+    warm-up and recording."""
+    runs, wrapper = [0, 0], [0, 0]
+    for assoc in assocs:
+        for p in assoc._programs.values():
+            if p.head.graph is None:
+                continue
+            loops = [x for x in (p.block, p.rest) if x is not None]
+            runs[0] += 1 + len(loops) + p.head.n_replays
+            runs[1] += sum(1 + x.n_replays for x in loops)
+            wrapper[0] += 2
+            wrapper[1] += 2 * len(loops)
+    return (*runs, runs[0]), (*wrapper, wrapper[0])
+
+
+def solver_launches():
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel
+    return tuple(getattr(mwcp_kernel, w).launches for w, _ in SOLVER_KERNELS)
+
+
+def reset_solver_launches():
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel
+    for w, _ in SOLVER_KERNELS:
+        getattr(mwcp_kernel, w).launches = 0
+
+
 def phase_main_path(card, timed):
     """mcmtt_opticalflow_tpu_torch.bench.run_bench on the card: bench.py's
     protocol at its config and scene, the kernels the card runs counted
@@ -535,19 +618,24 @@ def phase_main_path(card, timed):
     import numpy as np
     from mcmtt_opticalflow_tpu_torch import bench
     from mcmtt_opticalflow_tpu_torch.models import pipeline
-    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk, lk_kernel,
+                                                 mwcp_kernel)
     from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     total = WARMUP + MEASURED
-    # any LK work that runs on the CPU during the main path, and the eager
-    # 2D steps: the program's capture makes two (its warm-up and its
-    # recording), replays none
+    # any plain version (LK, solver) that runs during the main path, and
+    # the eager 2D steps: the program's capture makes two (its warm-up and
+    # its recording), replays none
     counted = {(mod, name): _count_calls(mod, name) for mod, name in (
         (lk_kernel, "lk_level_reference"), (lk, "lk_track_points"),
+        (mwcp_kernel, "greedy_start_reference"),
+        (mwcp_kernel, "bls_steps_reference"),
+        (mwcp_kernel, "clique_weights_reference"),
         (pipeline, "tracker2d_step"))}
     eager = EagerCount()
     lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
     hungarian.jv_assign.launches = 0
+    reset_solver_launches()
     try:
         with eager, KernelEvents() as ev:
             run = bench.run_bench(MEASURED, "cuda")
@@ -595,7 +683,18 @@ def phase_main_path(card, timed):
              f"lk_level_serial, jv_assign) {wrapper} times, expected "
              f"{want_wrapper}")
     if any(cpu_calls.values()):
-        fail(f"LK ran on the CPU during the main path: {cpu_calls}")
+        fail(f"a plain version ran during the main path: {cpu_calls}")
+    s_runs, s_wrapper = solver_kernel_runs(ev), solver_launches()
+    want_s_runs, want_s_wrapper = solver_runs_expected([assoc])
+    log(f"main path: solver kernels run on the card (CUPTI) greedy_start="
+        f"{s_runs[0]} bls_steps={s_runs[1]} clique_weights={s_runs[2]} "
+        f"(expected {want_s_runs}: each captured program's head and "
+        f"iteration parts, their warm-ups and replays), wrapper launches "
+        f"{s_wrapper} (expected {want_s_wrapper}: the captures' two calls)")
+    if s_runs != want_s_runs or s_wrapper != want_s_wrapper:
+        fail(f"main path: the solver kernels ran {s_runs} times and their "
+             f"wrappers launched {s_wrapper}, expected {want_s_runs} and "
+             f"{want_s_wrapper}")
     capture_s = {str(k): round(p.capture_s, 3) for k, p in progs.items()}
     log(f"main path: fused 3D program: {replays} graph replays, "
         f"{eager.calls} eager-body calls; capture s per bucket (nr, nb, "
@@ -650,7 +749,8 @@ def phase_main_path(card, timed):
     if gap > MOTA_BOUND:
         fail(f"the card's MOTA leaves the plain CPU record by {gap:.4f} "
              f"(bound {MOTA_BOUND})")
-    counts = {"runs": runs, "wrapper": wrapper, "replays": replays2d}
+    counts = {"runs": runs, "wrapper": wrapper, "replays": replays2d,
+              "solver_runs": s_runs, "solver_wrapper": s_wrapper}
     return counts, run
 
 
@@ -717,9 +817,10 @@ def phase_routes(card):
     eager 2D route (_Eager2DRoute); frames/s and stage medians of both,
     the host JV's ms a frame, ids and points equal on every frame; then
     the solver's threefry draw timed alone.  Records the LK calls of
-    frame CAPTURE_FRAME (phase 3b) and every frame's assignment inputs
-    (phase 3f) on the eager route.  Returns (the LK calls, the
-    assignment inputs, the graph route's run)."""
+    frame CAPTURE_FRAME (phase 3b), every frame's assignment inputs
+    (phase 3f) and every solve's inputs (phase 11) on the eager route.
+    Returns (the LK calls, the assignment inputs, the graph route's run,
+    the solves)."""
     import numpy as np
     from mcmtt_opticalflow_tpu_torch import bench
     from mcmtt_opticalflow_tpu_torch.models.mwcp import threefry_fields
@@ -728,8 +829,10 @@ def phase_routes(card):
     graph_run = bench.run_bench(MEASURED, "cuda")
     capture = LkCapture(CAPTURE_FRAME)
     capture.install()
+    cfg = bench.bench_config()
     try:
-        with _Eager2DRoute() as route:
+        with _Eager2DRoute() as route, \
+                SolveCapture(cfg.solver) as solves:
             run = bench.run_bench(
                 MEASURED, "cuda",
                 on_frame=lambda t: setattr(capture, "frame", t))
@@ -767,7 +870,7 @@ def phase_routes(card):
     log(f"2D routes: threefry field draw (R={r}, V=1024, 150 iterations: "
         f"{2 * 150 * r * 1024 + 2 * 150 * r + r * 1024} numbers) "
         f"{draw_ms:.3f} ms a frame (CUDA events, median of 10) on {card}")
-    return capture.calls, route.inputs, graph_run
+    return capture.calls, route.inputs, graph_run, solves.solves
 
 
 def phase_eager_counted(card):
@@ -1222,6 +1325,474 @@ def phase_jv(recorded, card):
             "serial_steps_slowest_camera": mean[6], "max_abs_err": 0.0}
 
 
+class SolveCapture:
+    """While active, records (cloned) the solver inputs of every captured
+    3D program call (models/associator3d.py::FrameProgram): the graph
+    (weights, adjacency, validity), the warm starts, the random fields,
+    the greedy bound (the bucket's graph rows), the solver configuration
+    (`solver_cfg` with the program's replica count) and the K-best size
+    (the replicas beyond solver_cfg's, one a carried hypothesis); the
+    head's outputs and the fields are the program's own buffers, so they
+    are cloned after each call, before the next."""
+
+    def __init__(self, solver_cfg):
+        self.solver_cfg, self.solves = solver_cfg, []
+
+    def __enter__(self):
+        import dataclasses
+        from mcmtt_opticalflow_tpu_torch.models.associator3d import \
+            FrameProgram
+        from mcmtt_opticalflow_tpu_torch.models.mwcp import MwcpFields
+        self.cls, self.orig = FrameProgram, FrameProgram.__call__
+
+        def call(prog, host, key, field_source=None):
+            out = self.orig(prog, host, key, field_source)
+            st = prog.head.out[1]
+            f = MwcpFields(*[x.clone() for x in prog.fields])
+            self.solves.append({
+                "weights": st.weights.clone(), "adj": st.adj.clone(),
+                "valid": st.valid.clone(), "init": prog.inputs[12].clone(),
+                "fields": f, "bound": prog.bucket[1],
+                "k": f.noise.shape[0] - self.solver_cfg.num_replicas,
+                "cfg": dataclasses.replace(
+                    self.solver_cfg, num_replicas=f.noise.shape[0])})
+            return out
+        FrameProgram.__call__ = call
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.__call__ = self.orig
+
+
+def _clone_state(st):
+    return type(st)(*[x.clone() for x in st])
+
+
+# the BLS state that its decisions write (its float scores, fbest and the
+# ring's, carry the sums' rounding)
+BLS_DECISIONS = ("in_c", "tabu", "best", "cp", "wcnt", "l_left",
+                 "use_directed", "sol_masks", "sol_next")
+
+
+def _ascending_sum(w, mask):
+    """The weights of `mask`'s members added in ascending order from 0 in
+    float32, as the solver's kernels sum a clique (numpy)."""
+    import numpy as np
+    s = np.float32(0.0)
+    for c in np.flatnonzero(mask):
+        s = np.float32(s + w[c])
+    return s
+
+
+def _kernel_sums(w, adj, in_c):
+    """The BLS kernel's float32 sums for one replica, members ascending
+    (csrc/mwcp_bls.cu): the clique weight fc and every vertex's weight sum
+    over its adjacent members (numpy)."""
+    import numpy as np
+    nbr = np.zeros(len(w), np.float32)
+    for c in np.flatnonzero(in_c):
+        nbr = np.where(adj[:, c], nbr + w[c], nbr).astype(np.float32)
+    return _ascending_sum(w, in_c), nbr
+
+
+def _record_flips(a0, b0, r, score_k, score_p, mask):
+    """The record's tests whose outcome differs between the kernel's state
+    a0 and the plain version's b0 for replica r inserting `mask` with
+    scores score_k / score_p: (test, (kernel operands), (plain
+    operands))."""
+    import numpy as np
+    out = []
+    if (score_k > 0) != (score_p > 0):
+        out.append(("score > 0", (score_k, 0.0), (score_p, 0.0)))
+    ring = a0.sol_masks[r].cpu().numpy()
+    sk = a0.sol_scores[r].cpu().numpy()
+    sp = b0.sol_scores[r].cpu().numpy()
+    for s in range(len(sk)):
+        if np.array_equal(ring[s], mask):
+            dk = abs(np.float32(sk[s] - score_k)) < np.float32(1e-5)
+            dp = abs(np.float32(sp[s] - score_p)) < np.float32(1e-5)
+            if dk != dp:
+                out.append((f"|ring score {s} - score| < 1e-5",
+                            (sk[s], score_k), (sp[s], score_p)))
+    return out
+
+
+def _iteration_flips(a0, b0, cfg, r):
+    """The comparisons of replica r's next BLS iteration that the
+    summation order can decide, each whose outcome differs between the
+    kernel's state a0 and the plain version's b0 (both before the
+    iteration, their decisions equal): (comparison, (kernel operands),
+    (plain operands)).  The kernel's sums are `_kernel_sums`; the plain
+    version's are its own torch.sum and product on the card."""
+    import numpy as np
+    import torch
+    w = a0.weights.cpu().numpy()
+    adj = a0.adj.cpu().numpy()
+    in_c = a0.in_c[r].cpu().numpy()
+    fc_k, nbr_k = _kernel_sums(w, adj, in_c)
+    in_w = torch.where(b0.in_c, b0.weights, 0.0)
+    fc_p = np.float32(torch.sum(in_w, -1)[r].item())
+    nbr_p = (in_w @ b0.adj.to(torch.float32).T)[r].cpu().numpy()
+    out = []
+    fb_k = np.float32(a0.fbest[r].item())
+    fb_p = np.float32(b0.fbest[r].item())
+    if (fc_k > fb_k) != (fc_p > fb_p):
+        out.append(("fc > fbest", (fc_k, fb_k), (fc_p, fb_p)))
+    out += _record_flips(a0, b0, r, fc_k, fc_p, in_c)
+    alpha = np.float32(cfg.alpha_s if int(a0.wcnt[r]) == 0 else cfg.alpha_r)
+    th_k, th_p = np.float32(alpha * fc_k), np.float32(alpha * fc_p)
+    live = (a0.valid.cpu().numpy() & ~in_c
+            & (a0.tabu[r].cpu().numpy() > int(a0.it)))
+    for v in np.flatnonzero(live & ((nbr_k >= th_k) != (nbr_p >= th_p))):
+        out.append((f"nbr_w_in_c[{v}] >= alpha * fc", (nbr_k[v], th_k),
+                    (nbr_p[v], th_p)))
+    return out
+
+
+def _parted(a, b):
+    """[R] bool (on b's device): replicas whose decisions differ between
+    two states."""
+    import torch
+    out = torch.zeros(b.in_c.shape[0], dtype=torch.bool,
+                      device=b.in_c.device)
+    for name in BLS_DECISIONS:
+        x, y = getattr(a, name).to(b.in_c.device), getattr(b, name)
+        out |= (x != y).reshape(x.shape[0], -1).any(-1)
+    return out
+
+
+def _first_parting(sa, sb, fa, fb, cfg, iters, final=True):
+    """The BLS kernel from the state sa on the fields fa and its plain
+    version from sb on fb (on their own device) in lockstep, one
+    iteration at a time, then with `final` the final record: (the
+    iteration whose decisions part first, -1 for the final record, the
+    parting replicas and their flipped comparisons), or None when no
+    decision parts."""
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import bls_result
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+    a, b = _clone_state(sa), _clone_state(sb)
+    for i in range(iters + final):
+        a0, b0 = _clone_state(a), _clone_state(b)
+        if i < iters:
+            mk.bls_steps(a, fa, cfg, 1)
+            mk.bls_steps_reference(b, fb, cfg, 1)
+        else:
+            bls_result(a)
+            bls_result(b)
+        parted = _parted(a, b)
+        if parted.any():
+            rows = parted.nonzero().flatten().tolist()
+            if i < iters:
+                flips = {r: _iteration_flips(a0, b0, cfg, r) for r in rows}
+            else:
+                flips = {r: _record_flips(
+                    a0, b0, r, a0.fbest[r].item(), b0.fbest[r].item(),
+                    a0.best[r].cpu().numpy()) for r in rows}
+            return (int(a0.it) if i < iters else -1), rows, flips
+    return None
+
+
+LOCKSTEP_CHUNK = 50         # iterations between the lockstep's comparisons
+
+
+def _lockstep(st0, f, cfg, iters):
+    """The BLS kernel and its plain version from st0 on the fields f, in
+    chunks of LOCKSTEP_CHUNK iterations, their decisions compared after
+    each; the first chunk that parts is run again one iteration at a time
+    from its start (_first_parting), and with no chunk parted the final
+    record is compared.  Returns (the kernel's state, the plain
+    version's, the first parting or None)."""
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+    sk, sp = _clone_state(st0), _clone_state(st0)
+    part = None
+    for c0 in range(0, iters, LOCKSTEP_CHUNK):
+        n = min(LOCKSTEP_CHUNK, iters - c0)
+        if part is None:
+            a, b = _clone_state(sk), _clone_state(sp)
+        mk.bls_steps(sk, f, cfg, n)
+        mk.bls_steps_reference(sp, f, cfg, n)
+        if part is None and _parted(sk, sp).any():
+            part = _first_parting(a, b, f, f, cfg, n, final=False)
+            if part is None:
+                fail(f"mwcp: iterations {c0}-{c0 + n - 1} part when run "
+                     f"together and not one at a time: a run differs from "
+                     f"its rerun")
+    if part is None:
+        part = _first_parting(sk, sp, f, f, cfg, 0)
+    return sk, sp, part
+
+
+def explain_parting(label, part):
+    """Print where the kernel and the plain version part (the first step
+    whose decisions differ, its replicas, the comparisons that flipped
+    with their operands) and fail when a replica parts with no flipped
+    comparison, or at one whose plain operands lie more than 1e-5
+    relative apart: a fault, not the sums' rounding."""
+    i, parted, flips = part
+    where = "the final record" if i < 0 else f"iteration {i}"
+    for r in parted:
+        shown = [(c, [float(x) for x in k], [float(x) for x in p])
+                 for c, k, p in flips[r]]
+        log(f"{label}: replica {r} parts at {where}: (comparison, kernel "
+            f"operands, plain operands) {shown}")
+        if not flips[r]:
+            fail(f"{label}: replica {r} parts at {where} and no "
+                 f"rounding-decided comparison flipped: a fault")
+        for c, _, (x, y) in flips[r]:
+            if _rel(x, y) > 1e-5:
+                fail(f"{label}: {c} flipped with plain operands {x} and "
+                     f"{y}, {_rel(x, y):.3e} apart (over 1e-5 relative: a "
+                     f"fault, not rounding)")
+
+
+def _rel(x, y):
+    return abs(float(x) - float(y)) / max(abs(float(x)), abs(float(y)),
+                                         1e-30)
+
+
+def _check_k_best(kb, kb_plain, w, adj, valid, label):
+    """Every K-best entry a clique of valid vertices whose score is its
+    weight sum within 1e-4 (relative, at least absolute), no clique twice;
+    the top score at least 0.99 x the plain version's.  Returns the top
+    scores."""
+    import numpy as np
+    masks, scores = (x.cpu().numpy() for x in kb)
+    w64 = w.cpu().numpy().astype(np.float64)
+    a, va = adj.cpu().numpy(), valid.cpu().numpy()
+    live = np.flatnonzero(scores > NEG_SCORE / 2)
+    if len({masks[j].tobytes() for j in live}) != len(live):
+        fail(f"mwcp: {label}: the K-best holds a clique twice")
+    for j in live:
+        idx = np.flatnonzero(masks[j])
+        sub = a[np.ix_(idx, idx)] | np.eye(len(idx), dtype=bool)
+        if not (len(idx) and va[idx].all() and sub.all()):
+            fail(f"mwcp: {label}: K-best entry {j} is not a clique of valid "
+                 f"vertices")
+        tot = w64[idx].sum()
+        if abs(scores[j] - tot) > 1e-4 * max(1.0, abs(tot)):
+            fail(f"mwcp: {label}: K-best entry {j} scores {scores[j]} "
+                 f"against its weight sum {tot}")
+    top, top_p = float(scores[0]), float(kb_plain[1][0])
+    if top_p > 0 and top < 0.99 * top_p:
+        fail(f"mwcp: {label}: the kernel's top score {top} is below 0.99 x "
+             f"the plain version's {top_p}")
+    return top, top_p
+
+
+def _mwcp_check(solves, name):
+    """The solver's kernels against their plain versions on recorded
+    solves; see phase_mwcp.  Returns (the largest |score difference| of
+    the solves equal up to rounding, the largest |clique weight
+    difference|)."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import (
+        bls_result, bls_start, device_k_best, replica_orders)
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+
+    n_eq = n_round = rows = 0
+    err, ratio, clique_err = 0.0, [], 0.0
+    for n, s in enumerate(solves):
+        label = f"{name} solve {n}"
+        w, adj, valid, f, cfg = (s["weights"], s["adj"], s["valid"],
+                                 s["fields"], s["cfg"])
+        orders = replica_orders(w, valid, f.noise)
+        greedy = mk.greedy_start(w, adj, valid, orders, s["bound"])
+        if not torch.equal(greedy, mk.greedy_start_reference(
+                w, adj, valid, orders, s["bound"])):
+            fail(f"mwcp: {label}: the greedy kernel differs from its plain "
+                 f"version")
+        rows += greedy.shape[0]
+        st0 = bls_start(w, adj, valid, s["init"], f, cfg, s["bound"])
+        # the start scores: the clique-weight kernel's ascending sums, bit
+        # for bit, and the plain version's within the orders' rounding
+        got = mk.clique_weights(st0.in_c, w)
+        w_np, in_np = w.cpu().numpy(), st0.in_c.cpu().numpy()
+        want = [_ascending_sum(w_np, m) for m in in_np]
+        if not np.array_equal(got.cpu().numpy(), np.asarray(want,
+                                                            np.float32)):
+            fail(f"mwcp: {label}: the clique-weight kernel differs from an "
+                 f"ascending float32 sum")
+        plain = mk.clique_weights_reference(st0.in_c, w)
+        rel = float(((got - plain).abs() / plain.abs().clamp(min=1e-30))
+                    .max())
+        if rel > 1e-5:
+            fail(f"mwcp: {label}: clique weights {rel:.3e} relative from "
+                 f"the plain version")
+        clique_err = max(clique_err, float((got - plain).abs().max()))
+        sk, sp, part = _lockstep(st0, f, cfg, f.g_dir.shape[0])
+        kb = device_k_best(bls_result(sk), s["k"])
+        kb_p = device_k_best(bls_result(sp), s["k"])
+        top, top_p = _check_k_best(kb, kb_p, w, adj, valid, label)
+        ratio.append(top / top_p if top_p > 0 else 1.0)
+        if torch.equal(kb[0], kb_p[0]) and torch.equal(kb[1], kb_p[1]):
+            n_eq += 1
+            continue
+        if part is None:
+            # no decision parted: the rings hold the same masks, their
+            # scores the sums' rounding
+            if not torch.equal(sk.sol_masks, sp.sol_masks):
+                fail(f"mwcp: {label}: the rings differ with no decision "
+                     f"parted")
+            live = sp.sol_scores > NEG_SCORE / 2
+            d = (sk.sol_scores - sp.sol_scores)[live].abs()
+            rel = float((d / sp.sol_scores[live].abs().clamp(min=1e-30))
+                        .max()) if d.numel() else 0.0
+            log(f"mwcp: {label}: K-best differs, no decision parted; ring "
+                f"scores within {rel:.3e} relative (summation order)")
+            if rel > 1e-5:
+                fail(f"mwcp: {label}: scores differ by {rel} relative")
+            n_round += 1
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+            continue
+        explain_parting(f"mwcp: {label}", part)
+    log(f"mwcp: {name}: {len(solves)} recorded solves, {rows} greedy "
+        f"replicas bit-equal to the plain version, their start scores "
+        f"equal to ascending float32 sums (largest |difference| from "
+        f"torch.sum {clique_err:.3e}); BLS K-best masks and "
+        f"scores equal on {n_eq}, equal up to the sums' rounding (no "
+        f"decision parted) on {n_round}, parted within rounding on "
+        f"{len(solves) - n_eq - n_round}; kernel / plain top score min "
+        f"{min(ratio):.6f} mean {sum(ratio) / len(ratio):.6f}")
+    return err, clique_err
+
+
+def _mwcp_times(solves, card):
+    """Per recorded solve: each kernel's device-only µs (behind a sleep
+    kernel, median of 3, as phase 3b), its wrapper's host µs per call and
+    the bound from greedy_work / bls_work / clique_work; the plain
+    versions' ms on every PLAIN_EVERY-th solve.  Returns the kernels-line
+    summaries (means over the solves)."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import (bls_start,
+                                                         replica_orders)
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+
+    lib = lk_kernel.build()
+    stream = torch.cuda.current_stream().cuda_stream
+    noop = device_us(lambda: lib.lk_noop_launch(stream))
+    g_rows, b_rows, c_rows = [], [], []
+    plain = {"greedy": [], "bls": [], "clique": []}
+    for n, s in enumerate(solves):
+        w, adj, valid, f, cfg, bound = (s["weights"], s["adj"], s["valid"],
+                                        s["fields"], s["cfg"], s["bound"])
+        r, v = f.noise.shape
+        iters = f.g_dir.shape[0]
+        orders = replica_orders(w, valid, f.noise)
+        out = torch.empty((r, v), dtype=torch.bool, device=w.device)
+        gw = mk.greedy_work(w, adj, valid, orders, bound)
+        g_rows.append((
+            device_us(lambda: mk._launch_greedy(w, adj, valid, orders, bound,
+                                                out)),
+            host_us(lambda: mk.greedy_start(w, adj, valid, orders, bound)),
+            0.0, 1e6 * gw["bound_s"], gw["steps"], gw["max_steps"],
+            gw["bytes"], gw["ops"], gw["bound_by"] == "bytes"))
+        st = bls_start(w, adj, valid, s["init"], f, cfg, bound)
+        scores = torch.empty(r, device=w.device)
+        cw = mk.clique_work(st.in_c, w)
+        c_rows.append((
+            device_us(lambda: mk._launch_clique(st.in_c, w, scores)),
+            host_us(lambda: mk.clique_weights(st.in_c, w)),
+            0.0, 1e6 * cw["bound_s"], cw["steps"], cw["max_steps"],
+            cw["bytes"], cw["ops"], cw["bound_by"] == "bytes"))
+        bw = mk.bls_work(st, f, cfg, iters)
+        run, calls, ref = (_clone_state(st) for _ in range(3))
+        packed = mk.packed_adjacency(v, w.device)
+        b_rows.append((
+            device_us(lambda: mk._launch_bls(run, f, cfg, iters, packed),
+                      reps=10),
+            host_us(lambda: mk.bls_steps(calls, f, cfg, FrameProgram.BLOCK),
+                    reps=20),
+            0.0, 1e6 * bw["bound_s"], iters, bw["bytes"], bw["ops"],
+            bw["bound_by"] == "bytes"))
+        if n % PLAIN_EVERY == 0:     # the plain versions run eagerly: slow
+
+            def plain_solve():
+                ref.it.zero_()
+                mk.bls_steps_reference(ref, f, cfg, iters)
+            plain["greedy"].append(time_ms(
+                lambda: mk.greedy_start_reference(w, adj, valid, orders,
+                                                  bound), reps=3))
+            plain["bls"].append(time_ms(plain_solve, reps=2))
+            plain["clique"].append(time_ms(
+                lambda: mk.clique_weights_reference(st.in_c, w), reps=5))
+    g, b, c = (np.asarray(x, np.float64) for x in (g_rows, b_rows, c_rows))
+    gm, bm, cm = g.mean(0), b.mean(0), c.mean(0)
+    for m, k in ((gm, "greedy"), (bm, "bls"), (cm, "clique")):
+        m[2] = float(np.mean(plain[k]))
+    c_by = "bytes" if cm[8] >= 0.5 else "operations"
+    log(f"mwcp: clique_weights per bench solve ({len(c)} solves, 1 launch, "
+        f"[{r}, {v}]; {card}): device-only {cm[0]:.3f} us, wrapper host "
+        f"{cm[1]:.3f} us/call, plain {cm[2]:.4f} ms; work {cm[6]:.0f} B, "
+        f"{cm[7]:.0f} ops; bound {cm[3]:.5f} us ({c_by}), roofline share "
+        f"{cm[3] / cm[0]:.5f}; serial additions {cm[5]:.1f} in the largest "
+        f"clique")
+    iters = bm[4]
+    g_by = "bytes" if gm[8] >= 0.5 else "operations"
+    b_by = "bytes" if bm[7] >= 0.5 else "operations"
+    log(f"mwcp: greedy_start per bench solve ({len(g)} solves, 1 launch, "
+        f"[{r}, {v}]; {card}): device-only {gm[0]:.3f} us (min "
+        f"{g[:, 0].min():.3f}, max {g[:, 0].max():.3f}), wrapper host "
+        f"{gm[1]:.3f} us/call, plain {gm[2]:.4f} ms; work {gm[6]:.0f} B, "
+        f"{gm[7]:.0f} ops; bound {gm[3]:.5f} us ({g_by}), roofline share "
+        f"{gm[3] / gm[0]:.5f}; serial rounds {gm[4]:.1f} over the replicas, "
+        f"{gm[5]:.1f} in the largest clique ({1e3 * gm[0] / gm[5]:.1f} ns a "
+        f"round of it); empty-kernel floor {noop:.3f} us")
+    log(f"mwcp: bls_steps per bench solve ({len(b)} solves, {iters:.0f} "
+        f"iterations in 1 launch, R={r}, V={v}; {card}): device-only "
+        f"{bm[0]:.3f} us ({bm[0] / iters:.4f} us an iteration; min "
+        f"{b[:, 0].min() / iters:.4f}, max {b[:, 0].max() / iters:.4f}), "
+        f"wrapper host {bm[1]:.3f} us/call, plain {bm[2]:.4f} ms "
+        f"({bm[2] / iters:.5f} ms an iteration); work {bm[5]:.0f} B, "
+        f"{bm[6]:.0f} ops; bound {bm[3]:.4f} us ({b_by}; "
+        f"{bm[3] / iters:.6f} us an iteration), roofline share "
+        f"{bm[3] / bm[0]:.6f}; serial steps {iters:.0f}")
+    return {"greedy_start": {
+                "ms": gm[0] / 1e3, "plain_ms": gm[2], "bound_ms": gm[3] / 1e3,
+             "bound_by": g_by, "device_us_per_launch": gm[0],
+             "host_us_per_call": gm[1], "bound_us": gm[3],
+             "serial_steps": gm[4], "serial_steps_largest_clique": gm[5],
+             "max_abs_err": 0.0},
+            "bls_steps": {
+             "ms": bm[0] / 1e3, "plain_ms": bm[2], "bound_ms": bm[3] / 1e3,
+             "bound_by": b_by, "device_us_per_launch": bm[0],
+             "device_us_per_iteration": bm[0] / iters,
+             "host_us_per_call": bm[1], "bound_us": bm[3],
+             "serial_steps": iters},
+            "clique_weights": {
+             "ms": cm[0] / 1e3, "plain_ms": cm[2], "bound_ms": cm[3] / 1e3,
+             "bound_by": c_by, "device_us_per_launch": cm[0],
+             "host_us_per_call": cm[1], "bound_us": cm[3],
+             "serial_steps": cm[5]}}
+
+
+def phase_mwcp(bench_solves, cli_solves, card):
+    """The solver's kernels (ops/mwcp_kernel.py) on the card against their
+    plain versions, on the recorded solves of the bench main path (phase
+    3d) and of the CLI (phase 10): the greedy kernel bit-equal on every
+    replica; the BLS kernel from the same start and fields, its K-best
+    masks and scores equal, or where not, the first iteration whose
+    decisions part and the comparisons that flipped with their operands,
+    which must lie within 1e-5 relative (the summation order); every
+    K-best entry a clique of valid vertices scoring its weight sum, the
+    top score >= 0.99 x the plain version's, no clique twice; the start
+    scores of the clique-weight kernel equal to ascending float32 sums.
+    Then the bench solves timed.  Returns the kernels-line summaries by
+    kernel name."""
+    if not bench_solves or not cli_solves:
+        fail(f"mwcp: {len(bench_solves)} bench and {len(cli_solves)} CLI "
+             f"solves recorded")
+    err_b, cerr_b = _mwcp_check(bench_solves, "bench")
+    err_c, cerr_c = _mwcp_check(cli_solves, "cli")
+    out = _mwcp_times(bench_solves, card)
+    out["bls_steps"]["max_abs_err"] = max(err_b, err_c)
+    out["clique_weights"]["max_abs_err"] = max(cerr_b, cerr_c)
+    return out
+
+
 def phase_real_inputs(calls):
     """Both kernels on the main path's own inputs (phase 3b): checked
     against the plain version, timed device-only and per wrapper call,
@@ -1398,7 +1969,11 @@ def phase_api(cfg, sc, frames):
     """Every public device function this slice adds, on the card and on
     the CPU on the same seeded inputs, at the tolerances of the CPU parity
     tests (tests/test_torch_api.py); the device RGB histogram of a bench
-    frame with 48 boxes must equal host_rgb_histogram exactly."""
+    frame with 48 boxes must equal host_rgb_histogram exactly.  A
+    solve_mwcp_batch instance whose masks differ is held to phase 11's
+    rule instead: the card's BLS kernel and the CPU's plain version, in
+    lockstep, part at a comparison the sums' order flipped (operands
+    within 1e-5 relative), and its K-best entries are cliques."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.geometry import (
@@ -1407,7 +1982,8 @@ def phase_api(cfg, sc, frames):
     from mcmtt_opticalflow_tpu_torch.models.costs import (
         enter_probability, exit_cost, tracklet_connectivity)
     from mcmtt_opticalflow_tpu_torch.models.mwcp import (
-        MwcpFields, collect_k_best, solve_mwcp_batch, threefry_fields)
+        MwcpFields, bls_start, collect_k_best, device_k_best,
+        solve_mwcp_batch, threefry_fields)
     from mcmtt_opticalflow_tpu_torch.ops import (gaussian_blur_3x3,
                                                  rgb_histogram, sg_smooth)
     from mcmtt_opticalflow_tpu_torch.ops.histogram import (
@@ -1528,12 +2104,42 @@ def phase_api(cfg, sc, frames):
             *[torch.tensor(x, device=dev) for x in (weights, adj, valid,
                                                     init)],
             [CpuDrawn(prng.prng_key(40 + i)) for i in range(b)], scfg, 90)
+    # the card's BLS kernel sums in another order than the CPU's plain
+    # version (ops/csrc/mwcp_bls.cu): an instance whose masks differ is
+    # held to the mwcp phase's rule, the replicas parting at a comparison
+    # that the order flipped, its operands within 1e-5 relative
+    same = [i for i in range(b) if all(
+        torch.equal(getattr(res["cuda"], f)[i].cpu(),
+                    getattr(res["cpu"], f)[i])
+        for f in ("best_mask", "sol_masks"))]
+    for i in sorted(set(range(b)) - set(same)):
+        st, fs = {}, {}
+        for dev in ("cuda", "cpu"):
+            t = [torch.tensor(x[i], device=dev) for x in (weights, adj,
+                                                           valid, init)]
+            fs[dev] = CpuDrawn(prng.prng_key(40 + i)).draw(
+                scfg.num_replicas, v, 90, dev)
+            st[dev] = bls_start(*t, fs[dev], scfg, v)
+        part = _first_parting(st["cuda"], st["cpu"], fs["cuda"], fs["cpu"],
+                              scfg, 90)
+        if part is None:
+            fail(f"api solve_mwcp_batch instance {i}: card and CPU masks "
+                 f"differ with no decision parted")
+        explain_parting(f"api solve_mwcp_batch instance {i} (card kernel, "
+                        f"CPU plain)", part)
+        one = [device_k_best(type(r)(*[x[i] for x in r]), 10)
+               for r in (res["cuda"], res["cpu"])]
+        _check_k_best(one[0], one[1], torch.tensor(weights[i]),
+                      torch.tensor(adj[i]), torch.tensor(valid[i]),
+                      f"api solve_mwcp_batch instance {i}")
+    log(f"api: solve_mwcp_batch: {len(same)} of {b} instances equal on the "
+        f"card and the CPU, the rest parted within the sums' rounding")
     for f in res["cuda"]._fields:
         exact = f in ("best_mask", "sol_masks")
         worst[f"solve_mwcp_batch.{f}"] = _hold(
-            f"solve_mwcp_batch.{f}", getattr(res["cuda"], f),
-            getattr(res["cpu"], f), atol=1e-4, exact=exact)
-    for i in range(b):
+            f"solve_mwcp_batch.{f}", getattr(res["cuda"], f)[same],
+            getattr(res["cpu"], f)[same], atol=1e-4, exact=exact)
+    for i in same:
         kb = [collect_k_best(type(r)(*[x[i] for x in r]), 10)
               for r in (res["cuda"], res["cpu"])]
         if len(kb[0][0]) != len(kb[1][0]) or not all(
@@ -1671,12 +2277,15 @@ def phase_mesh(cfg, sc, frames):
     mesh = make_mesh(devices=[card0] * 4)
     eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
     lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
+    reset_solver_launches()
     t0 = time.perf_counter()
-    rb = _run_engine(eng, sc, frames, MESH_FRAMES)
+    with EagerCount() as eager:
+        rb = _run_engine(eng, sc, frames, MESH_FRAMES)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = lk_kernel.lk_level.launches
     jv_launches = hungarian.jv_assign.launches
+    s_launches = solver_launches()
     if mesh.shape != {"cam": 4, "block": 1} or len(eng.state2d_groups) != 4:
         fail(f"mesh: expected 4 camera groups, got {mesh.shape}")
     if len(ra) != len(rb) or not ra:
@@ -1701,17 +2310,25 @@ def phase_mesh(cfg, sc, frames):
     if launches != 32 * MESH_FRAMES or jv_launches != 4 * MESH_FRAMES:
         fail(f"mesh: {launches} LK and {jv_launches} JV launches, "
              f"expected {32 * MESH_FRAMES} and {4 * MESH_FRAMES}")
+    log(f"mesh: solver wrapper launches (greedy_start, bls_steps, "
+        f"clique_weights) {s_launches} (expected one each per eager 3D "
+        f"program call: {eager.calls})")
+    if s_launches != (eager.calls,) * 3 or not eager.calls:
+        fail(f"mesh: solver launches {s_launches} for {eager.calls} eager "
+             f"3D program calls")
 
     bmesh = make_mesh(num_cam_shards=1, devices=[card0] * 2)
+    reset_solver_launches()
     s = run_solve(bmesh, bench=True, reps=1)
+    sharded = solver_launches()
     log(f"mesh: solve_mwcp_sharded V=1024 (700 valid) R=38 150 iterations "
         f"over {bmesh}: best {s['best_score']:.4f}, a clique of "
         f"{len(s['best_mask'])}: {s['clique']}; equals the per-block solves "
         f"+ argmax: {s['equals_per_block']}; {s['mesh_s']:.2f} s (one block "
-        f"{s['one_s']:.2f} s)")
+        f"{s['one_s']:.2f} s); solver wrapper launches {sharded}")
     if not (s["equals_per_block"] and s["clique"]):
         fail("mesh: solve_mwcp_sharded differs from its per-block solves")
-    return (launches, jv_launches), rb, wall
+    return (launches, jv_launches, s_launches), rb, wall
 
 
 def phase_multiprocess(mesh_results, mesh_wall, card):
@@ -1724,8 +2341,10 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
     the rest of the 3D stage whole: both must give phase_mesh's mesh-run
     ids frame by frame, points within 1 mm.  Their solve over a 1 x 4
     mesh (two blocks each) must equal its per-block solves plus the
-    argmax, the same in both.  Each process is killed at MP_LIMIT_S.
-    Returns the LK and JV launches of both processes."""
+    argmax, the same in both; each launches the solver's kernels, as
+    many times as the other.  Each process is killed at MP_LIMIT_S.
+    Returns the LK, JV, greedy start, BLS and clique weight launches of
+    both processes."""
     import tempfile
     import numpy as np
     from mcmtt_opticalflow_tpu_torch.parallel import multihost_sim
@@ -1749,7 +2368,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             for r in mesh_results]
     keys = ("best_score", "best_mask", "all_masks_sha256",
             "all_scores_sha256")
-    launches = [0, 0]
+    launches = [0] * 5
     for pid, (*_, res) in enumerate(outs):
         eng, solver = res["engine"], res["solver"]
         got = [(f["frame"], f["ids"], np.reshape(f["points"], (-1, 3)))
@@ -1769,7 +2388,9 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             f"the mesh run over {MESH_FRAMES} frames, max |d point| "
             f"{d_pts:.3e} mm; lk_level launches={eng['lk_launches']} "
             f"(expected {16 * MESH_FRAMES}), jv_assign launches="
-            f"{eng['jv_launches']} (expected {2 * MESH_FRAMES}); engine "
+            f"{eng['jv_launches']} (expected {2 * MESH_FRAMES}), solver "
+            f"(greedy_start, bls_steps, clique_weights) "
+            f"{tuple(eng['solver_launches'])} (one each a 3D solve); engine "
             f"{eng['wall_s']:.2f} s "
             f"against {mesh_wall:.2f} s for the one-process mesh run; "
             f"median {1e3 * coll:.3f} ms a frame in {n_coll:g} "
@@ -1795,8 +2416,16 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
         if eng["collectives_per_call"] != \
                 outs[0][3]["engine"]["collectives_per_call"]:
             fail("multiprocess: the processes made different collectives")
+        solver = tuple(eng["solver_launches"])
+        if solver != tuple(outs[0][3]["engine"]["solver_launches"]) or \
+                not solver[0] or solver != (solver[0],) * 3:
+            fail(f"multiprocess: process {pid} launched the solver kernels "
+                 f"{solver} times (expected > 0, one each a 3D solve, as "
+                 f"many as process 0)")
         launches[0] += eng["lk_launches"]
         launches[1] += eng["jv_launches"]
+        for k in range(3):
+            launches[2 + k] += solver[k]
     report.pop("frames")
     log(f"multiprocess: scaling_report {json.dumps(report)} on {card}; both "
         f"processes in {wall:.1f} s")
@@ -1809,8 +2438,11 @@ def phase_profile(cfg, sc, frames):
     fused program precompiled as the bench does): the
     device's busy share over the window, device ms per frame, the top 5
     kernels, and the count of lk_level_kernel events (8 per frame) and of
-    jv_assign_kernel events (1 per frame), all inside 2D graph replays:
-    the wrappers launch nothing in the window."""
+    jv_assign_kernel events (1 per frame), all inside 2D graph replays,
+    and of the solver's three kernels' events
+    (one a 3D head replay, one a replay of an iteration part, plus the
+    warm-ups of a bucket first met in the window): the 2D wrappers
+    launch nothing in the window."""
     import tempfile
     import torch
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
@@ -1825,6 +2457,8 @@ def phase_profile(cfg, sc, frames):
     torch.cuda.synchronize()
     with tempfile.TemporaryDirectory() as logdir:
         lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
+        reset_solver_launches()
+        before = solver_runs_expected([eng.assoc])
         t0 = time.perf_counter()
         with profile_trace(logdir):
             for t in range(WARMUP, WARMUP + PROFILE_FRAMES):
@@ -1832,11 +2466,17 @@ def phase_profile(cfg, sc, frames):
         wall = time.perf_counter() - t0
         launches = lk_kernel.lk_level.launches
         jv_launches = hungarian.jv_assign.launches
+        s_launches = solver_launches()
         s = summarize_trace(logdir)
+    after = solver_runs_expected([eng.assoc])
+    want_s, want_s_wrapper = (tuple(y - x for x, y in zip(b, a))
+                              for b, a in zip(before, after))
     n_lk = sum(c for k, c in s.kernel_counts.items()
                if "lk_level_kernel" in k)
     n_jv = sum(c for k, c in s.kernel_counts.items()
                if "jv_assign_kernel" in k)
+    n_solver = tuple(sum(c for k, c in s.kernel_counts.items() if part in k)
+                     for _, part in SOLVER_KERNELS)
     top = [(k[:60], round(ms, 4), c) for k, ms, c in s.top_kernels]
     log(f"profile: {PROFILE_FRAMES} steady bench frames under "
         f"torch.profiler ({wall:.2f} s): device busy share "
@@ -1853,10 +2493,19 @@ def phase_profile(cfg, sc, frames):
         fail(f"profile: {n_lk} lk_level_kernel and {n_jv} jv_assign_kernel "
              f"events in the trace, expected {8 * PROFILE_FRAMES} and "
              f"{PROFILE_FRAMES}")
-    if launches or jv_launches:
-        fail(f"profile: the wrappers launched {launches} LK and "
-             f"{jv_launches} JV kernels in a window of replays")
-    return n_lk, n_jv
+    log(f"profile: greedy_start_kernel, bls_steps_kernel, "
+        f"clique_weight_kernel events {n_solver} "
+        f"(expected {want_s}: the window's 3D head and iteration-part "
+        f"replays, and the warm-ups of any capture in it), wrapper "
+        f"launches {s_launches} (expected {want_s_wrapper}: those "
+        f"captures' calls)")
+    if launches or jv_launches or s_launches != want_s_wrapper:
+        fail(f"profile: the wrappers launched {launches} LK, {jv_launches} "
+             f"JV and {s_launches} solver kernels in a window of replays")
+    if n_solver != want_s or not all(want_s):
+        fail(f"profile: {n_solver} solver kernel events in the trace, "
+             f"expected {want_s} (> 0)")
+    return n_lk, n_jv, n_solver
 
 
 def write_dataset(root, sc, frames):
@@ -1903,7 +2552,8 @@ def phase_cli(card, counted):
     EngineConfig; the only cut is the sequence length.  `counted`: the
     kernels the card runs are counted by CUPTI (which slows graph
     launches: the CLI's times come from a run with counted=False), the
-    wrappers' launches beside them either way."""
+    wrappers' launches beside them either way; the timed run records
+    every solve's inputs (phase 11)."""
     import contextlib
     import io
     import tempfile
@@ -1914,12 +2564,14 @@ def phase_cli(card, counted):
     from mcmtt_opticalflow_tpu_torch.eval import experiment
     from mcmtt_opticalflow_tpu_torch.bench import bench_scene
     from mcmtt_opticalflow_tpu_torch.models import pipeline
-    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk, lk_kernel,
+                                                 mwcp_kernel)
     from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     sc, frames = bench_scene(CLI_FRAMES)
     engines, per_frame, sweeps, missing = [], [], [], []
-    cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0}
+    cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0,
+                 **{f"{w}_reference": 0 for w, _ in SOLVER_KERNELS}}
 
     class Engine(pipeline.TrackingEngine):
         def __init__(self, *a, **k):
@@ -1954,7 +2606,9 @@ def phase_cli(card, counted):
                (lk_kernel, "lk_level_reference",
                 counting("lk_level_reference", lk_kernel.lk_level_reference)),
                (lk, "lk_track_points",
-                counting("lk_track_points", lk.lk_track_points))]
+                counting("lk_track_points", lk.lk_track_points)),
+               *[(mwcp_kernel, n, counting(n, getattr(mwcp_kernel, n)))
+                 for n in (f"{w}_reference" for w, _ in SOLVER_KERNELS)]]
     orig = {name: getattr(mod, name) for mod, name, _ in patches}
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as root:
@@ -1968,11 +2622,12 @@ def phase_cli(card, counted):
         sys.argv = ["mcmtt_opticalflow_tpu_torch.main", params]
         lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
         hungarian.jv_assign.launches = 0
+        reset_solver_launches()
+        solves = SolveCapture(EngineConfig().solver)
         t0 = time.perf_counter()
         try:
             with contextlib.redirect_stdout(out), \
-                    (KernelEvents() if counted else contextlib.nullcontext()
-                     ) as ev:
+                    (KernelEvents() if counted else solves) as ev:
                 cli.main()
         finally:
             sys.argv = argv
@@ -2006,7 +2661,7 @@ def phase_cli(card, counted):
         f"{sorted({str(e.device) for e in engines})}, {replays} 2D graph "
         f"replays (expected {CLI_FRAMES}); {on_card}wrapper launches "
         f"{wrapper} (expected {want_wrapper}: the captures' two calls); "
-        f"CPU LK calls={cpu_calls}, frames without an image="
+        f"plain-version calls={cpu_calls}, frames without an image="
         f"{len(missing)}")
     if not engines or any(e.device.type != "cuda" for e in engines):
         fail(f"{name}: an engine did not run on the card")
@@ -2016,7 +2671,21 @@ def phase_cli(card, counted):
              f"{want_runs} and wrapper launches {want_wrapper}, got "
              f"{replays}, {runs} and {wrapper}")
     if any(cpu_calls.values()):
-        fail(f"{name}: LK ran on the CPU: {cpu_calls}")
+        fail(f"{name}: a plain version ran: {cpu_calls}")
+    s_runs = solver_kernel_runs(ev) if counted else None
+    s_wrapper = solver_launches()
+    want_s_runs, want_s_wrapper = solver_runs_expected(
+        [e.assoc for e in engines])
+    log(f"{name}: solver " + (f"kernels run on the card (CUPTI) "
+                              f"(greedy_start, bls_steps, clique_weights) "
+                              f"{s_runs} "
+                              f"(expected {want_s_runs}), " if counted
+                              else "") +
+        f"wrapper launches {s_wrapper} (expected {want_s_wrapper}); "
+        f"{0 if counted else len(solves.solves)} solves recorded")
+    if s_wrapper != want_s_wrapper or (counted and s_runs != want_s_runs):
+        fail(f"{name}: solver kernel runs {s_runs} and wrapper launches "
+             f"{s_wrapper}, expected {want_s_runs} and {want_s_wrapper}")
     if missing:
         fail(f"{name}: FrameSource fell back to flat gray for {missing[:3]}")
     if "== K=10 repeat=0" not in table or table.count("window=") != 11:
@@ -2038,7 +2707,9 @@ def phase_cli(card, counted):
     log(f"{name}: stage medians ms {json.dumps(stage_ms)}")
     log(f"{name}: pool_dropped={engines[0].assoc.pool_dropped_total} "
         f"{json.dumps(mota)}")
-    return {"runs": runs, "wrapper": wrapper, "replays": replays}
+    return {"runs": runs, "wrapper": wrapper, "replays": replays,
+            "solver_runs": s_runs, "solver_wrapper": s_wrapper,
+            "solves": solves.solves}
 
 
 def main():
@@ -2055,7 +2726,8 @@ def main():
         from concurrent.futures import ThreadPoolExecutor
         from mcmtt_opticalflow_tpu_torch.bench import (bench_config,
                                                        bench_scene)
-        from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+        from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk_kernel,
+                                                     mwcp_kernel)
         from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import build_library
         from mcmtt_opticalflow_tpu_torch.utils import kernel_events
     except ImportError as e:
@@ -2068,15 +2740,17 @@ def main():
 
     # one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         for job in [pool.submit(lk_kernel.build),
                     pool.submit(hungarian.build),
+                    pool.submit(mwcp_kernel.build),
                     pool.submit(kernel_events.build)]:
             job.result()
-    log(f"build: lk_level.cu (batched + serial kernels), jv_assign.cu and "
-        f"the CUPTI kernel counter (kernel_events.cpp) built and loaded in "
+    log(f"build: lk_level.cu (batched + serial kernels), jv_assign.cu, "
+        f"mwcp_bls.cu (greedy start + BLS) and the CUPTI kernel counter "
+        f"(kernel_events.cpp) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    for source in ("lk_level.cu", "jv_assign.cu"):
+    for source in ("lk_level.cu", "jv_assign.cu", "mwcp_bls.cu"):
         for line in build_library(source)[2].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {line.strip()}")
@@ -2086,10 +2760,10 @@ def main():
     d_tr, _ = check_kernel(frames, cfg, "batched",
                            extra=[unaligned_call(frames, cfg)])
     call_ms, _ = time_kernel(frames, cfg, "batched")
-    paths, jv_paths = {}, {}
+    paths, jv_paths, solver_paths = {}, {}, {}
     # every timed phase runs before the first CUPTI session (the main
     # path's count), which slows graph launches for the rest of the process
-    calls, jv_inputs, graph_run = phase_routes(card)
+    calls, jv_inputs, graph_run, bench_solves = phase_routes(card)
     phase_graph2d(cfg, sc, frames, card)
     jv = phase_jv(jv_inputs, card)
     graph_rec = graph_run.record
@@ -2109,17 +2783,23 @@ def main():
     s_launches, s_tr, s_call_ms, _ = phase_serial(frames, cfg)
     phase_api(cfg, sc, frames)
     paths["lk_track_pyramid"] = phase_lk_track_pyramid(frames)
-    (paths["mesh"], jv_paths["mesh"]), mesh_results, mesh_wall = \
-        phase_mesh(cfg, sc, frames)
-    paths["multiprocess"], jv_paths["multiprocess"] = phase_multiprocess(
-        mesh_results, mesh_wall, card)
-    phase_cli(card, counted=False)
-    paths["profile"], jv_paths["profile"] = phase_profile(cfg, sc, frames)
+    (paths["mesh"], jv_paths["mesh"], solver_paths["mesh"]), \
+        mesh_results, mesh_wall = phase_mesh(cfg, sc, frames)
+    paths["multiprocess"], jv_paths["multiprocess"], *mp_solver = \
+        phase_multiprocess(mesh_results, mesh_wall, card)
+    solver_paths["multiprocess"] = tuple(mp_solver)
+    cli_solves = phase_cli(card, counted=False)["solves"]
+    solver_summary = phase_mwcp(bench_solves, cli_solves, card)
+    del bench_solves, cli_solves
+    paths["profile"], jv_paths["profile"], solver_paths["profile"] = \
+        phase_profile(cfg, sc, frames)
     main_counts, _ = phase_main_path(card, graph_run)
     paths["main"], _, jv_paths["main"] = main_counts["runs"]
+    solver_paths["main"] = main_counts["solver_runs"]
     phase_eager_counted(card)
     cli_counts = phase_cli(card, counted=True)
     paths["cli"], _, jv_paths["cli"] = cli_counts["runs"]
+    solver_paths["cli"] = cli_counts["solver_runs"]
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu"
@@ -2154,6 +2834,19 @@ def main():
         "replaces": "mcmtt_opticalflow_tpu/ops/hungarian.py:54",
         "launches": jv_paths["main"], "library_ms": None, **jv,
         "launches_by_path": jv_paths, **graphed["jv_assign"]})
+    # the JAX lines each replaces: the greedy fori_loop, the BLS
+    # while_loop, the start score's sum
+    for i, ((kname, _), line) in enumerate(zip(SOLVER_KERNELS,
+                                                (48, 324, 143))):
+        by_path = {k: v[i] for k, v in solver_paths.items()}
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": "mcmtt_opticalflow_tpu_torch/ops/csrc/mwcp_bls.cu",
+            "replaces": f"mcmtt_opticalflow_tpu/models/mwcp.py:{line}",
+            "launches": by_path["main"], "library_ms": None,
+            **solver_summary[kname], "launches_by_path": by_path,
+            "wrapper_launches": {"main": main_counts["solver_wrapper"][i],
+                                 "cli": cli_counts["solver_wrapper"][i]}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

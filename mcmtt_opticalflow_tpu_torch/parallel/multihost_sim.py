@@ -229,12 +229,13 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     """TrackingEngine(pipelined=True) on `mesh` for `frames_n` frames:
     each frame's ids and points, the wall time, the time spent in
     cross-process collectives and their count per process_frame / flush
-    call, and the LK and JV kernel launches this process made.  The
+    call, and the LK, JV and solver kernel launches this process made.  The
     solver draws from the associator's key, which every process derives
     alike from the seed; `make_fields(cfg)`, when given, makes a field
     source to draw from instead."""
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
-    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+    from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk_kernel,
+                                                 mwcp_kernel)
     from mcmtt_opticalflow_tpu_torch.parallel import mesh as mesh_mod
 
     if bench:
@@ -281,6 +282,10 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     mesh_mod.all_gather_host = timed
     per_call, count_per_call, results = [], [], []
     lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
+    solver = (mwcp_kernel.greedy_start, mwcp_kernel.bls_steps,
+              mwcp_kernel.clique_weights)
+    for fn in solver:
+        fn.launches = 0
     t0 = time.perf_counter()
     try:
         t = 0
@@ -307,6 +312,7 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
                        for r in results],
             "wall_s": wall, "lk_launches": lk_kernel.lk_level.launches,
             "jv_launches": hungarian.jv_assign.launches,
+            "solver_launches": [fn.launches for fn in solver],
             "collective_s_per_call": per_call,
             "collectives_per_call": count_per_call,
             "groups_here": [g for g, s in enumerate(eng.state2d_groups)
