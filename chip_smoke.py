@@ -185,10 +185,17 @@ count), which slows graph launches for the rest of the process:
      weight sum within 1e-4, no clique twice, the top score >= 0.99 x
      the plain version's; the clique-weight kernel's start scores equal
      to ascending float32 sums bit for bit and to torch.sum within 1e-5
-     relative.  Per bench solve: each kernel's device-only µs (timed as
-     in phase 3b), its wrapper's host µs, the plain version's ms and the
-     bound (ops/mwcp_kernel.py::greedy_work, bls_work, clique_work), and
-     the serial steps (greedy rounds, BLS iterations, additions).
+     relative.  Then synthetic solves past the BLS kernel's
+     shared-memory layouts (V=6144 and V=16400, R=4, S=16, 60 iterations,
+     integer weights) bit-equal to the plain version.  Per bench solve:
+     each kernel's device-only µs (timed as in phase 3b), its wrapper's
+     host µs, the plain version's ms and the bound
+     (ops/mwcp_kernel.py::greedy_work, bls_work, clique_work), the serial
+     steps (greedy rounds, BLS iterations, additions), and on every
+     PLAIN_EVERY-th solve a 50-iteration BLS block replayed as a graph
+     (phase 3c's measure); the BLS kernel's device-only µs per iteration
+     on the 12 CLI solves too; both beside phase 3c's one-frame block and
+     its kernel alone, the gap between them split.
 
 The whole script takes about 5 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
@@ -207,8 +214,10 @@ frames, per bench frame (1 launch): the same keys, with `serial_steps`.
 The solver's kernels, on phase 11's recorded bench solves, per solve (a
 greedy start, the start's clique weights: 1 launch each; the BLS: its
 150 iterations, timed as 1 launch): the same keys, with `serial_steps`
-(and the BLS's `device_us_per_iteration`); their main-path and CLI
-launches are kernel runs counted by CUPTI.
+(and the BLS's `device_us_per_iteration`, `_cli` on the CLI's solves,
+`graph_block_us_per_iteration`, and `layout`: where the kernel keeps
+the graph and the state); their main-path and CLI launches are kernel
+runs counted by CUPTI.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -1091,6 +1100,7 @@ def _stage_ms(assoc, host, key, iters):
     from mcmtt_opticalflow_tpu_torch.models.costs import score_track_windows
     from mcmtt_opticalflow_tpu_torch.models.mwcp import (
         bls_result, bls_start, bls_steps, iters_padded, threefry_fields)
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
     cfg, acfg = assoc._solver_cfg_fused, assoc.acfg
     r, vmax = cfg.num_replicas, cfg.max_vertices
     ip = iters_padded(cfg, iters)
@@ -1103,6 +1113,7 @@ def _stage_ms(assoc, host, key, iters):
     f = threefry_fields(kd, r, vmax, ip, dev)
     _, weights, adj, valid = assoc._score_graph(*t[:12], cols)
     st = bls_start(weights, adj, valid, t[12], f, cfg, nb)
+    scratch = mk.bls_scratch(st)
     blk = FrameProgram.BLOCK
     out = {
         "field draw": _graph_ms(
@@ -1120,6 +1131,11 @@ def _stage_ms(assoc, host, key, iters):
         f"BLS per iteration (a block of {blk})": _graph_ms(
             lambda: bls_steps(st, f, cfg, blk),
             before=lambda: st.it.zero_()) / blk,
+        # the same block's BLS kernel alone (no packing, no graph), from
+        # the state the replays left
+        f"BLS kernel alone per iteration (a block of {blk})": device_us(
+            lambda: mk._launch_bls(st, f, cfg, blk, scratch), reps=10,
+            runs=5) / 1e3 / blk,
         "K-best and packing": _graph_ms(
             lambda: assoc._pack_k_best(bls_result(st))),
     }
@@ -1206,7 +1222,7 @@ def phase_graphs(cfg, sc, frames, card):
         f"{rec['tracks_peak']} ({card})")
     if eager.calls <= 0:
         fail("graphs: the eager-route bench run made no eager call")
-    return rec
+    return rec, stages
 
 
 def jv_cases(n=100):
@@ -1657,12 +1673,15 @@ def _mwcp_check(solves, name):
     return err, clique_err
 
 
-def _mwcp_times(solves, card):
+def _mwcp_times(solves, card, name="bench", plain_too=True):
     """Per recorded solve: each kernel's device-only µs (behind a sleep
     kernel, median of 3, as phase 3b), its wrapper's host µs per call and
-    the bound from greedy_work / bls_work / clique_work; the plain
-    versions' ms on every PLAIN_EVERY-th solve.  Returns the kernels-line
-    summaries (means over the solves)."""
+    the bound from greedy_work / bls_work / clique_work; on every
+    PLAIN_EVERY-th solve the plain versions' ms (with `plain_too`) and a
+    BLOCK-iteration BLS block as the captured program replays it (the
+    adjacency's packing, the kernel, `it` advanced: one CUDA graph,
+    phase 3c's measure).  Returns the kernels-line summaries (means over
+    the solves)."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
@@ -1676,6 +1695,7 @@ def _mwcp_times(solves, card):
     noop = device_us(lambda: lib.lk_noop_launch(stream))
     g_rows, b_rows, c_rows = [], [], []
     plain = {"greedy": [], "bls": [], "clique": []}
+    block_us = []
     for n, s in enumerate(solves):
         w, adj, valid, f, cfg, bound = (s["weights"], s["adj"], s["valid"],
                                         s["fields"], s["cfg"], s["bound"])
@@ -1699,16 +1719,20 @@ def _mwcp_times(solves, card):
             0.0, 1e6 * cw["bound_s"], cw["steps"], cw["max_steps"],
             cw["bytes"], cw["ops"], cw["bound_by"] == "bytes"))
         bw = mk.bls_work(st, f, cfg, iters)
-        run, calls, ref = (_clone_state(st) for _ in range(3))
-        packed = mk.packed_adjacency(v, w.device)
+        run, calls, ref, blk = (_clone_state(st) for _ in range(4))
+        scratch = mk.bls_scratch(run)
         b_rows.append((
-            device_us(lambda: mk._launch_bls(run, f, cfg, iters, packed),
+            device_us(lambda: mk._launch_bls(run, f, cfg, iters, scratch),
                       reps=10),
             host_us(lambda: mk.bls_steps(calls, f, cfg, FrameProgram.BLOCK),
                     reps=20),
             0.0, 1e6 * bw["bound_s"], iters, bw["bytes"], bw["ops"],
             bw["bound_by"] == "bytes"))
-        if n % PLAIN_EVERY == 0:     # the plain versions run eagerly: slow
+        if n % PLAIN_EVERY == 0:
+            block_us.append(1e3 * _graph_ms(
+                lambda: mk.bls_steps(blk, f, cfg, FrameProgram.BLOCK),
+                before=lambda: blk.it.zero_()) / FrameProgram.BLOCK)
+        if plain_too and n % PLAIN_EVERY == 0:   # eager plain versions: slow
 
             def plain_solve():
                 ref.it.zero_()
@@ -1722,7 +1746,28 @@ def _mwcp_times(solves, card):
     g, b, c = (np.asarray(x, np.float64) for x in (g_rows, b_rows, c_rows))
     gm, bm, cm = g.mean(0), b.mean(0), c.mean(0)
     for m, k in ((gm, "greedy"), (bm, "bls"), (cm, "clique")):
-        m[2] = float(np.mean(plain[k]))
+        m[2] = float(np.mean(plain[k])) if plain_too else float("nan")
+    iters = bm[4]
+    lay = mk.bls_layout(v, solves[0]["cfg"].solutions_per_replica)
+    out_bls = {
+        "ms": bm[0] / 1e3, "plain_ms": bm[2], "bound_ms": bm[3] / 1e3,
+        "bound_by": "bytes" if bm[7] >= 0.5 else "operations",
+        "device_us_per_launch": bm[0],
+        "device_us_per_iteration": bm[0] / iters,
+        "graph_block_us_per_iteration": float(np.mean(block_us)),
+        "host_us_per_call": bm[1], "bound_us": bm[3], "serial_steps": iters,
+        "layout": lay}
+    if not plain_too:
+        log(f"mwcp: bls_steps per {name} solve ({len(b)} solves, "
+            f"{iters:.0f} iterations in 1 launch, R={r}, V={v}, layout "
+            f"{lay}; {card}): device-only {bm[0]:.3f} us "
+            f"({bm[0] / iters:.4f} us an iteration; min "
+            f"{b[:, 0].min() / iters:.4f}, max {b[:, 0].max() / iters:.4f});"
+            f" a {FrameProgram.BLOCK}-iteration block as a graph "
+            f"{np.mean(block_us):.4f} us an iteration; wrapper host "
+            f"{bm[1]:.3f} us/call; bound {bm[3]:.4f} us "
+            f"({out_bls['bound_by']}), roofline share {bm[3] / bm[0]:.6f}")
+        return {"bls_steps": out_bls}
     c_by = "bytes" if cm[8] >= 0.5 else "operations"
     log(f"mwcp: clique_weights per bench solve ({len(c)} solves, 1 launch, "
         f"[{r}, {v}]; {card}): device-only {cm[0]:.3f} us, wrapper host "
@@ -1730,7 +1775,6 @@ def _mwcp_times(solves, card):
         f"{cm[7]:.0f} ops; bound {cm[3]:.5f} us ({c_by}), roofline share "
         f"{cm[3] / cm[0]:.5f}; serial additions {cm[5]:.1f} in the largest "
         f"clique")
-    iters = bm[4]
     g_by = "bytes" if gm[8] >= 0.5 else "operations"
     b_by = "bytes" if bm[7] >= 0.5 else "operations"
     log(f"mwcp: greedy_start per bench solve ({len(g)} solves, 1 launch, "
@@ -1749,19 +1793,16 @@ def _mwcp_times(solves, card):
         f"({bm[2] / iters:.5f} ms an iteration); work {bm[5]:.0f} B, "
         f"{bm[6]:.0f} ops; bound {bm[3]:.4f} us ({b_by}; "
         f"{bm[3] / iters:.6f} us an iteration), roofline share "
-        f"{bm[3] / bm[0]:.6f}; serial steps {iters:.0f}")
+        f"{bm[3] / bm[0]:.6f}; serial steps {iters:.0f}; layout {lay}; a "
+        f"{FrameProgram.BLOCK}-iteration block as a graph "
+        f"{np.mean(block_us):.4f} us an iteration")
     return {"greedy_start": {
                 "ms": gm[0] / 1e3, "plain_ms": gm[2], "bound_ms": gm[3] / 1e3,
              "bound_by": g_by, "device_us_per_launch": gm[0],
              "host_us_per_call": gm[1], "bound_us": gm[3],
              "serial_steps": gm[4], "serial_steps_largest_clique": gm[5],
              "max_abs_err": 0.0},
-            "bls_steps": {
-             "ms": bm[0] / 1e3, "plain_ms": bm[2], "bound_ms": bm[3] / 1e3,
-             "bound_by": b_by, "device_us_per_launch": bm[0],
-             "device_us_per_iteration": bm[0] / iters,
-             "host_us_per_call": bm[1], "bound_us": bm[3],
-             "serial_steps": iters},
+            "bls_steps": out_bls,
             "clique_weights": {
              "ms": cm[0] / 1e3, "plain_ms": cm[2], "bound_ms": cm[3] / 1e3,
              "bound_by": c_by, "device_us_per_launch": cm[0],
@@ -1769,7 +1810,58 @@ def _mwcp_times(solves, card):
              "serial_steps": cm[5]}}
 
 
-def phase_mwcp(bench_solves, cli_solves, card):
+# the synthetic solves past the shared-memory layouts: (V, valid)
+LARGE_SOLVES = ((6144, 6000), (16400, 16000))
+
+
+def _large_solve_check(v, n, card):
+    """A synthetic solve at V vertices (n valid, R=4, S=16, 60 iterations,
+    integer weights: every sum exact in any order) from its greedy start:
+    the BLS kernel (a 50- and a 10-iteration launch) against its plain
+    version, every BlsState tensor bit for bit."""
+    import dataclasses
+    import torch
+    from mcmtt_opticalflow_tpu_torch.config import SolverConfig
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import (bls_start,
+                                                         threefry_fields)
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+    from mcmtt_opticalflow_tpu_torch.utils import prng
+    g = torch.Generator(device="cuda").manual_seed(v)
+    w = torch.floor(torch.rand(v, generator=g, device="cuda") * 30)
+    up = torch.triu(torch.rand((v, v), generator=g, device="cuda") < 0.5, 1)
+    adj = up | up.T
+    del up
+    valid = torch.arange(v, device="cuda") < n
+    adj &= valid[:, None] & valid[None, :]
+    cfg = dataclasses.replace(SolverConfig(), num_replicas=4,
+                              max_vertices=v, solutions_per_replica=16)
+    f = threefry_fields(prng.prng_key(v), 4, v, 60, "cuda")
+    st = bls_start(w, adj, valid, torch.zeros((1, v), dtype=torch.bool,
+                                              device="cuda"), f, cfg, v)
+    ref = _clone_state(st)
+    t0 = time.perf_counter()
+    for k in (50, 10):
+        mk.bls_steps(st, f, cfg, k)
+    torch.cuda.synchronize()
+    kernel_s = time.perf_counter() - t0
+    mk.bls_steps_reference(ref, f, cfg, 60)
+    bad = [name for name, a, b in zip(st._fields, st, ref)
+           if not _bits_equal(a, b)]
+    moved = int((st.tabu != 0).sum())
+    log(f"mwcp: synthetic solve V={v} (n={n}, R=4, S=16, 60 iterations, "
+        f"integer weights; layout {mk.bls_layout(v, 16)}): the kernel's "
+        f"BlsState {'bit-equal to' if not bad else 'DIFFERS from'} the "
+        f"plain version's ({moved} tabu stamps set, clique sizes "
+        f"{st.in_c.sum(-1).tolist()}, {kernel_s:.3f} s with its launches' "
+        f"host work; {card})")
+    if bad:
+        fail(f"mwcp: synthetic solve V={v}: {bad} differ from the plain "
+             f"version")
+    if moved == 0:
+        fail(f"mwcp: synthetic solve V={v}: no vertex ever left a clique")
+
+
+def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     """The solver's kernels (ops/mwcp_kernel.py) on the card against their
     plain versions, on the recorded solves of the bench main path (phase
     3d) and of the CLI (phase 10): the greedy kernel bit-equal on every
@@ -1780,16 +1872,42 @@ def phase_mwcp(bench_solves, cli_solves, card):
     K-best entry a clique of valid vertices scoring its weight sum, the
     top score >= 0.99 x the plain version's, no clique twice; the start
     scores of the clique-weight kernel equal to ascending float32 sums.
-    Then the bench solves timed.  Returns the kernels-line summaries by
-    kernel name."""
+    Then synthetic solves past the shared-memory layouts (LARGE_SOLVES)
+    bit-equal to the plain version, and the bench and CLI solves timed;
+    the BLS kernel's µs an iteration beside phase 3c's (`graph_stages`).
+    Returns the kernels-line summaries by kernel name."""
     if not bench_solves or not cli_solves:
         fail(f"mwcp: {len(bench_solves)} bench and {len(cli_solves)} CLI "
              f"solves recorded")
     err_b, cerr_b = _mwcp_check(bench_solves, "bench")
     err_c, cerr_c = _mwcp_check(cli_solves, "cli")
+    for v, n in LARGE_SOLVES:
+        _large_solve_check(v, n, card)
     out = _mwcp_times(bench_solves, card)
-    out["bls_steps"]["max_abs_err"] = max(err_b, err_c)
+    cli = _mwcp_times(cli_solves, card, "cli", plain_too=False)["bls_steps"]
+    bls = out["bls_steps"]
+    bls["max_abs_err"] = max(err_b, err_c)
+    bls["device_us_per_iteration_cli"] = cli["device_us_per_iteration"]
+    bls["graph_block_us_per_iteration_cli"] = \
+        cli["graph_block_us_per_iteration"]
+    bls["layout_cli"] = cli["layout"]
     out["clique_weights"]["max_abs_err"] = max(cerr_b, cerr_c)
+    blk = [k for k in graph_stages if k.startswith("BLS per iteration")][0]
+    alone = [k for k in graph_stages if k.startswith("BLS kernel alone")][0]
+    g3c, a3c = 1e3 * graph_stages[blk], 1e3 * graph_stages[alone]
+    per_it = bls["device_us_per_iteration"]
+    log(f"mwcp: bls_steps device-only {per_it:.4f} us an iteration on the "
+        f"{len(bench_solves)} recorded bench solves (150 iterations in one "
+        f"launch) and {bls['graph_block_us_per_iteration']:.4f} as a "
+        f"50-iteration block replayed in a graph (the packing and `it` "
+        f"with it) on every {PLAIN_EVERY}th: on the same solves the block's "
+        f"packing and graph cost {bls['graph_block_us_per_iteration'] - per_it:+.4f}"
+        f" us an iteration; phase 3c's {blk}: {g3c:.1f} us, its kernel "
+        f"alone on that frame's state {a3c:.1f} (3c's 4-decimal ms): the "
+        f"{g3c - per_it:+.1f} us between 3c and the recorded solves is "
+        f"that one frame's state, not the block's launches; CLI "
+        f"{bls['device_us_per_iteration_cli']:.4f} us an iteration, "
+        f"{bls['graph_block_us_per_iteration_cli']:.4f} as a block ({card})")
     return out
 
 
@@ -2767,7 +2885,7 @@ def main():
     phase_graph2d(cfg, sc, frames, card)
     jv = phase_jv(jv_inputs, card)
     graph_rec = graph_run.record
-    eager_rec = phase_graphs(cfg, sc, frames, card)
+    eager_rec, graph_stages = phase_graphs(cfg, sc, frames, card)
     mota = [[r[f"mota_w{w}"] for w in WINDOWS] for r in (graph_rec,
                                                          eager_rec)]
     log(f"graphs: frames/s {graph_rec['value']} on graphs (phase 3d) "
@@ -2789,7 +2907,8 @@ def main():
         phase_multiprocess(mesh_results, mesh_wall, card)
     solver_paths["multiprocess"] = tuple(mp_solver)
     cli_solves = phase_cli(card, counted=False)["solves"]
-    solver_summary = phase_mwcp(bench_solves, cli_solves, card)
+    solver_summary = phase_mwcp(bench_solves, cli_solves, card,
+                                graph_stages)
     del bench_solves, cli_solves
     paths["profile"], jv_paths["profile"], solver_paths["profile"] = \
         phase_profile(cfg, sc, frames)

@@ -28,30 +28,60 @@
 // block-wide min: the rounds are the clique's size plus one, not V.  It is
 // integer logic only, so the result is bit-equal to the plain version's.
 //
-// bls_steps_kernel, one block per replica, runs n iterations in one
-// launch.  The iteration number is read from the device (BlsState.it),
-// the fields' rows it.. it+n-1 are read from device memory, and the state
+// bls_steps_kernel runs n iterations of every replica in one launch, one
+// warp per replica and up to kMaxWarps replicas a block, which share the
+// block's copy of the graph; after the graph's copy no block barrier is
+// left.  The iteration number is read from the device (BlsState.it), the
+// fields' rows it.. it+n-1 are read from device memory, and the state
 // (membership, tabu stamps, best, previous optimum, counters, the ring of
 // local optima) is written back in place; the caller advances `it` after
 // the launch.  Rows at or past the fields' last are not run (the
-// while_loop's condition).  Per iteration and replica:
-//   - the adjacency is a bit matrix, A[k][v] bit b = adj[v][32k + b],
-//     packed once per launch by pack_adj_kernel and copied to shared
-//     memory when it fits (V up to about 1300; read from device memory
-//     otherwise);
-//   - membership, best, the previous optimum, the move sets and the ring
-//     are bit sets in shared memory, the tabu stamps and weights arrays
-//     there; each thread owns kPer vertices;
-//   - cnt[v] = sum_k popc(A[k][v] & C[k]) gives the PA and OM sets
-//     exactly; the swap partner weight of an OM vertex is the weight of
-//     its single non-adjacent member (the product with ~adj sums it with
-//     zeros, so it is exact in any order);
-//   - the three argmaxes take torch.argmax's rule: NaN is the largest, the
-//     first index wins a tie, index 0 for an empty mask (every masked
-//     entry is NEG);
-//   - one warp then decides the replica's move as the plain version does,
-//     and only the random perturbation needs the neighbour weight sums,
-//     computed then and only for free vertices whose tabu stamp is live.
+// while_loop's condition).
+//
+// An iteration is a serial chain, so the design shortens the chain:
+//   - neighbour state kept, not recounted: cnt[v] = |N(v) & C| and nx[v] =
+//     the XOR of the members not adjacent to v, for every vertex, held as
+//     bit planes (bit b of the integers of vertices 32k..32k+31; lane k
+//     owns word k, whose planes lie together: four a 16-byte access).
+//     Counted in full at the launch's start; a member that joins or
+//     leaves C adds or subtracts its row's word k (bit b = adj[x][32k + b])
+//     into the count planes with a ripple carry and XORs its complement
+//     into the planes of its index's set bits (one pass for a move's
+//     member in and member out).  PA = free & cnt == |C| and OM = free &
+//     cnt == |C| - 1 are then a few word operations a plane, and nx[v] of
+//     an OM vertex is its one non-adjacent member: no scan for the swap
+//     partner.  A random move that drops more members than it keeps counts
+//     anew;
+//   - only what the iteration reads: the insert and swap gains while
+//     searching (l_left <= 0), the tabu stamps' expiry and the directed
+//     mask while perturbing, and in a random pick the neighbour sums of
+//     only those live free vertices whose draw beats the best expired one;
+//   - the sparse sets as lists: C's members ascending (rebuilt by the warp
+//     from ballot counts and a prefix over lanes when C changes: fc is
+//     summed over it once per change, the neighbour sums run over it),
+//     and the PA/OM, tabu-live and live free vertices, spread over the
+//     lanes four at a time;
+//   - the fields: iteration it + 2's g_dir and g_rnd rows are copied into
+//     shared memory while iteration it runs (three stages: one lane's
+//     cp.async.bulk on the stage's mbarrier, or every lane's 4-byte
+//     cp.async when the rows are not 16-byte aligned), and each lane
+//     holds u_dir and u_ten for one of the next 32 iterations (the 32
+//     after them loaded a chunk ahead): no device-memory load on the
+//     chain;
+//   - the argmaxes by torch's rule (`beats`) over the listed or set
+//     vertices (the masked-out ones score NEG; the first of them stands
+//     for all), then across the warp by two REDUX reductions of an
+//     order-preserving key;
+//   - the ring of local optima: its scores in shared memory, its masks
+//     where they lie, read only when a score matches within 1e-5 and
+//     written when a clique is recorded;
+//   - no vertex limit: the layout (`layout`) puts the packed adjacency,
+//     the replicas' state and the fields' stages in shared memory where
+//     they fit (tier 0: V up to ~1200 at the bench's S), the adjacency in
+//     device memory (L2) above that (tier 1), and the state too where one
+//     replica's does not fit (tier 2: V above ~5000, the fields then read
+//     where they lie).  The adjacency is packed by pack_adj_kernel before
+//     each launch and brought into shared memory by one bulk copy.
 //
 // Summation order, the one tolerance.  fc (the clique's weight) and
 // nbr_w_in_c (each vertex's weight sum over adjacent members) are float32
@@ -64,27 +94,40 @@
 // the member weights (never a multiply: weights of -inf outside the graph)
 // and exp (expf, not __expf; -fmad=false) are the plain version's.  The
 // member weights are assumed finite (every member is a valid vertex).
+// Every float operation is the one-block-per-replica kernel's before it,
+// in its order; what changed is integer and bit logic, so the state after
+// a launch is that kernel's bit for bit.
 //
 // What bounds it on this card.  The bytes are the fields' rows (2 x 4 B x
 // V a replica and iteration) and the state, read once: ~47 MB and ~14 us
 // for a bench solve of 150 iterations.  But an iteration depends on the
-// one before, so the chain's latency is what counts: a few block barriers
-// and shared-memory passes an iteration.
+// one before, so the chain's latency is what counts.  On the bench's
+// solves the sets it walks are not small (the PA/OM, tabu-live and random
+// candidates hold hundreds of vertices while C is small), one warp walks
+// them with little latency hidden, and each phase of the loop is a few
+// hundred dependent instructions: ~11.8k cycles an iteration (PERF.md),
+// against ~18.8k for the one-block-per-replica kernel before it.
 
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+
+#ifdef MWCP_BLS_CLOCKS
+__device__ long long g_bls_clocks[16 * 8192];
+#endif
+
 namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -1e30f;             // models/mwcp.py's NEG
-constexpr int kMaxThreads = 512;           // bls_steps_kernel's block
 constexpr int kGreedyThreads = 256;
-constexpr int kMaxV = 8 * kMaxThreads;     // kPer <= 8
+constexpr int kMaxWarps = 4;               // replicas a BLS block
+constexpr int kStages = 3;                 // field rows in flight a replica
 constexpr size_t kSmemMax = 232448;        // a block's shared memory
-constexpr size_t kStaticSmem = 2048;       // bls_steps_kernel's own
+constexpr size_t kStaticSmem = 256;        // a kernel's own, at most
 constexpr int kMaxDevices = 64;
 
 // torch.argmax's order: NaN above everything, then value, then the lower
@@ -95,15 +138,43 @@ __device__ __forceinline__ bool beats(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
+// An int whose signed order is `beats`' order of values: NaN above
+// everything, then the value, -0 equal to +0 (the index breaks ties).
+__device__ __forceinline__ int order_key(float f) {
+  if (isnan(f)) return INT_MAX;
+  if (f == 0.0f) return 0;
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7fffffff;
+}
+
+__device__ __forceinline__ float key_value(int k) {
+  return k == INT_MAX ? __int_as_float(0x7fffffff)
+                      : __int_as_float(k >= 0 ? k : k ^ 0x7fffffff);
+}
+
+// the warp's argmax by `beats`, with two reductions (REDUX): the largest
+// key, then the lowest index holding it; v comes back as that key's value
+// (a NaN for NaN, +0 for -0: equal in every comparison)
 __device__ __forceinline__ void warp_argmax(float& v, int& i) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const float ov = __shfl_xor_sync(kAll, v, off);
-    const int oi = __shfl_xor_sync(kAll, i, off);
-    if (beats(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+  const int key = order_key(v);
+  const int top = __reduce_max_sync(kAll, key);
+  i = (int)__reduce_min_sync(kAll, key == top ? (unsigned)i : 0xffffffffu);
+  v = key_value(top);
+}
+
+// one count plane's bits under a +1 carry (cu) and a -1 borrow (cd) on
+// disjoint vertices
+__device__ __forceinline__ void ripple(uint32_t& plane, uint32_t& cu,
+                                       uint32_t& cd) {
+  const uint32_t t = plane;
+  plane = t ^ cu ^ cd;
+  cu &= t;
+  cd &= ~t;
+}
+
+// bit b of x's two's complement, for any b >= 0 (the sign past 31)
+__device__ __forceinline__ bool bit_of(int x, int b) {
+  return ((unsigned)x >> (b < 31 ? b : 31)) & 1u;
 }
 
 __device__ __forceinline__ bool bit(const uint32_t* s, int v) {
@@ -190,14 +261,14 @@ __global__ void clique_weight_kernel(const uint8_t* __restrict__ masks,
   }
   if (lane == 0) out[row] = s;
 }
-
 // ---------------------------------------------------------------------------
 // the BLS iterations
 // ---------------------------------------------------------------------------
 
-// A[k * V + v], bit b: adj[v][32k + b] (0 past V); one warp a row
+// A[k * as + v], bit b: adj[v][32k + b] (0 past V); one warp a row.  By
+// symmetry A[k * as + x] is also row x's word k: bit b is adj[x][32k + b].
 __global__ void pack_adj_kernel(const uint8_t* __restrict__ adj, int V,
-                                uint32_t* __restrict__ A) {
+                                int as, uint32_t* __restrict__ A) {
   const int lane = threadIdx.x & 31;
   const int v = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   if (v >= V) return;
@@ -206,14 +277,103 @@ __global__ void pack_adj_kernel(const uint8_t* __restrict__ adj, int V,
   for (int k = 0; k < nk; ++k) {
     const int c = 32 * k + lane;
     const unsigned word = __ballot_sync(kAll, c < V && row[c]);
-    if (lane == 0) A[(size_t)k * V + v] = word;
+    if (lane == 0) A[(size_t)k * as + v] = word;
   }
+}
+
+// Where a launch keeps what.  Offsets and sizes in 4-byte words.
+struct Layout {
+  int nk;          // words of a vertex bit set, ceil(V / 32)
+  int nb;          // bit planes of a neighbour count (0..V)
+  int nxb;         // bit planes of a vertex index (0..V-1)
+  int nbs, nxs;    // words between a word's count planes, index planes:
+                   // nb, nxb rounded up to 4 mod 8 (a lane's 16-byte
+                   // loads of its planes fall in distinct banks)
+  int as;          // words between the packed adjacency's rows k and k + 1
+  long long a_words;  // the packed adjacency [nk][as], a multiple of 4
+  int w_words;     // the weights' shared copy (tiers 0 and 1)
+  int tier;        // 0: adjacency, state and fields in shared memory;
+                   // 1: state and fields there, adjacency in device memory;
+                   // 2: all in device memory (the scratch)
+  int wpb;         // replicas (one warp each) a block
+  // a replica's region: bit sets of nk words, the ring's scores, the
+  // count and index planes, the tabu stamps, the member list and a vertex
+  // list (V each), the fields' stages (tiers 0 and 1); the ring's masks
+  // stay in device memory
+  int bars, valid, c, best, cp, pa, om, live, aux, ring_s, cnt, nx, tabu,
+      mem, lst, stage;
+  int rep;         // a replica's words, a multiple of 4
+  size_t smem;     // dynamic shared memory a block, in bytes
+};
+
+int bits_for(long long x) {  // bits that hold 0..x
+  int b = 0;
+  while ((1LL << b) <= x) ++b;
+  return b;
+}
+
+long long round4(long long x) { return (x + 3) & ~3LL; }
+
+Layout layout(int V, int S) {
+  Layout L{};
+  L.nk = (V + 31) >> 5;
+  L.nb = bits_for(V);
+  L.nxb = bits_for(V - 1) > 0 ? bits_for(V - 1) : 1;
+  L.as = V | 1;              // odd: lane k's word k of a row in bank k
+  L.a_words = round4((long long)L.nk * L.as);
+  L.w_words = (int)round4(V);
+  int off = 0;
+  auto take = [&off](int words) {
+    const int o = off;
+    off += words;
+    return o;
+  };
+  L.bars = take(2 * kStages);   // the stages' mbarriers, 8-byte aligned
+  L.valid = take(L.nk);
+  L.c = take(L.nk);
+  L.best = take(L.nk);
+  L.cp = take(L.nk);
+  L.pa = take(L.nk);
+  L.om = take(L.nk);
+  L.live = take(L.nk);
+  L.aux = take(L.nk);
+  L.ring_s = take(S);
+  L.nbs = L.nb <= 4 ? 4 : 8 * ((L.nb - 4 + 7) / 8) + 4;
+  L.nxs = L.nxb <= 4 ? 4 : 8 * ((L.nxb - 4 + 7) / 8) + 4;
+  off = (int)round4(off);
+  L.cnt = take(L.nbs * L.nk);      // word k's planes at [k * nbs, + nbs)
+  L.nx = take(L.nxs * L.nk);
+  L.tabu = take(V);
+  L.mem = take(V);
+  L.lst = take(V);
+  L.stage = (int)round4(off);
+  const long long staged = L.stage + (long long)kStages * 2 * 32 * L.nk;
+  const long long avail = (long long)(kSmemMax - kStaticSmem) / 4;
+  if (L.a_words + L.w_words + staged <= avail) {
+    L.tier = 0;
+    L.wpb = (int)std::min<long long>(
+        kMaxWarps, (avail - L.a_words - L.w_words) / staged);
+    L.rep = (int)staged;
+    L.smem = 4 * (size_t)(L.a_words + L.w_words + (long long)L.wpb * L.rep);
+  } else if (L.w_words + staged <= avail) {
+    L.tier = 1;
+    L.wpb = (int)std::min<long long>(kMaxWarps,
+                                     (avail - L.w_words) / staged);
+    L.rep = (int)staged;
+    L.smem = 4 * (size_t)(L.w_words + (long long)L.wpb * L.rep);
+  } else {
+    L.tier = 2;
+    L.wpb = kMaxWarps;
+    L.rep = L.stage;
+    L.smem = 0;
+  }
+  return L;
 }
 
 struct BlsArgs {
   const float* weights;      // [V]
   const uint8_t* valid;      // [V]
-  const uint32_t* A;         // [nk, V] packed adjacency (pack_adj_kernel)
+  uint32_t* scratch;         // packed adjacency, then tier 2's regions
   const float* l0;           // 0-dim
   const float* lmax;         // 0-dim
   uint8_t* in_c;             // [R, V]
@@ -235,68 +395,68 @@ struct BlsArgs {
   int V, R, S, I, n;
   int t_nonimprove, phi;
   float p0, alpha_s, alpha_r;
-};
-
-// Dynamic shared memory, in bytes from its start.
-struct Layout {
-  size_t A, w, tabu, bits, ring, ring_s, total;
-  int astride;               // words between A's rows k, k + 1
-  bool a_in_smem;
-};
-
-constexpr int kBitSets = 7;  // valid, C, best, cp, PA, OM, the next C
-
-__host__ __device__ inline Layout layout(int V, int S) {
-  const int nk = (V + 31) >> 5;
+  int aligned16;             // the fields' rows start on 16 bytes
   Layout L;
-  L.astride = V | 1;         // odd: a row's words k, k + 1 in other banks
-  const size_t a_bytes = (size_t)4 * nk * L.astride;
-  const size_t rest = (size_t)8 * V + (size_t)4 * nk * (kBitSets + S) +
-                      (size_t)4 * S + 64;
-  L.a_in_smem = a_bytes + rest + kStaticSmem <= kSmemMax;
-  size_t off = 0;
-  L.A = off;
-  if (L.a_in_smem) off += a_bytes;
-  L.w = off;
-  off += (size_t)4 * V;
-  L.tabu = off;
-  off += (size_t)4 * V;
-  L.bits = off;
-  off += (size_t)4 * nk * kBitSets;
-  L.ring = off;
-  off += (size_t)4 * nk * S;
-  L.ring_s = off;
-  off += (size_t)4 * S;
-  L.total = off;
-  if (!L.a_in_smem) L.astride = V;
-  return L;
-}
+};
 
 enum Move { kNone = 0, kLocal, kDirected, kRandom };
 
-struct Scalars {
-  float fc, fbest, l_left, th;
-  int wcnt, csize, move, tenure, mv;
-  int use_directed, use_swap;
-  long long sol_next;
-};
+// ---- Hopper's asynchronous copies (PTX)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-// first member of C not adjacent to v (its index, or 0 when there is
-// none: argmax of an all-False mask), by one warp
-__device__ __forceinline__ int first_nonadj(const uint32_t* C,
-                                            const uint32_t* A, int astride,
-                                            int v, int nk, int lane) {
-  for (int k0 = 0; k0 < nk; k0 += 32) {
-    const int k = k0 + lane;
-    const unsigned m = k < nk ? C[k] & ~A[(size_t)k * astride + v] : 0u;
-    const unsigned any = __ballot_sync(kAll, m != 0u);
-    if (any) {
-      const int src = __ffs(any) - 1;
-      const unsigned mm = __shfl_sync(kAll, m, src);
-      return 32 * (k0 + src) + __ffs(mm) - 1;
-    }
-  }
-  return 0;
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one thread: the arrival on `bar` that expects `bytes` of bulk copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// one thread: the copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
 }
 
 // whether bit sets x and y differ, by one warp
@@ -312,377 +472,780 @@ __device__ __forceinline__ void copy_bits(uint32_t* dst, const uint32_t* src,
   for (int k = lane; k < nk; k += 32) dst[k] = src[k];
 }
 
-template <int kPer>
-__global__ void __launch_bounds__(kMaxThreads)
+// the lowest-index entry of `m`'s bits (vertices 32k + b) by the values
+// g[v], folded into (bv, bi) by torch.argmax's rule; four loads in flight
+__device__ __forceinline__ void argmax_bits(uint32_t m, int k, const float* g,
+                                            float& bv, int& bi) {
+  while (m) {
+    int v4[4];
+    float x4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v4[q] = m ? 32 * k + __ffs(m) - 1 : -1;
+      m &= m - 1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x4[q] = v4[q] >= 0 ? g[v4[q]] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (v4[q] >= 0 && beats(x4[q], v4[q], bv, bi)) {
+        bv = x4[q];
+        bi = v4[q];
+      }
+  }
+}
+
+// the argmax over m's bits of word k with the values g[32k..32k+31] read
+// as eight 16-byte loads (g 16-byte aligned), rotated by k so that the
+// eight lanes of a quarter-warp read eight different banks
+__device__ __forceinline__ void argmax_word16(uint32_t m, int k, const float* g,
+                                              float& bv, int& bi) {
+  const float4* g4 = reinterpret_cast<const float4*>(g + 32 * k);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int q = (i + k) & 7;
+    const float4 x = g4[q];
+    const float xs[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int v = 32 * k + 4 * q + e;
+      if (((m >> (4 * q + e)) & 1u) && beats(xs[e], v, bv, bi)) {
+        bv = xs[e];
+        bi = v;
+      }
+    }
+  }
+}
+
+// the bits of m (vertices 32k + b) whose values g[v] beat (bv, bi) by
+// torch.argmax's rule; four loads in flight
+__device__ __forceinline__ uint32_t beating_bits(uint32_t m, int k,
+                                                 const float* g, float bv,
+                                                 int bi) {
+  uint32_t out = 0u;
+  while (m) {
+    int v4[4];
+    float x4[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      v4[q] = m ? 32 * k + __ffs(m) - 1 : -1;
+      m &= m - 1;
+    }
+#pragma unroll
+    for (int q = 0; q < 4; ++q) x4[q] = v4[q] >= 0 ? g[v4[q]] : 0.0f;
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (v4[q] >= 0 && beats(x4[q], v4[q], bv, bi))
+        out |= 1u << (v4[q] & 31);
+  }
+  return out;
+}
+
+#ifdef MWCP_BLS_CLOCKS
+// where an iteration's cycles go, per replica: the parts of
+// tools/bls_probe.py's CLOCK_PARTS, the random moves and the iterations
+#define CLOCK_START                                  \
+  long long clk_[8] = {0, 0, 0, 0, 0, 0, 0, 0};      \
+  long long clk_prev_ = clock64();                   \
+  int clk_rand_ = 0;
+#define CLOCK(i)                         \
+  {                                      \
+    const long long c_ = clock64();      \
+    clk_[i] += c_ - clk_prev_;           \
+    clk_prev_ = c_;                      \
+  }
+#define CLOCK_RANDOM ++clk_rand_;
+#define CLOCK_END                                                     \
+  if (lane == 0 && r < 8192) {                                        \
+    for (int q = 0; q < 8; ++q) g_bls_clocks[r * 16 + q] = clk_[q];   \
+    g_bls_clocks[r * 16 + 8] = clk_rand_;                             \
+    g_bls_clocks[r * 16 + 9] = steps;                                 \
+  }
+#else
+#define CLOCK_START
+#define CLOCK(i)
+#define CLOCK_RANDOM
+#define CLOCK_END
+#endif
+
+// One warp per replica, wpb replicas a block; see the file's comment.
+template <int kTier>
+__global__ void __launch_bounds__(32 * kMaxWarps)
     bls_steps_kernel(const BlsArgs a) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red_v[3][32];
-  __shared__ int red_i[3][32];
-  __shared__ int red_n[32];
-  __shared__ int red_a[32];
-  __shared__ Scalars sc;
-  const int r = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  const int V = a.V, R = a.R, S = a.S, nk = (V + 31) >> 5;
-  const Layout L = layout(V, S);
-  const int as = L.astride;
-  uint32_t* A_s = reinterpret_cast<uint32_t*>(smem + L.A);
-  const uint32_t* A = L.a_in_smem ? A_s : a.A;
-  float* w = reinterpret_cast<float*>(smem + L.w);
-  int32_t* tabu = reinterpret_cast<int32_t*>(smem + L.tabu);
-  uint32_t* valid = reinterpret_cast<uint32_t*>(smem + L.bits);
-  uint32_t* C = valid + nk;
-  uint32_t* best = C + nk;
-  uint32_t* cp = best + nk;
-  uint32_t* pa_s = cp + nk;
-  uint32_t* om_s = pa_s + nk;
-  uint32_t* nxt = om_s + nk;
-  uint32_t* ring = reinterpret_cast<uint32_t*>(smem + L.ring);
-  float* ring_s = reinterpret_cast<float*>(smem + L.ring_s);
+  constexpr bool kAdjS = kTier == 0, kStateS = kTier < 2;
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ __align__(8) unsigned long long bar;
+  const Layout& L = a.L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int V = a.V, R = a.R, S = a.S, nk = L.nk, as = L.as;
+
+  // ---- the block's graph: the packed adjacency by one bulk copy, the
+  // weights by every thread
+  const uint32_t* A = a.scratch;
+  const float* w = a.weights;
+  if (kStateS) {
+    uint32_t* sw = smem;
+    const uint32_t b = smem_u32(&bar);
+    if (kAdjS) {
+      if (tid == 0) mbar_init(b, 1);
+      __syncthreads();
+      if (tid == 0) {
+        mbar_expect(b, (uint32_t)(4 * L.a_words));
+        bulk_load(smem_u32(sw), a.scratch, (uint32_t)(4 * L.a_words), b);
+      }
+      A = sw;
+      sw += L.a_words;
+    }
+    float* ws = reinterpret_cast<float*>(sw);
+    for (int v = tid; v < V; v += blockDim.x) ws[v] = a.weights[v];
+    w = ws;
+    if (kAdjS) mbar_wait(b, 0);
+    __syncthreads();
+  }
+  const int r = blockIdx.x * L.wpb + warp;
+  if (r >= R) return;                // no block barrier after this
+  uint32_t* base =
+      kStateS ? smem + (kAdjS ? L.a_words : 0) + L.w_words +
+                    (size_t)warp * L.rep
+              : a.scratch + L.a_words + (size_t)r * L.rep;
+  uint32_t* valid = base + L.valid;
+  uint32_t* C = base + L.c;
+  uint32_t* best = base + L.best;
+  uint32_t* cp = base + L.cp;
+  uint32_t* pa_s = base + L.pa;
+  uint32_t* om_s = base + L.om;
+  uint32_t* live = base + L.live;        // tabu stamp > it
+  uint32_t* aux = base + L.aux;          // the random pick's strong bits
+  float* ring_s = reinterpret_cast<float*>(base + L.ring_s);
+  uint32_t* cntp = base + L.cnt;         // word k, plane b: [k * nbs + b]
+  uint32_t* nxp = base + L.nx;
+  const int nbs = L.nbs, nxs = L.nxs;
+  int32_t* tabu = reinterpret_cast<int32_t*>(base + L.tabu);
+  int32_t* mem = reinterpret_cast<int32_t*>(base + L.mem);
+  int32_t* lst = reinterpret_cast<int32_t*>(base + L.lst);
+  float* stage = reinterpret_cast<float*>(base + L.stage);
+  unsigned long long* bars =
+      reinterpret_cast<unsigned long long*>(base + L.bars);
+  const int nk32 = 32 * nk;
   const size_t rv0 = (size_t)r * V;
 
-  // ---- load the replica's state
-  if (L.a_in_smem)
-    for (int i = tid; i < nk * V; i += nt) {
-      const int k = i / V, v = i - k * V;
-      A_s[(size_t)k * as + v] = a.A[i];
-    }
-  for (int v = tid; v < V; v += nt) {
-    w[v] = a.weights[v];
-    tabu[v] = a.tabu[rv0 + v];
-  }
-  for (int base = warp * 32; base < nk * 32; base += nt) {
-    const int v = base + lane, k = base >> 5;
-    const bool in = v < V;
-    const unsigned bv = __ballot_sync(kAll, in && a.valid[v]);
-    const unsigned bc = __ballot_sync(kAll, in && a.in_c[rv0 + v]);
-    const unsigned bb = __ballot_sync(kAll, in && a.best[rv0 + v]);
-    const unsigned bp = __ballot_sync(kAll, in && a.cp[rv0 + v]);
-    if (lane == 0) {
-      valid[k] = bv;
-      C[k] = bc;
-      best[k] = bb;
-      cp[k] = bp;
-    }
-    for (int s = 0; s < S; ++s) {
-      const unsigned m = __ballot_sync(
-          kAll, in && a.sol_masks[((size_t)r * S + s) * V + v]);
-      if (lane == 0) ring[s * nk + k] = m;
-    }
-  }
-  for (int s = tid; s < S; s += nt) ring_s[s] = a.sol_scores[(size_t)r * S + s];
+  // ---- the replica's state
   const int it0 = *a.it;
   const int steps = max(0, min(a.n, a.I - it0));
-  if (tid == 0) {
-    sc.fbest = a.fbest[r];
-    sc.wcnt = a.wcnt[r];
-    sc.l_left = a.l_left[r];
-    sc.use_directed = a.use_directed[r] != 0;
-    sc.sol_next = a.sol_next[r];
+  for (int k0 = 0; k0 < nk; k0 += 8) {  // eight words' loads in flight
+    uint8_t xv[8], xc[8], xb[8], xp[8];
+    int tb[8];
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int v = 32 * (k0 + q) + lane;
+      const bool in = k0 + q < nk && v < V;
+      xv[q] = in ? a.valid[v] : 0;
+      xc[q] = in ? a.in_c[rv0 + v] : 0;
+      xb[q] = in ? a.best[rv0 + v] : 0;
+      xp[q] = in ? a.cp[rv0 + v] : 0;
+      tb[q] = in ? a.tabu[rv0 + v] : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int k = k0 + q, v = 32 * k + lane;
+      if (k >= nk) break;
+      if (v < V) tabu[v] = tb[q];
+      const unsigned bv = __ballot_sync(kAll, xv[q]);
+      const unsigned bc = __ballot_sync(kAll, xc[q]);
+      const unsigned bb = __ballot_sync(kAll, xb[q]);
+      const unsigned bp = __ballot_sync(kAll, xp[q]);
+      const unsigned bl = __ballot_sync(kAll, v < V && tb[q] > it0);
+      if (lane == (k & 31)) {
+        valid[k] = bv;
+        C[k] = bc;
+        best[k] = bb;
+        cp[k] = bp;
+        live[k] = bl;
+      }
+    }
   }
-  __syncthreads();
-  if (warp == 0) {
-    int c = 0;
-    for (int k = lane; k < nk; k += 32) c += __popc(C[k]);
-    for (int off = 16; off > 0; off >>= 1) c += __shfl_xor_sync(kAll, c, off);
-    if (lane == 0) sc.csize = c;
-  }
+  for (int s = lane; s < S; s += 32)
+    ring_s[s] = a.sol_scores[(size_t)r * S + s];
+  float fbest = a.fbest[r], l_left = a.l_left[r];
+  int wcnt = a.wcnt[r];
+  bool use_dir = a.use_directed[r] != 0;
+  long long sol_next = a.sol_next[r];
   const float l0 = *a.l0, lmax = *a.lmax;
-  __syncthreads();
+  __syncwarp();
 
+  // lanes own words k = lane, lane + 32, ...: the counts and index planes
+  // of vertices 32k..32k+31 change by one adjacency word a member.  One
+  // pass for a member x_in that joins and one x_out that leaves (-1:
+  // none): +1 ripples up as a carry, -1 as a borrow, on disjoint vertices
+  auto update_rows = [&](int x_in, int x_out) {
+    for (int k = lane; k < nk; k += 32) {
+      const uint32_t ra = x_in >= 0 ? A[(size_t)k * as + x_in] : 0u;
+      const uint32_t rb = x_out >= 0 ? A[(size_t)k * as + x_out] : 0u;
+      uint32_t cu = ra & ~rb, cd = rb & ~ra;
+      uint4* cw = reinterpret_cast<uint4*>(cntp + (size_t)k * nbs);
+      for (int c = 0; c < (nbs >> 2) && (cu | cd); ++c) {
+        uint4 p = cw[c];                 // four planes a load
+        ripple(p.x, cu, cd);
+        ripple(p.y, cu, cd);
+        ripple(p.z, cu, cd);
+        ripple(p.w, cu, cd);
+        cw[c] = p;
+      }
+      // the vertices not adjacent to x_in (x_out) take its bits into nx
+      const uint32_t na = x_in >= 0 ? ~ra : 0u, nb_ = x_out >= 0 ? ~rb : 0u;
+      const int xi = x_in >= 0 ? x_in : 0, xo = x_out >= 0 ? x_out : 0;
+      uint4* xw = reinterpret_cast<uint4*>(nxp + (size_t)k * nxs);
+      for (int c = 0; c < (nxs >> 2); ++c) {
+        uint32_t f[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          f[q] = (bit_of(xi, 4 * c + q) ? na : 0u) ^
+                 (bit_of(xo, 4 * c + q) ? nb_ : 0u);
+        if (f[0] | f[1] | f[2] | f[3]) {
+          uint4 x = xw[c];
+          x.x ^= f[0];
+          x.y ^= f[1];
+          x.z ^= f[2];
+          x.w ^= f[3];
+          xw[c] = x;
+        }
+      }
+    }
+  };
+  // the vertices of the words mask(k) ascending into out (ballot counts,
+  // a prefix over lanes): a sparse set's work spread over the lanes
+  auto compact = [&](auto mask, int32_t* out) {
+    int total = 0;
+    for (int k0 = 0; k0 < nk; k0 += 32) {
+      const int k = k0 + lane;
+      uint32_t word = k < nk ? mask(k) : 0u;
+      const int c = __popc(word);
+      int incl = c;
+      for (int off = 1; off < 32; off <<= 1) {
+        const int y = __shfl_up_sync(kAll, incl, off);
+        if (lane >= off) incl += y;
+      }
+      int pos = total + incl - c;
+      for (; word; word &= word - 1) out[pos++] = 32 * k + __ffs(word) - 1;
+      total += __shfl_sync(kAll, incl, 31);
+    }
+    __syncwarp();
+    return total;
+  };
+  // C's members ascending into mem, and fc, their weights added in that
+  // order
+  int csize = 0;
+  float fc = 0.0f;
+  auto rebuild = [&]() {
+    const int total = compact([&](int k) { return C[k]; }, mem);
+    float f = 0.0f;
+    for (int j0 = 0; j0 < total; j0 += 32) {
+      const int j = j0 + lane;
+      const float wj = j < total ? w[mem[j]] : 0.0f;
+      const int cnt = min(32, total - j0);
+#pragma unroll 8
+      for (int q = 0; q < cnt; ++q) f = __fadd_rn(f, __shfl_sync(kAll, wj, q));
+    }
+    csize = total;
+    fc = f;
+  };
+  auto recount = [&]() {
+    for (int k = lane; k < nk; k += 32) {
+      for (int b = 0; b < nbs; ++b) cntp[(size_t)k * nbs + b] = 0u;
+      for (int b = 0; b < nxs; ++b) nxp[(size_t)k * nxs + b] = 0u;
+    }
+    for (int j = 0; j < csize; ++j) update_rows(mem[j], -1);
+  };
+  // an OM vertex's one non-adjacent member: its index planes' bits
+  auto partner = [&](int v) {
+    const uint4* xw =
+        reinterpret_cast<const uint4*>(nxp + (size_t)(v >> 5) * nxs);
+    const int j = v & 31;
+    int p = 0;
+    for (int c = 0; c < (nxs >> 2); ++c) {
+      const uint4 x = xw[c];
+      p |= (int)((x.x >> j) & 1u) << (4 * c) |
+           (int)((x.y >> j) & 1u) << (4 * c + 1) |
+           (int)((x.z >> j) & 1u) << (4 * c + 2) |
+           (int)((x.w >> j) & 1u) << (4 * c + 3);
+    }
+    return p;
+  };
+  // the vertices of word k outside a mask score NEG there: the first of
+  // them stands for all in an argmax
+  auto floor_cand = [&](uint32_t set, int k, float& bv, int& bi) {
+    const int rem = V - 32 * k;
+    const uint32_t z = ~set & (rem >= 32 ? kAll : (1u << rem) - 1u);
+    if (z) {
+      const int v = 32 * k + __ffs(z) - 1;
+      if (beats(kNeg, v, bv, bi)) {
+        bv = kNeg;
+        bi = v;
+      }
+    }
+  };
+  rebuild();
+  recount();
+  // the stamps that have expired by iteration it leave `live` (a superset
+  // of {v : tabu[v] > it} between calls): the live vertices listed, four
+  // a lane in flight
+  auto expire = [&](int it) {
+    const int nl = compact([&](int k) { return live[k]; }, lst);
+    for (int j0 = 0; j0 < nl; j0 += 128) {
+      int v4[4], t4[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const int j = j0 + 32 * q + lane;
+        v4[q] = j < nl ? lst[j] : -1;
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) t4[q] = v4[q] >= 0 ? tabu[v4[q]] : 0;
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        if (v4[q] >= 0 && t4[q] <= it)
+          atomicAnd(&live[v4[q] >> 5], ~(1u << (v4[q] & 31)));
+    }
+    __syncwarp();
+  };
+
+  // ---- the fields: rows it..it+kStages-2 in flight into the stages; the
+  // perturbation draws 32 iterations to a register, the next 32 loaded
+  // rows 16-byte aligned: one lane's two bulk copies a stage, on the
+  // stage's mbarrier; else every lane's 4-byte cp.async, in groups
+  const bool bulk = kStateS && a.aligned16;
+  if (bulk && lane == 0)
+    for (int q = 0; q < kStages; ++q) mbar_init(smem_u32(bars + q), 1);
+  __syncwarp();
+  auto prefetch = [&](int t) {
+    if (t < steps) {
+      const size_t row = ((size_t)(it0 + t) * R + r) * V;
+      float* dst = stage + (size_t)(t % kStages) * 2 * nk32;
+      const uint32_t d0 = smem_u32(dst), d1 = smem_u32(dst + nk32);
+      if (bulk) {
+        if (lane == 0) {
+          const uint32_t b = smem_u32(bars + t % kStages);
+          asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+          mbar_expect(b, 8u * V);
+          bulk_load(d0, a.g_dir + row, 4u * V, b);
+          bulk_load(d1, a.g_rnd + row, 4u * V, b);
+        }
+      } else {
+        for (int v = lane; v < V; v += 32) {
+          cp_async4(d0 + 4 * v, a.g_dir + row + v);
+          cp_async4(d1 + 4 * v, a.g_rnd + row + v);
+        }
+      }
+    }
+    if (!bulk) cp_async_commit();
+  };
+  if (kStateS)
+    for (int q = 0; q < kStages - 1; ++q) prefetch(q);
+  auto u_at = [&](const float* u, int t) {
+    return t < steps ? u[(size_t)(it0 + t) * R + r] : 0.0f;
+  };
+  float ud_c = u_at(a.u_dir, lane), ut_c = u_at(a.u_ten, lane);
+  float ud_n = u_at(a.u_dir, 32 + lane), ut_n = u_at(a.u_ten, 32 + lane);
+
+  CLOCK_START
   for (int t = 0; t < steps; ++t) {
     const int it = it0 + t;
-    const size_t row = ((size_t)it * R + r) * V;
-    float gd[kPer], gr[kPer];
-#pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int v = tid + j * nt;
-      gd[j] = v < V ? __ldg(a.g_dir + row + v) : 0.0f;
-      gr[j] = v < V ? __ldg(a.g_rnd + row + v) : 0.0f;
+    const float* gd;
+    const float* gr;
+    if (kStateS) {
+      if (bulk)
+        mbar_wait(smem_u32(bars + t % kStages), (t / kStages) & 1);
+      else
+        cp_async_wait<kStages - 2>();
+      __syncwarp();
+      prefetch(t + kStages - 1);
+      gd = stage + (size_t)(t % kStages) * 2 * nk32;
+      gr = gd + nk32;
+    } else {
+      const size_t row = ((size_t)it * R + r) * V;
+      gd = a.g_dir + row;
+      gr = a.g_rnd + row;
     }
-    if (tid == 0) {                  // the clique's weight, members ascending
-      float fc = 0.0f;
-      for (int k = 0; k < nk; ++k)
-        for (unsigned m = C[k]; m; m &= m - 1)
-          fc = __fadd_rn(fc, w[32 * k + __ffs(m) - 1]);
-      sc.fc = fc;
+    const float ud = __shfl_sync(kAll, ud_c, t & 31);
+    const float ut = __shfl_sync(kAll, ut_c, t & 31);
+    if ((t & 31) == 31) {
+      ud_c = ud_n;
+      ut_c = ut_n;
+      ud_n = u_at(a.u_dir, t + 33 + lane);
+      ut_n = u_at(a.u_ten, t + 33 + lane);
     }
-    const int csize = sc.csize;
-
-    // ---- phase A: the move sets and three argmaxes, vertex by vertex
-    float bv[3] = {-INFINITY, -INFINITY, -INFINITY};
-    int bi[3] = {INT_MAX, INT_MAX, INT_MAX};
-    int omc = 0;
-    bool dany = false;
+    CLOCK(0)
+    // ---- PA = free & cnt == |C|, OM = free & cnt == |C| - 1, from the
+    // count planes
+    const bool searching = l_left <= 0.0f;
+    float b0 = -INFINITY, b1 = -INFINITY;
+    int i0 = INT_MAX, i1 = INT_MAX, omc = 0;
+    const int cm1 = csize - 1;
+    for (int k = lane; k < nk; k += 32) {
+      // the planes past nb are 0, as are csize's and cm1's bits there
+      // (cm1 = -1 only without members, when OM is empty)
+      uint32_t eq = kAll, eq1 = kAll;
+      const uint4* cw = reinterpret_cast<const uint4*>(cntp + (size_t)k * nbs);
+      for (int c = 0; c < (nbs >> 2); ++c) {
+        const uint4 p4 = cw[c];
+        const uint32_t q4[4] = {p4.x, p4.y, p4.z, p4.w};
 #pragma unroll
-    for (int j = 0; j < kPer; ++j) {
-      const int v = tid + j * nt;
-      bool pa = false, om = false;
-      if (v < V) {
-        int cnt = 0;
-        for (int k = 0; k < nk; ++k)
-          cnt += __popc(A[(size_t)k * as + v] & C[k]);
-        const bool in = bit(C, v);
-        const bool fr = bit(valid, v) && !in;
-        pa = fr && cnt == csize;
-        om = fr && cnt == csize - 1 && csize > 0;
-        const float wv = w[v];
-        float gsw = kNeg;
-        if (om) {                      // its one non-adjacent member
-          for (int k = 0; k < nk; ++k) {
-            const unsigned m = C[k] & ~A[(size_t)k * as + v];
-            if (m) {
-              gsw = __fsub_rn(wv, w[32 * k + __ffs(m) - 1]);
-              break;
-            }
+        for (int q = 0; q < 4; ++q) {
+          eq &= bit_of(csize, 4 * c + q) ? q4[q] : ~q4[q];
+          eq1 &= bit_of(cm1, 4 * c + q) ? q4[q] : ~q4[q];
+        }
+      }
+      const uint32_t fr = valid[k] & ~C[k];
+      const uint32_t pa = fr & eq, om = csize > 0 ? fr & eq1 : 0u;
+      pa_s[k] = pa;
+      om_s[k] = om;
+      if (searching) {
+        floor_cand(pa, k, b0, i0);
+        floor_cand(om, k, b1, i1);
+      }
+      omc += __popc(om);
+    }
+    omc = __reduce_add_sync(kAll, omc);
+    CLOCK(1)
+    // the insert and swap gains, which only a local search reads: the PA
+    // and OM vertices listed, four a lane
+    if (searching) {
+      const int ncand = compact(
+          [&](int k) { return pa_s[k] | om_s[k]; }, lst);
+      for (int j0 = 0; j0 < ncand; j0 += 128) {
+        int v4[4], p4[4] = {0, 0, 0, 0};
+        bool o4[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + 32 * q + lane;
+          v4[q] = j < ncand ? lst[j] : -1;
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q) o4[q] = v4[q] >= 0 && bit(om_s, v4[q]);
+        for (int c = 0; c < (nxs >> 2); ++c) {  // OM partners: nx's bits
+          uint4 x4[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            x4[q] = o4[q] ? reinterpret_cast<const uint4*>(
+                                nxp + (size_t)(v4[q] >> 5) * nxs)[c]
+                          : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int j = v4[q] & 31;
+            p4[q] |= (int)((x4[q].x >> j) & 1u) << (4 * c) |
+                     (int)((x4[q].y >> j) & 1u) << (4 * c + 1) |
+                     (int)((x4[q].z >> j) & 1u) << (4 * c + 2) |
+                     (int)((x4[q].w >> j) & 1u) << (4 * c + 3);
           }
         }
-        // the directed mask: PA or OM with an expired stamp, or in C
-        const bool dm = ((pa || om) && tabu[v] <= it) || in;
-        const float cand[3] = {pa ? wv : kNeg, gsw, dm ? gd[j] : kNeg};
 #pragma unroll
-        for (int q = 0; q < 3; ++q)
-          if (beats(cand[q], v, bv[q], bi[q])) {
-            bv[q] = cand[q];
-            bi[q] = v;
+        for (int q = 0; q < 4; ++q) {
+          const int v = v4[q];
+          if (v < 0) continue;
+          if (o4[q]) {
+            const float g = __fsub_rn(w[v], w[p4[q]]);
+            if (beats(g, v, b1, i1)) {
+              b1 = g;
+              i1 = v;
+            }
+          } else if (beats(w[v], v, b0, i0)) {
+            b0 = w[v];
+            i0 = v;
           }
-        omc += om;
-        dany |= dm;
+        }
       }
-      const unsigned bpa = __ballot_sync(kAll, pa);
-      const unsigned bom = __ballot_sync(kAll, om);
-      const int k = j * nw + warp;
-      if (lane == 0 && k < nk) {
-        pa_s[k] = bpa;
-        om_s[k] = bom;
-      }
+      warp_argmax(b0, i0);
+      warp_argmax(b1, i1);
     }
-#pragma unroll
-    for (int q = 0; q < 3; ++q) warp_argmax(bv[q], bi[q]);
-    for (int off = 16; off > 0; off >>= 1)
-      omc += __shfl_xor_sync(kAll, omc, off);
-    dany = __any_sync(kAll, dany);
-    if (lane == 0) {
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        red_v[q][warp] = bv[q];
-        red_i[q][warp] = bi[q];
-      }
-      red_n[warp] = omc;
-      red_a[warp] = dany;
-    }
-    __syncthreads();
+    CLOCK(2)
 
-    // ---- phase B: warp 0 decides the move, every lane alike
-    if (warp == 0) {
-#pragma unroll
-      for (int q = 0; q < 3; ++q) {
-        bv[q] = lane < nw ? red_v[q][lane] : -INFINITY;
-        bi[q] = lane < nw ? red_i[q][lane] : INT_MAX;
-        warp_argmax(bv[q], bi[q]);
-      }
-      omc = lane < nw ? red_n[lane] : 0;
-      for (int off = 16; off > 0; off >>= 1)
-        omc += __shfl_xor_sync(kAll, omc, off);
-      dany = __any_sync(kAll, lane < nw && red_a[lane]);
-      // an all-NEG row's argmax is index 0, as every entry ties
-      const float gi = bv[0], gs = bv[1];
-      const float fc = sc.fc, fbest = sc.fbest, l_left = sc.l_left;
-      const int wcnt = sc.wcnt;
-      const bool was_directed = sc.use_directed != 0;
-      long long sol_next = sc.sol_next;
-      const bool use_swap = gs > gi;
-      // max(gi, gs) > 1e-9, NaN propagating as torch.maximum does
-      const bool improving = !isnan(gi) && !isnan(gs) &&
-                             (gi > 1e-9f || gs > 1e-9f);
-      const bool searching = l_left <= 0.0f;
-      const bool do_ls = searching && improving;
-      const bool at_opt = searching && !improving;
-      const bool better = fc > fbest;
-      const bool up = at_opt && better;
-      int new_w = at_opt ? (better ? 0 : wcnt + 1) : wcnt;
+    // ---- the decision, every lane alike
+    const float gi = b0, gs = b1;
+    const bool use_swap = gs > gi;
+    // max(gi, gs) > 1e-9, NaN propagating as torch.maximum does
+    const bool improving =
+        !isnan(gi) && !isnan(gs) && (gi > 1e-9f || gs > 1e-9f);
+    const bool do_ls = searching && improving;
+    const bool at_opt = searching && !improving;
+    const bool better = fc > fbest;
+    const bool up = at_opt && better;
+    int new_w = at_opt ? (better ? 0 : wcnt + 1) : wcnt;
+    const bool esc = new_w > a.t_nonimprove;
+    float l_new = 0.0f;
+    if (at_opt) {
       const bool same_cp = !differ(C, cp, nk, lane);
-      const bool esc = new_w > a.t_nonimprove;
-      const float l_new =
-          esc ? lmax : (same_cp ? __fadd_rn(l_left, 1.0f) : l0);
-      if (at_opt && esc) new_w = 0;
+      l_new = esc ? lmax : (same_cp ? __fadd_rn(l_left, 1.0f) : l0);
       // the record: a new local optimum, unless empty, not positive or
       // already in the ring (score within 1e-5 and the same mask)
-      if (at_opt && !same_cp && !esc && fc > 0.0f && csize > 0) {
+      if (!same_cp && !esc && fc > 0.0f && csize > 0) {
         bool dup = false;
-        for (int s = 0; s < S && !dup; ++s)
-          dup = fabsf(__fsub_rn(ring_s[s], fc)) < 1e-5f &&
-                !differ(ring + s * nk, C, nk, lane);
+        for (int s0 = 0; s0 < S && !dup; s0 += 32) {
+          const int s = s0 + lane;
+          uint32_t near = __ballot_sync(
+              kAll, s < S && fabsf(__fsub_rn(ring_s[s], fc)) < 1e-5f);
+          while (near && !dup) {         // the slot's mask, where it lies
+            const int q = s0 + __ffs(near) - 1;
+            near &= near - 1;
+            const uint8_t* row = a.sol_masks + ((size_t)r * S + q) * V;
+            bool d = false;
+            for (int v = lane; v < V; v += 32) d |= (row[v] != 0) != bit(C, v);
+            dup = !__any_sync(kAll, d);
+          }
+        }
         if (!dup) {
           const int slot = (int)(sol_next % S);
-          copy_bits(ring + slot * nk, C, nk, lane);
+          uint8_t* row = a.sol_masks + ((size_t)r * S + slot) * V;
+          for (int v = lane; v < V; v += 32) row[v] = bit(C, v);
           if (lane == 0) ring_s[slot] = fc;
           ++sol_next;
         }
       }
       if (up) copy_bits(best, C, nk, lane);
-      if (at_opt) copy_bits(cp, C, nk, lane);
-      const float p =
-          wcnt == 0 ? 0.0f
-                    : fminf(expf(__fdiv_rn((float)(-wcnt),
-                                           (float)a.t_nonimprove)),
-                            a.p0);
-      const bool directed = a.u_dir[(size_t)it * R + r] < p;
-      const bool use_dir_now = at_opt ? directed : was_directed;
-      const float new_l = at_opt ? l_new : l_left;
-      const bool perturbing = l_left > 0.0f || at_opt;
-      const int tenure =
-          a.phi + (int)__fmul_rn(a.u_ten[(size_t)it * R + r],
-                                 (float)max(omc, 1));
-      const float alpha = wcnt == 0 ? a.alpha_s : a.alpha_r;
-      int move = kNone;
-      if (do_ls)
-        move = kLocal;
-      else if (perturbing)
-        move = use_dir_now && dany ? kDirected : kRandom;
+      copy_bits(cp, C, nk, lane);
+      if (esc) new_w = 0;
+    }
+    const float p =
+        wcnt == 0 ? 0.0f
+                  : fminf(expf(__fdiv_rn((float)(-wcnt),
+                                         (float)a.t_nonimprove)),
+                          a.p0);
+    const bool directed = ud < p;
+    const bool use_dir_now = at_opt ? directed : use_dir;
+    const float new_l = at_opt ? l_new : l_left;
+    const bool perturbing = l_left > 0.0f || at_opt;
+    const int stamp = it + a.phi + (int)__fmul_rn(ut, (float)max(omc, 1));
+    const float th = __fmul_rn(wcnt == 0 ? a.alpha_s : a.alpha_r, fc);
+    CLOCK(3)
+    int move = do_ls ? kLocal : kNone;
+    if (perturbing) {
+      // the stamps this iteration reads: tabu[v] <= it; the directed mask,
+      // (PA or OM) with an expired stamp, or C, is empty only without C
+      expire(it);
+      bool dany = csize > 0;
+      if (!dany) {
+        bool d = false;
+        for (int k = lane; k < nk; k += 32) d |= (pa_s[k] & ~live[k]) != 0u;
+        dany = __any_sync(kAll, d);
+      }
+      move = use_dir_now && dany ? kDirected : kRandom;
+    }
+    fbest = up ? fc : fbest;
+    wcnt = new_w;
+    l_left = do_ls ? l_left : fmaxf(__fsub_rn(new_l, 1.0f), 0.0f);
+    use_dir = at_opt ? directed : use_dir;
+    __syncwarp();
+    CLOCK(4)
+
+    // ---- the move
+    if (move == kLocal || move == kDirected) {
+      int x, ins = -1, out = -1;
+      if (move == kLocal) {              // insert x, or swap it in
+        x = use_swap ? i1 : i0;
+        ins = x;
+        if (use_swap) out = partner(x);  // x is OM: gs > gi >= NEG
+      } else {                           // directed: remove, insert, swap
+        float bd = -INFINITY;
+        int id = INT_MAX;
+        for (int k = lane; k < nk; k += 32)
+          floor_cand(((pa_s[k] | om_s[k]) & ~live[k]) | C[k], k, bd, id);
+        const int nd = compact(
+            [&](int k) { return (pa_s[k] | om_s[k]) & ~live[k]; }, lst);
+        for (int j = lane; j < nd; j += 32) {
+          const int v = lst[j];
+          if (beats(gd[v], v, bd, id)) {
+            bd = gd[v];
+            id = v;
+          }
+        }
+        for (int j = lane; j < csize; j += 32) {
+          const int v = mem[j];
+          if (beats(gd[v], v, bd, id)) {
+            bd = gd[v];
+            id = v;
+          }
+        }
+        warp_argmax(bd, id);
+        x = id;
+        if (bit(C, x)) {
+          out = x;
+        } else {
+          ins = x;
+          if (bit(om_s, x)) out = partner(x);
+        }
+      }
+      if (ins >= 0 && bit(C, ins)) ins = -1;
+      if (out >= 0 && !bit(C, out)) out = -1;
+      CLOCK(5)
       __syncwarp();
       if (lane == 0) {
-        sc.move = move;
-        sc.mv = move == kLocal ? (use_swap ? bi[1] : bi[0]) : bi[2];
-        sc.use_swap = use_swap;
-        sc.tenure = tenure;
-        sc.th = __fmul_rn(alpha, fc);
-        sc.fbest = up ? fc : fbest;
-        sc.wcnt = new_w;
-        sc.l_left = do_ls ? l_left : fmaxf(__fsub_rn(new_l, 1.0f), 0.0f);
-        sc.use_directed = at_opt ? directed : was_directed;
-        sc.sol_next = sol_next;
+        if (out >= 0) {
+          C[out >> 5] &= ~(1u << (out & 31));
+          tabu[out] = stamp;
+          live[out >> 5] |= 1u << (out & 31);
+        }
+        if (ins >= 0) C[ins >> 5] |= 1u << (ins & 31);
       }
-    }
-    __syncthreads();
-    const int move = sc.move;
-
-    // ---- phase C: the random pick among free vertices whose stamp has
-    // expired or whose weight sum over adjacent members reaches alpha * fc
-    float rv = -INFINITY;
-    int ri = INT_MAX;
-    bool rany = false;
-    if (move == kRandom) {
-      const float th = sc.th;
+      update_rows(ins, out);
+      __syncwarp();
+      CLOCK(6)
+      rebuild();
+    } else if (move == kRandom) {
+      // among free vertices whose stamp has expired or whose weight sum
+      // over adjacent members (ascending) reaches alpha * fc.  The expired
+      // ones first: a live one can only win by beating their best, so
+      // only such live ones sum their neighbours' weights (all of them
+      // when no expired free vertex scores above NEG)
+      CLOCK_RANDOM
+      float bv = -INFINITY;
+      int bi = INT_MAX;
+      bool tany = false;
+      for (int k = lane; k < nk; k += 32) {
+        const uint32_t tk = valid[k] & ~C[k] & ~live[k];
+        tany |= tk != 0u;
+        if (kStateS)
+          argmax_word16(tk, k, gr, bv, bi);
+        else
+          argmax_bits(tk, k, gr, bv, bi);
+      }
+      warp_argmax(bv, bi);
+      tany = __any_sync(kAll, tany);
+      const bool all = !(bv > kNeg) && !isnan(bv);
+      for (int k = lane; k < nk; k += 32) {
+        const uint32_t lf = valid[k] & ~C[k] & live[k];
+        aux[k] = all ? lf : beating_bits(lf, k, gr, bv, bi);
+      }
+      const int nlive = compact([&](int k) { return aux[k]; }, lst);
+      for (int k = lane; k < nk; k += 32) aux[k] = 0u;
+      __syncwarp();
+      for (int j0 = 0; j0 < nlive; j0 += 128) {   // four vertices a lane
+        int v4[4];
+        float s4[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
-      for (int j = 0; j < kPer; ++j) {
-        const int v = tid + j * nt;
-        if (v < V) {
-          bool pick = false;
-          if (bit(valid, v) && !bit(C, v)) {
-            pick = tabu[v] <= it;
-            if (!pick) {                 // members ascending
-              float s = 0.0f;
-              for (int k = 0; k < nk; ++k)
-                for (unsigned m = A[(size_t)k * as + v] & C[k]; m;
-                     m &= m - 1)
-                  s = __fadd_rn(s, w[32 * k + __ffs(m) - 1]);
-              pick = s >= th;
+        for (int q = 0; q < 4; ++q) {
+          const int j = j0 + 32 * q + lane;
+          v4[q] = j < nlive ? lst[j] : 0;
+        }
+#pragma unroll 2
+        for (int qm = 0; qm < csize; ++qm) {    // members ascending
+          const int m = mem[qm];
+          const float wm = w[m];
+          const uint32_t* am = A + (size_t)(m >> 5) * as;
+#pragma unroll
+          for (int q = 0; q < 4; ++q)
+            if ((am[v4[q]] >> (m & 31)) & 1u) s4[q] = __fadd_rn(s4[q], wm);
+        }
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (j0 + 32 * q + lane < nlive && s4[q] >= th)
+            atomicOr(&aux[v4[q] >> 5], 1u << (v4[q] & 31));
+      }
+      __syncwarp();
+      bool rany = tany;
+      if (all) {                         // every live free vertex summed
+        bv = -INFINITY;
+        bi = INT_MAX;
+        for (int k = lane; k < nk; k += 32) {
+          const uint32_t pick = valid[k] & ~C[k] & (~live[k] | aux[k]);
+          rany |= pick != 0u;
+          argmax_bits(pick, k, gr, bv, bi);
+          floor_cand(pick, k, bv, bi);
+        }
+        warp_argmax(bv, bi);
+        rany = __any_sync(kAll, rany);
+      } else {                           // the strong live ones that beat it
+        float cv = -INFINITY;
+        int ci = INT_MAX;
+        for (int j = lane; j < nlive; j += 32) {
+          const int v = lst[j];
+          if (bit(aux, v) && beats(gr[v], v, cv, ci)) {
+            cv = gr[v];
+            ci = v;
+          }
+        }
+        warp_argmax(cv, ci);
+        if (beats(cv, ci, bv, bi)) {
+          bv = cv;
+          bi = ci;
+        }
+      }
+      CLOCK(5)
+      if (rany) {                        // (C & adj[bi]) | {bi}
+        const bool was_in = bit(C, bi);
+        __syncwarp();
+        for (int k = lane; k < nk; k += 32) {
+          const uint32_t c = C[k];
+          uint32_t nxt = c & A[(size_t)k * as + bi];
+          if (k == (bi >> 5)) nxt |= 1u << (bi & 31);
+          const uint32_t gone = c & ~nxt;
+          for (uint32_t x = gone; x; x &= x - 1)
+            tabu[32 * k + __ffs(x) - 1] = stamp;
+          live[k] |= gone;
+          C[k] = nxt;
+        }
+        __syncwarp();
+        int nout = 0;                    // the old members that left
+        for (int j0 = 0; j0 < csize; j0 += 32) {
+          const int j = j0 + lane;
+          nout += __popc(
+              __ballot_sync(kAll, j < csize && !bit(C, mem[j])));
+        }
+        const int nsize = csize - nout + !was_in;
+        if (nout + !was_in > nsize + 1) {  // fewer rows to count anew
+          CLOCK(6)
+          rebuild();
+          CLOCK(7)
+          recount();
+          CLOCK(6)
+        } else {
+          int x_in = was_in ? -1 : bi;   // paired with the first to leave
+          for (int j0 = 0; j0 < csize; j0 += 32) {
+            const int j = j0 + lane;
+            uint32_t g = __ballot_sync(kAll, j < csize && !bit(C, mem[j]));
+            for (; g; g &= g - 1) {
+              update_rows(x_in, mem[j0 + __ffs(g) - 1]);
+              x_in = -1;
             }
           }
-          rany |= pick;
-          const float val = pick ? gr[j] : kNeg;
-          if (beats(val, v, rv, ri)) {
-            rv = val;
-            ri = v;
-          }
-        }
-      }
-      warp_argmax(rv, ri);
-      rany = __any_sync(kAll, rany);
-      if (lane == 0) {
-        red_v[0][warp] = rv;
-        red_i[0][warp] = ri;
-        red_a[warp] = rany;
-      }
-      __syncthreads();
-    }
-
-    // ---- the move, by warp 0: the next C, then the stamps of the
-    // vertices that left it
-    if (warp == 0 && move != kNone) {
-      bool changed = true;
-      if (move == kRandom) {
-        rv = lane < nw ? red_v[0][lane] : -INFINITY;
-        ri = lane < nw ? red_i[0][lane] : INT_MAX;
-        warp_argmax(rv, ri);
-        changed = __any_sync(kAll, lane < nw && red_a[lane]);
-        if (changed) {                   // (C & adj[ri]) | {ri}
-          for (int k = lane; k < nk; k += 32)
-            nxt[k] = C[k] & A[(size_t)k * as + ri];
+          if (x_in >= 0) update_rows(x_in, -1);
           __syncwarp();
-          if (lane == 0) nxt[ri >> 5] |= 1u << (ri & 31);
-        }
-      } else {
-        const int x = sc.mv;
-        const int partner = first_nonadj(C, A, as, x, nk, lane);
-        copy_bits(nxt, C, nk, lane);
-        __syncwarp();
-        if (lane == 0) {
-          if (move == kLocal) {          // insert x, or swap it in
-            nxt[x >> 5] |= 1u << (x & 31);
-            if (sc.use_swap) nxt[partner >> 5] &= ~(1u << (partner & 31));
-          } else {                       // directed: remove, insert, swap
-            const bool rem = bit(C, x);
-            if (rem)
-              nxt[x >> 5] &= ~(1u << (x & 31));
-            else
-              nxt[x >> 5] |= 1u << (x & 31);
-            if (bit(om_s, x) && !rem)
-              nxt[partner >> 5] &= ~(1u << (partner & 31));
-          }
+          CLOCK(6)
+          rebuild();
         }
       }
-      if (changed) {
-        __syncwarp();
-        const int stamp = it + sc.tenure;
-        int c = 0;
-        for (int k = lane; k < nk; k += 32) {
-          for (unsigned m = C[k] & ~nxt[k]; m; m &= m - 1)
-            tabu[32 * k + __ffs(m) - 1] = stamp;
-          C[k] = nxt[k];
-          c += __popc(nxt[k]);
-        }
-        for (int off = 16; off > 0; off >>= 1)
-          c += __shfl_xor_sync(kAll, c, off);
-        if (lane == 0) sc.csize = c;
-      }
+    } else {
+      CLOCK(5)
     }
-    __syncthreads();
+    __syncwarp();
+    CLOCK(7)
   }
+  CLOCK_END
+  if (kStateS) cp_async_wait<0>();
+  __syncwarp();
 
-  // ---- write the state back
-  for (int v = tid; v < V; v += nt) {
+  // ---- write the state back (the ring's masks were written in place)
+  for (int v = lane; v < V; v += 32) {
     a.in_c[rv0 + v] = bit(C, v);
     a.best[rv0 + v] = bit(best, v);
     a.cp[rv0 + v] = bit(cp, v);
     a.tabu[rv0 + v] = tabu[v];
   }
-  for (int i = tid; i < S * V; i += nt) {
-    const int s = i / V, v = i - s * V;
-    a.sol_masks[(size_t)r * S * V + i] = bit(ring + s * nk, v);
+  for (int s = lane; s < S; s += 32)
+    a.sol_scores[(size_t)r * S + s] = ring_s[s];
+  if (lane == 0) {
+    a.fbest[r] = fbest;
+    a.wcnt[r] = wcnt;
+    a.l_left[r] = l_left;
+    a.use_directed[r] = (uint8_t)use_dir;
+    a.sol_next[r] = sol_next;
   }
-  for (int s = tid; s < S; s += nt) a.sol_scores[(size_t)r * S + s] = ring_s[s];
-  if (tid == 0) {
-    a.fbest[r] = sc.fbest;
-    a.wcnt[r] = sc.wcnt;
-    a.l_left[r] = sc.l_left;
-    a.use_directed[r] = (uint8_t)sc.use_directed;
-    a.sol_next[r] = sc.sol_next;
-  }
-}
-
-int per_thread(int V) {
-  return V <= kMaxThreads ? 1 : V <= 2 * kMaxThreads ? 2
-                              : V <= 4 * kMaxThreads ? 4 : 8;
 }
 
 // Allows `kernel` `bytes` of dynamic shared memory on the current device
-// when above 48 KB.  Each (kernel, device) is set once, to the most asked
-// for: an eager call before a graph's capture sets it, and the capture
-// makes no such call.  `allowed` is the kernel's per-device record.
+// when that and the kernel's static shared memory (under kStaticSmem)
+// pass 48 KB.  Each (kernel, device) is set once, to the most asked for:
+// an eager call before a graph's capture sets it, and the capture makes
+// no such call.  `allowed` is the kernel's per-device record.
 cudaError_t allow_smem(const void* kernel, size_t bytes, size_t* allowed) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
+  if (bytes + kStaticSmem <= 48 * 1024) return cudaSuccess;
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -695,22 +1258,19 @@ cudaError_t allow_smem(const void* kernel, size_t bytes, size_t* allowed) {
   return err;
 }
 
-template <int kPer>
+template <int kTier>
 cudaError_t launch_bls(const BlsArgs& a, cudaStream_t stream) {
   static size_t allowed[kMaxDevices] = {};
-  const Layout L = layout(a.V, a.S);
-  const int threads = ((a.V + kPer - 1) / kPer + 31) / 32 * 32;
   const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(bls_steps_kernel<kPer>), L.total,
+      reinterpret_cast<const void*>(bls_steps_kernel<kTier>), a.L.smem,
       allowed);
   if (err != cudaSuccess) return err;
-  bls_steps_kernel<kPer><<<a.R, threads, L.total, stream>>>(a);
+  const int blocks = (a.R + a.L.wpb - 1) / a.L.wpb;
+  bls_steps_kernel<kTier><<<blocks, 32 * a.L.wpb, a.L.smem, stream>>>(a);
   return cudaGetLastError();
 }
 
 }  // namespace
-
-extern "C" int mwcp_max_vertices() { return kMaxV; }
 
 // Launches greedy_start_kernel on `stream`: in_c [R, V] from orders [R, V]
 // (int64 permutations), adj [V, V], valid [V] (bool), weights [V] float32.
@@ -739,8 +1299,26 @@ extern "C" int clique_weight_launch(const uint8_t* masks, const float* weights,
   return (int)cudaGetLastError();
 }
 
-// Launches pack_adj_kernel into `packed` ([ceil(V/32), V] words) and then
-// bls_steps_kernel (n iterations, one block per replica) on `stream`.
+// The int32 words of bls_steps_launch's `scratch` for R replicas of a
+// V-vertex graph with S ring slots: the packed adjacency, and each
+// replica's state where it does not fit in shared memory (tier 2).
+extern "C" long long bls_scratch_words(int R, int V, int S) {
+  const Layout L = layout(V, S);
+  return L.a_words + (L.tier == 2 ? (long long)R * L.rep : 0);
+}
+
+// The layout of a V-vertex graph with S ring slots: out = {tier, replicas a
+// block, dynamic shared memory bytes a block}.
+extern "C" void bls_layout(int V, int S, long long* out) {
+  const Layout L = layout(V, S);
+  out[0] = L.tier;
+  out[1] = L.wpb;
+  out[2] = (long long)L.smem;
+}
+
+// Launches pack_adj_kernel into `scratch` and then bls_steps_kernel (n
+// iterations, one warp per replica) on `stream`.  `scratch` holds
+// bls_scratch_words(R, V, S) int32 words.
 extern "C" int bls_steps_launch(
     const float* weights, const uint8_t* adj, const uint8_t* valid,
     const float* l0, const float* lmax, uint8_t* in_c, int32_t* tabu,
@@ -748,23 +1326,34 @@ extern "C" int bls_steps_launch(
     uint8_t* use_directed, uint8_t* sol_masks, float* sol_scores,
     int64_t* sol_next, const int32_t* it, const float* u_dir,
     const float* g_dir, const float* u_ten, const float* g_rnd,
-    uint32_t* packed, int R, int V, int S, int I, int n, int t_nonimprove,
+    uint32_t* scratch, int R, int V, int S, int I, int n, int t_nonimprove,
     int phi, float p0, float alpha_s, float alpha_r, void* stream) {
   if (R <= 0 || V <= 0 || n <= 0) return (int)cudaSuccess;
-  if (V > kMaxV) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  pack_adj_kernel<<<(V + 7) / 8, 256, 0, st>>>(adj, V, packed);
+  const Layout L = layout(V, S);
+  pack_adj_kernel<<<(V + 7) / 8, 256, 0, st>>>(adj, V, L.as, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const BlsArgs a{weights, valid, packed, l0, lmax, in_c, tabu, fbest, best,
-                  cp, wcnt, l_left, use_directed, sol_masks, sol_scores,
-                  sol_next, it, u_dir, g_dir, u_ten, g_rnd, V, R, S, I, n,
-                  t_nonimprove, phi, p0, alpha_s, alpha_r};
-  switch (per_thread(V)) {
+  const int aligned16 = V % 4 == 0 && (uintptr_t)g_dir % 16 == 0 &&
+                        (uintptr_t)g_rnd % 16 == 0;
+  const BlsArgs a{weights, valid, scratch, l0, lmax, in_c, tabu, fbest,
+                  best, cp, wcnt, l_left, use_directed, sol_masks,
+                  sol_scores, sol_next, it, u_dir, g_dir, u_ten, g_rnd, V,
+                  R, S, I, n, t_nonimprove, phi, p0, alpha_s, alpha_r,
+                  aligned16, L};
+  switch (L.tier) {
+    case 0: err = launch_bls<0>(a, st); break;
     case 1: err = launch_bls<1>(a, st); break;
-    case 2: err = launch_bls<2>(a, st); break;
-    case 4: err = launch_bls<4>(a, st); break;
-    default: err = launch_bls<8>(a, st); break;
+    default: err = launch_bls<2>(a, st); break;
   }
   return (int)err;
 }
+
+#ifdef MWCP_BLS_CLOCKS
+// the clock split of the last launch: 16 entries a replica (see
+// CLOCK_END)
+extern "C" int bls_clocks(long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, g_bls_clocks,
+                                   sizeof(long long) * 16 * n);
+}
+#endif

@@ -321,28 +321,41 @@ def bls_work(st, f, cfg, n: int) -> dict:
 # the kernels
 # ---------------------------------------------------------------------------
 
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C entry points of a library built from csrc/mwcp_bls.cu
+    (its argument types: a pointer as c_void_p, not a 32-bit int)."""
+    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.greedy_start_launch.restype = i
+    lib.greedy_start_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
+    lib.bls_steps_launch.restype = i
+    lib.bls_steps_launch.argtypes = [p] * 22 + [i] * 7 + [fl] * 3 + [p]
+    lib.bls_scratch_words.restype = ctypes.c_longlong
+    lib.bls_scratch_words.argtypes = [i] * 3
+    lib.bls_layout.restype = None
+    lib.bls_layout.argtypes = [i, i, p]
+    lib.clique_weight_launch.restype = i
+    lib.clique_weight_launch.argtypes = [p, p, i, i, p, p]
+    return lib
+
+
 def build() -> ctypes.CDLL:
     """The library of csrc/mwcp_bls.cu, built at first use (once per
     source hash) and loaded once."""
     lib, _, _ = build_library("mwcp_bls.cu")
     if lib.bls_steps_launch.argtypes is None:
-        p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.greedy_start_launch.restype = i
-        lib.greedy_start_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
-        lib.bls_steps_launch.restype = i
-        lib.bls_steps_launch.argtypes = ([p] * 22 + [i] * 7 + [fl] * 3
-                                         + [p])
-        lib.mwcp_max_vertices.restype = i
-        lib.mwcp_max_vertices.argtypes = []
-        lib.clique_weight_launch.restype = i
-        lib.clique_weight_launch.argtypes = [p, p, i, i, p, p]
-        if lib.mwcp_max_vertices() != MAX_VERTICES:
-            raise RuntimeError("mwcp_bls.cu and mwcp_kernel.py disagree on "
-                               "the largest graph")
+        bind(lib)
     return lib
 
 
-MAX_VERTICES = 4096          # bls_steps_kernel: 8 vertices a thread
+def bls_layout(v: int, s: int) -> dict:
+    """Where the BLS kernel keeps a V-vertex graph with S ring slots (see
+    csrc/mwcp_bls.cu): {"tier": 0 (adjacency, state and fields in shared
+    memory), 1 (the adjacency in device memory) or 2 (all in device
+    memory), "replicas_per_block", "smem_bytes"}."""
+    out = (ctypes.c_longlong * 3)()
+    build().bls_layout(v, s, out)
+    return {"tier": out[0], "replicas_per_block": out[1],
+            "smem_bytes": out[2]}
 
 
 def _need(name, x, dtype, shape):
@@ -491,18 +504,20 @@ def _check_bls(st, f, n):
         raise ValueError(f"n must be >= 0, got {n}")
 
 
-def _launch_bls(st, f, cfg, n, packed) -> None:
+def _launch_bls(st, f, cfg, n, scratch, lib=None) -> None:
     """Launch the BLS kernels (the adjacency's packing, then n iterations)
     on checked tensors on the current stream: no count, `it` not
-    advanced.  bls_steps' launch path, and a timing loop's."""
+    advanced.  bls_steps' launch path, and a timing loop's; `lib` another
+    build of the same source (bind()-declared), the package's by
+    default."""
     r, v = st.in_c.shape
-    lib = build()
+    lib = lib or build()
     dev = st.in_c.device
     ptrs = [x.data_ptr() for x in (
         st.weights, st.adj, st.valid, st.l0, st.lmax, st.in_c, st.tabu,
         st.fbest, st.best, st.cp, st.wcnt, st.l_left, st.use_directed,
         st.sol_masks, st.sol_scores, st.sol_next, st.it, f.u_dir, f.g_dir,
-        f.u_ten, f.g_rnd, packed)]
+        f.u_ten, f.g_rnd, scratch)]
     with torch.cuda.device(dev):
         err = lib.bls_steps_launch(
             *ptrs, r, v, st.sol_masks.shape[1], f.g_dir.shape[0], n,
@@ -514,10 +529,13 @@ def _launch_bls(st, f, cfg, n, packed) -> None:
                            f"{err}")
 
 
-def packed_adjacency(v: int, device) -> torch.Tensor:
-    """Scratch for the kernel's bit-packed adjacency of a V-vertex graph."""
-    return torch.empty(((v + 31) // 32) * v, dtype=torch.int32,
-                       device=device)
+def bls_scratch(st) -> torch.Tensor:
+    """The BLS kernel's scratch for a solve state's shapes: the packed
+    adjacency, and the replicas' state where it does not fit in shared
+    memory."""
+    r, v = st.in_c.shape
+    words = build().bls_scratch_words(r, v, st.sol_masks.shape[1])
+    return torch.empty(words, dtype=torch.int32, device=st.in_c.device)
 
 
 def bls_steps(st, f, cfg, n: int) -> None:
@@ -534,15 +552,12 @@ def bls_steps(st, f, cfg, n: int) -> None:
     if dev.type == "cpu":
         return bls_steps_reference(st, f, cfg, n)
     r, v = st.in_c.shape
-    if v > MAX_VERTICES:
-        raise ValueError(f"bls_steps: the kernel takes up to {MAX_VERTICES} "
-                         f"vertices, got {v}")
     if any(not t.is_contiguous() for t in tensors):
         raise ValueError("bls_steps: the state and fields must be "
                          "contiguous (they are written in place)")
     if n == 0 or r == 0 or v == 0:
         return None
-    _launch_bls(st, f, cfg, n, packed_adjacency(v, dev))
+    _launch_bls(st, f, cfg, n, bls_scratch(st))
     st.it.add_(n)
     bls_steps.launches += 1
     return None

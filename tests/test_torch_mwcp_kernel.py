@@ -5,10 +5,13 @@ with ties in the weights, a -inf weight outside the graph, an empty valid
 set and bounds below V); `bls_steps` run in pieces against one call of
 the whole count (bit-equal, `it` advanced); `clique_weights`, on CPU
 tensors torch.sum; the wrappers' checks; the work counts behind the
-kernels' bounds against a hand count; and (on a card only) the CUDA
-kernels against their plain versions, bit-equal on graphs whose weights
-are integers (every sum exact in any order), the clique weights bit-equal
-to an ascending float32 sum."""
+kernels' bounds against a hand count; the plain solve against the JAX
+solve past the size where the BLS kernel's state leaves shared memory
+(V = 4160, not a multiple of 32); a random move that drops most of the
+clique in one iteration; and (on a card only) the CUDA kernels against
+their plain versions, bit-equal on graphs whose weights are integers
+(every sum exact in any order) at V from 64 to 8192, the clique weights
+bit-equal to an ascending float32 sum."""
 
 import jax
 import jax.numpy as jnp
@@ -16,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from mcmtt_opticalflow_tpu.config import SolverConfig as JaxSolverConfig
 from mcmtt_opticalflow_tpu.models import mwcp as jax_mwcp
 from mcmtt_opticalflow_tpu_torch import config as tcfg
 from mcmtt_opticalflow_tpu_torch.models import mwcp
@@ -25,7 +29,8 @@ from mcmtt_opticalflow_tpu_torch.ops.mwcp_kernel import (
     clique_weights_reference, clique_work, greedy_start,
     greedy_start_reference, greedy_work)
 from mcmtt_opticalflow_tpu_torch.utils import prng
-from torch_parity import cuda_device  # noqa: F401
+from torch_parity import (cuda_device, jax_mwcp_fields,  # noqa: F401
+                          to_torch_fields)
 
 torch.set_num_threads(2)
 
@@ -291,10 +296,13 @@ def test_bls_work_hand_count():
 def test_cuda_kernels_equal_plain_versions(cuda_device):
     """Both kernels against their plain versions on the card, on graphs
     with integer weights (every sum exact whatever its order), at V from
-    64 to 2048 (the adjacency read from device memory past ~1300)."""
+    64 to 8192: the adjacency in shared memory up to ~1200 vertices, in
+    device memory above, and the replicas' state there too past ~5000
+    (4160 is no multiple of 32, 8192 twice the old kernel's limit)."""
     mwcp_kernel.build()
     for seed, (v, n) in enumerate([(64, 60), (256, 220), (1024, 700),
-                                   (2048, 1400)]):
+                                   (2048, 1400), (4160, 4100),
+                                   (8192, 8000)]):
         st, f, cfg = _state(seed, v=v, n=n, r=10, iters=100, integer=True)
         st = type(st)(*[x.to(cuda_device) for x in st])
         f = type(f)(*[x.to(cuda_device) for x in f])
@@ -314,6 +322,118 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
         bls_steps_reference(ref, f, cfg, 100)
         for name, a, b in zip(st._fields, st, ref):
             assert torch.equal(a, b), (v, name)
+
+
+def _drop_state(r=4, v=48, iters=40):
+    """A clique of 8 (vertices 0-7) and 40 free vertices adjacent to vertex
+    0 only, integer weights, every replica perturbing (l_left = 5) with
+    directed moves ruled out (u_dir = 1, use_directed False): the first
+    iteration's random move keeps vertex 0 and the pick, and drops the
+    other 7 members."""
+    adj = np.zeros((v, v), bool)
+    adj[:8, :8] = True
+    adj[0, 8:] = adj[8:, 0] = True
+    np.fill_diagonal(adj, False)
+    w = np.where(np.arange(v) < 8, 3.0, 1.0).astype(np.float32)
+    cfg = tcfg.SolverConfig(num_replicas=r, max_vertices=v,
+                            solutions_per_replica=8)
+    f = mwcp.threefry_fields(prng.prng_key(5), r, v, iters, "cpu")
+    f = f._replace(u_dir=torch.ones_like(f.u_dir))
+    in_c = torch.zeros((r, v), dtype=torch.bool)
+    in_c[:, :8] = True
+    st = mwcp.BlsState(
+        weights=torch.from_numpy(w), adj=torch.from_numpy(adj),
+        valid=torch.ones(v, dtype=torch.bool), l0=torch.tensor(1.0),
+        lmax=torch.tensor(4.0), in_c=in_c,
+        tabu=torch.zeros((r, v), dtype=torch.int32),
+        fbest=torch.full((r,), 24.0), best=in_c.clone(), cp=in_c.clone(),
+        wcnt=torch.zeros(r, dtype=torch.int32), l_left=torch.full((r,), 5.0),
+        use_directed=torch.zeros(r, dtype=torch.bool),
+        sol_masks=torch.zeros((r, 8, v), dtype=torch.bool),
+        sol_scores=torch.full((r, 8), NEG),
+        sol_next=torch.zeros(r, dtype=torch.int64),
+        it=torch.zeros(1, dtype=torch.int32))
+    return st, f, cfg
+
+
+def test_random_move_drops_most_of_the_clique():
+    """The plain version on _drop_state: one iteration leaves vertex 0 and
+    one of the free vertices, the 7 others stamped tabu."""
+    st, f, cfg = _drop_state()
+    bls_steps(st, f, cfg, 1)
+    assert torch.equal(st.in_c.sum(-1), torch.full((4,), 2))
+    assert st.in_c[:, 0].all() and not st.in_c[:, 1:8].any()
+    assert (st.tabu[:, 1:8] > 0).all() and (st.tabu[:, 8:] == 0).all()
+    bls_steps(st, f, cfg, 39)               # and on from there
+    assert int(st.it) == 40
+
+
+def test_plain_solve_equals_jax_past_shared_memory():
+    """The port's solve (plain version) against the JAX solve_mwcp at V =
+    4160 (n = 4100 valid, R = 4, S = 8, 20 iterations) on the JAX fields:
+    the size at which the BLS kernel keeps its adjacency in device memory
+    and which the kernel before it refused.  Masks equal, scores within
+    1e-4, as test_torch_ops.py::test_mwcp_with_jax_fields."""
+    rng = np.random.RandomState(11)
+    v, n, iters = 4160, 4100, 20
+    w = np.zeros(v, np.float32)
+    w[:n] = rng.rand(n).astype(np.float32) * 10
+    up = np.triu(rng.rand(v, v) < 0.45, 1)
+    adj = up | up.T
+    adj[n:] = False
+    adj[:, n:] = False
+    valid = np.arange(v) < n
+    init = np.zeros((3, v), bool)         # a clique, a non-clique, empty
+    init[0, 0] = True
+    for u in range(1, n):
+        if adj[u, init[0]].all():
+            init[0, u] = True
+    init[1, :5] = True
+    cfg = tcfg.SolverConfig(num_replicas=4, max_vertices=v,
+                            solutions_per_replica=8, seed=11)
+    jcfg = JaxSolverConfig(num_replicas=4, max_vertices=v,
+                           solutions_per_replica=8, seed=11)
+    key = jax.random.PRNGKey(211)
+    ref = jax_mwcp.solve_mwcp(jnp.asarray(w), jnp.asarray(adj),
+                              jnp.asarray(valid), jnp.asarray(init), key,
+                              jcfg, iters)
+    fields = to_torch_fields(jax_mwcp_fields(key, 4, v, iters))
+
+    class Fixed:
+        def draw(self, r, v_, iters_pad, device):
+            assert (r, v_, iters_pad) == (4, v, iters)
+            return fields
+
+    got = mwcp.solve_mwcp(*_t(w, adj, valid, init), Fixed(), cfg, iters)
+    assert init[0].sum() > 3 and np.asarray(ref.best_score).min() > 0
+    np.testing.assert_array_equal(got.best_mask.numpy(),
+                                  np.asarray(ref.best_mask))
+    np.testing.assert_array_equal(got.sol_masks.numpy(),
+                                  np.asarray(ref.sol_masks))
+    np.testing.assert_allclose(got.best_score.numpy(),
+                               np.asarray(ref.best_score), rtol=1e-6,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.sol_scores.numpy(),
+                               np.asarray(ref.sol_scores), rtol=1e-6,
+                               atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_random_move_drops_most_of_the_clique(cuda_device):
+    """The BLS kernel against its plain version on _drop_state, after the
+    first iteration (7 of 8 members dropped at once: the kernel counts its
+    neighbour state anew) and after 39 more."""
+    ref, f_cpu, cfg = _drop_state()
+    st = type(ref)(*[x.to(cuda_device) for x in ref])
+    f = type(f_cpu)(*[x.to(cuda_device) for x in f_cpu])
+    for n in (1, 39):
+        launches = bls_steps.launches
+        bls_steps(st, f, cfg, n)
+        assert bls_steps.launches == launches + 1
+        bls_steps_reference(ref, f_cpu, cfg, n)
+        for name, a, b in zip(st._fields, st, ref):
+            assert torch.equal(a.cpu(), b), (n, name)
+    assert int(st.in_c.sum()) < 4 * 8
 
 
 @pytest.mark.cuda
