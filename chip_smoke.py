@@ -96,10 +96,11 @@ count), which slows graph launches for the rest of the process:
      completion, eager against replay, on those inputs; the device ms of
      each stage of the body (field draw, window scores, compatibility,
      greedy start, BLS per iteration, K-best), each stage replayed as
-     one graph between CUDA events; then the bench main path again on
-     the eager body (run_bench with every engine routed to it): its
-     frames/s and hyp.dispatch beside phase 3d's graph route, and its
-     MOTA equal;
+     one graph between CUDA events queued behind a sleep kernel, and the
+     BLS block's kernel alone over the same iterations from the same
+     states; then the bench main path again on the eager body
+     (run_bench with every engine routed to it): its frames/s and
+     hyp.dispatch beside phase 3d's graph route, and its MOTA equal;
   3b. both kernels on the LK calls recorded in phase 3d: each call
      against the plain version at the limits of phase 2; the
      distribution of |final - initial estimate| (plain version) beside
@@ -193,9 +194,10 @@ count), which slows graph launches for the rest of the process:
      (ops/mwcp_kernel.py::greedy_work, bls_work, clique_work), the serial
      steps (greedy rounds, BLS iterations, additions), and on every
      PLAIN_EVERY-th solve a 50-iteration BLS block replayed as a graph
-     (phase 3c's measure); the BLS kernel's device-only µs per iteration
-     on the 12 CLI solves too; both beside phase 3c's one-frame block and
-     its kernel alone, the gap between them split.
+     (phase 3c's measure) and its kernel alone over the same iterations
+     from the same states; the BLS kernel's device-only µs per iteration
+     on the 12 CLI solves too; all beside phase 3c's one-frame block and
+     its kernel alone, with the measured differences.
 
 The whole script takes about 5 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
@@ -215,7 +217,8 @@ The solver's kernels, on phase 11's recorded bench solves, per solve (a
 greedy start, the start's clique weights: 1 launch each; the BLS: its
 150 iterations, timed as 1 launch): the same keys, with `serial_steps`
 (and the BLS's `device_us_per_iteration`, `_cli` on the CLI's solves,
-`graph_block_us_per_iteration`, and `layout`: where the kernel keeps
+`graph_block_us_per_iteration`, `kernel_block_us_per_iteration`, and
+`layout`: where the kernel keeps
 the graph and the state); their main-path and CLI launches are kernel
 runs counted by CUPTI.
 The last line is {"ok": true, "device": {...}}.
@@ -1070,26 +1073,58 @@ class _EagerRoute:
         self.cls._program = self.orig
 
 
-def _graph_ms(fn, reps=5, before=None):
-    """Device ms of fn's kernels: fn captured as one CUDA graph, replayed
-    between two CUDA events, median of `reps`; `before` runs ahead of
-    each replay, outside the events."""
+def _events_ms(run, reps=5, before=None):
+    """Device ms of what run() queues, between two CUDA events queued
+    behind a ~10 ms sleep kernel (so the host's launch work falls outside
+    them), median of `reps`; `before` runs ahead of each, outside the
+    events."""
     import torch
-    from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
-    g = Graphed(fn, "cuda")
-    g.capture()
     times = []
     for _ in range(reps):
         if before is not None:
             before()
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
         a.record()
-        g.graph.replay()
+        run()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
     return sorted(times)[reps // 2]
+
+
+def _graph_ms(fn, reps=5, before=None):
+    """Device ms of fn's kernels: fn captured as one CUDA graph, replayed
+    between two CUDA events, median of `reps`; `before` runs ahead of
+    each replay, outside the events."""
+    from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+    g = Graphed(fn, "cuda")
+    g.capture()
+    return _events_ms(g.graph.replay, reps, before)
+
+
+def _block_us(st, f, cfg, blk):
+    """A BLS block of `blk` iterations from the solve state `st`, timed two
+    ways: as the captured program replays it (the adjacency's packing,
+    the kernel, `it` advanced: one CUDA graph) on `st`, and the kernel
+    alone (no packing, no graph) on a copy of it taken first.  Every run
+    starts at iteration 0 (`it` zeroed ahead of it, outside the events)
+    from the state the run before it left, after one warm-up run (the
+    graph's capture runs one), so both time the same iterations from the
+    same states.  Returns (graph, kernel alone) in µs an iteration."""
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+    b = _clone_state(st)
+    graph = _graph_ms(lambda: mk.bls_steps(st, f, cfg, blk),
+                      before=lambda: st.it.zero_())
+    scratch = mk.bls_scratch(b)
+
+    def alone():
+        mk._launch_bls(b, f, cfg, blk, scratch)
+    b.it.zero_()
+    alone()
+    kernel = _events_ms(alone, before=lambda: b.it.zero_())
+    return 1e3 * graph / blk, 1e3 * kernel / blk
 
 
 def _stage_ms(assoc, host, key, iters):
@@ -1099,8 +1134,7 @@ def _stage_ms(assoc, host, key, iters):
         FrameProgram, _compat_from, incompat_rows)
     from mcmtt_opticalflow_tpu_torch.models.costs import score_track_windows
     from mcmtt_opticalflow_tpu_torch.models.mwcp import (
-        bls_result, bls_start, bls_steps, iters_padded, threefry_fields)
-    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+        bls_result, bls_start, iters_padded, threefry_fields)
     cfg, acfg = assoc._solver_cfg_fused, assoc.acfg
     r, vmax = cfg.num_replicas, cfg.max_vertices
     ip = iters_padded(cfg, iters)
@@ -1113,8 +1147,8 @@ def _stage_ms(assoc, host, key, iters):
     f = threefry_fields(kd, r, vmax, ip, dev)
     _, weights, adj, valid = assoc._score_graph(*t[:12], cols)
     st = bls_start(weights, adj, valid, t[12], f, cfg, nb)
-    scratch = mk.bls_scratch(st)
     blk = FrameProgram.BLOCK
+    block = _block_us(st, f, cfg, blk)
     out = {
         "field draw": _graph_ms(
             lambda: threefry_fields(kd, r, vmax, ip, dev)),
@@ -1127,19 +1161,14 @@ def _stage_ms(assoc, host, key, iters):
             lambda: assoc._score_graph(*t[:12], cols)),
         "greedy start (bls_start)": _graph_ms(
             lambda: bls_start(weights, adj, valid, t[12], f, cfg, nb)),
-        # each timed block starts at iteration 0, inside the fields
-        f"BLS per iteration (a block of {blk})": _graph_ms(
-            lambda: bls_steps(st, f, cfg, blk),
-            before=lambda: st.it.zero_()) / blk,
-        # the same block's BLS kernel alone (no packing, no graph), from
-        # the state the replays left
-        f"BLS kernel alone per iteration (a block of {blk})": device_us(
-            lambda: mk._launch_bls(st, f, cfg, blk, scratch), reps=10,
-            runs=5) / 1e3 / blk,
+        # the block and its kernel alone, over the same iterations from
+        # the same states (_block_us)
+        f"BLS per iteration (a block of {blk})": block[0] / 1e3,
+        f"BLS kernel alone per iteration (a block of {blk})": block[1] / 1e3,
         "K-best and packing": _graph_ms(
             lambda: assoc._pack_k_best(bls_result(st))),
     }
-    return {k: round(v, 4) for k, v in out.items()}
+    return {k: round(v, 6) for k, v in out.items()}
 
 
 def phase_graphs(cfg, sc, frames, card):
@@ -1678,10 +1707,9 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
     kernel, median of 3, as phase 3b), its wrapper's host µs per call and
     the bound from greedy_work / bls_work / clique_work; on every
     PLAIN_EVERY-th solve the plain versions' ms (with `plain_too`) and a
-    BLOCK-iteration BLS block as the captured program replays it (the
-    adjacency's packing, the kernel, `it` advanced: one CUDA graph,
-    phase 3c's measure).  Returns the kernels-line summaries (means over
-    the solves)."""
+    BLOCK-iteration BLS block as the captured program replays it and its
+    kernel alone (_block_us, phase 3c's measure).  Returns the
+    kernels-line summaries (means over the solves)."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
@@ -1729,9 +1757,7 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
             0.0, 1e6 * bw["bound_s"], iters, bw["bytes"], bw["ops"],
             bw["bound_by"] == "bytes"))
         if n % PLAIN_EVERY == 0:
-            block_us.append(1e3 * _graph_ms(
-                lambda: mk.bls_steps(blk, f, cfg, FrameProgram.BLOCK),
-                before=lambda: blk.it.zero_()) / FrameProgram.BLOCK)
+            block_us.append(_block_us(blk, f, cfg, FrameProgram.BLOCK))
         if plain_too and n % PLAIN_EVERY == 0:   # eager plain versions: slow
 
             def plain_solve():
@@ -1754,7 +1780,8 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         "bound_by": "bytes" if bm[7] >= 0.5 else "operations",
         "device_us_per_launch": bm[0],
         "device_us_per_iteration": bm[0] / iters,
-        "graph_block_us_per_iteration": float(np.mean(block_us)),
+        "graph_block_us_per_iteration": float(np.mean(block_us, 0)[0]),
+        "kernel_block_us_per_iteration": float(np.mean(block_us, 0)[1]),
         "host_us_per_call": bm[1], "bound_us": bm[3], "serial_steps": iters,
         "layout": lay}
     if not plain_too:
@@ -1764,7 +1791,9 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
             f"({bm[0] / iters:.4f} us an iteration; min "
             f"{b[:, 0].min() / iters:.4f}, max {b[:, 0].max() / iters:.4f});"
             f" a {FrameProgram.BLOCK}-iteration block as a graph "
-            f"{np.mean(block_us):.4f} us an iteration; wrapper host "
+            f"{out_bls['graph_block_us_per_iteration']:.4f} us an iteration,"
+            f" its kernel alone "
+            f"{out_bls['kernel_block_us_per_iteration']:.4f}; wrapper host "
             f"{bm[1]:.3f} us/call; bound {bm[3]:.4f} us "
             f"({out_bls['bound_by']}), roofline share {bm[3] / bm[0]:.6f}")
         return {"bls_steps": out_bls}
@@ -1795,7 +1824,8 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         f"{bm[3] / iters:.6f} us an iteration), roofline share "
         f"{bm[3] / bm[0]:.6f}; serial steps {iters:.0f}; layout {lay}; a "
         f"{FrameProgram.BLOCK}-iteration block as a graph "
-        f"{np.mean(block_us):.4f} us an iteration")
+        f"{out_bls['graph_block_us_per_iteration']:.4f} us an iteration, "
+        f"its kernel alone {out_bls['kernel_block_us_per_iteration']:.4f}")
     return {"greedy_start": {
                 "ms": gm[0] / 1e3, "plain_ms": gm[2], "bound_ms": gm[3] / 1e3,
              "bound_by": g_by, "device_us_per_launch": gm[0],
@@ -1876,6 +1906,7 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     bit-equal to the plain version, and the bench and CLI solves timed;
     the BLS kernel's µs an iteration beside phase 3c's (`graph_stages`).
     Returns the kernels-line summaries by kernel name."""
+    from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
     if not bench_solves or not cli_solves:
         fail(f"mwcp: {len(bench_solves)} bench and {len(cli_solves)} CLI "
              f"solves recorded")
@@ -1888,26 +1919,28 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     bls = out["bls_steps"]
     bls["max_abs_err"] = max(err_b, err_c)
     bls["device_us_per_iteration_cli"] = cli["device_us_per_iteration"]
-    bls["graph_block_us_per_iteration_cli"] = \
-        cli["graph_block_us_per_iteration"]
+    for k in ("graph_block_us_per_iteration",
+              "kernel_block_us_per_iteration"):
+        bls[f"{k}_cli"] = cli[k]
     bls["layout_cli"] = cli["layout"]
     out["clique_weights"]["max_abs_err"] = max(cerr_b, cerr_c)
     blk = [k for k in graph_stages if k.startswith("BLS per iteration")][0]
     alone = [k for k in graph_stages if k.startswith("BLS kernel alone")][0]
     g3c, a3c = 1e3 * graph_stages[blk], 1e3 * graph_stages[alone]
     per_it = bls["device_us_per_iteration"]
-    log(f"mwcp: bls_steps device-only {per_it:.4f} us an iteration on the "
-        f"{len(bench_solves)} recorded bench solves (150 iterations in one "
-        f"launch) and {bls['graph_block_us_per_iteration']:.4f} as a "
-        f"50-iteration block replayed in a graph (the packing and `it` "
-        f"with it) on every {PLAIN_EVERY}th: on the same solves the block's "
-        f"packing and graph cost {bls['graph_block_us_per_iteration'] - per_it:+.4f}"
-        f" us an iteration; phase 3c's {blk}: {g3c:.1f} us, its kernel "
-        f"alone on that frame's state {a3c:.1f} (3c's 4-decimal ms): the "
-        f"{g3c - per_it:+.1f} us between 3c and the recorded solves is "
-        f"that one frame's state, not the block's launches; CLI "
-        f"{bls['device_us_per_iteration_cli']:.4f} us an iteration, "
-        f"{bls['graph_block_us_per_iteration_cli']:.4f} as a block ({card})")
+    g_rec = bls["graph_block_us_per_iteration"]
+    a_rec = bls["kernel_block_us_per_iteration"]
+    log(f"mwcp: bls_steps device-only us an iteration ({card}): the "
+        f"{len(bench_solves)} recorded bench solves, 150 iterations in one "
+        f"launch {per_it:.4f}; a {FrameProgram.BLOCK}-iteration block on "
+        f"every {PLAIN_EVERY}th, as a graph {g_rec:.4f} and its kernel "
+        f"alone {a_rec:.4f} (the packing and graph {g_rec - a_rec:+.4f}); "
+        f"phase 3c's one frame, as a graph {g3c:.4f} and its kernel alone "
+        f"{a3c:.4f} (the packing and graph {g3c - a3c:+.4f}; that frame's "
+        f"kernel against the recorded solves' {a3c - a_rec:+.4f}); CLI "
+        f"{bls['device_us_per_iteration_cli']:.4f}, as a block "
+        f"{bls['graph_block_us_per_iteration_cli']:.4f}, its kernel alone "
+        f"{bls['kernel_block_us_per_iteration_cli']:.4f}")
     return out
 
 

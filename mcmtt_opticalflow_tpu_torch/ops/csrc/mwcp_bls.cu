@@ -115,10 +115,6 @@
 
 #include <algorithm>
 
-#ifdef MWCP_BLS_CLOCKS
-__device__ long long g_bls_clocks[16 * 8192];
-#endif
-
 namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
@@ -541,33 +537,6 @@ __device__ __forceinline__ uint32_t beating_bits(uint32_t m, int k,
   return out;
 }
 
-#ifdef MWCP_BLS_CLOCKS
-// where an iteration's cycles go, per replica: the parts of
-// tools/bls_probe.py's CLOCK_PARTS, the random moves and the iterations
-#define CLOCK_START                                  \
-  long long clk_[8] = {0, 0, 0, 0, 0, 0, 0, 0};      \
-  long long clk_prev_ = clock64();                   \
-  int clk_rand_ = 0;
-#define CLOCK(i)                         \
-  {                                      \
-    const long long c_ = clock64();      \
-    clk_[i] += c_ - clk_prev_;           \
-    clk_prev_ = c_;                      \
-  }
-#define CLOCK_RANDOM ++clk_rand_;
-#define CLOCK_END                                                     \
-  if (lane == 0 && r < 8192) {                                        \
-    for (int q = 0; q < 8; ++q) g_bls_clocks[r * 16 + q] = clk_[q];   \
-    g_bls_clocks[r * 16 + 8] = clk_rand_;                             \
-    g_bls_clocks[r * 16 + 9] = steps;                                 \
-  }
-#else
-#define CLOCK_START
-#define CLOCK(i)
-#define CLOCK_RANDOM
-#define CLOCK_END
-#endif
-
 // One warp per replica, wpb replicas a block; see the file's comment.
 template <int kTier>
 __global__ void __launch_bounds__(32 * kMaxWarps)
@@ -846,7 +815,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
   float ud_c = u_at(a.u_dir, lane), ut_c = u_at(a.u_ten, lane);
   float ud_n = u_at(a.u_dir, 32 + lane), ut_n = u_at(a.u_ten, 32 + lane);
 
-  CLOCK_START
   for (int t = 0; t < steps; ++t) {
     const int it = it0 + t;
     const float* gd;
@@ -873,7 +841,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       ud_n = u_at(a.u_dir, t + 33 + lane);
       ut_n = u_at(a.u_ten, t + 33 + lane);
     }
-    CLOCK(0)
     // ---- PA = free & cnt == |C|, OM = free & cnt == |C| - 1, from the
     // count planes
     const bool searching = l_left <= 0.0f;
@@ -905,7 +872,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       omc += __popc(om);
     }
     omc = __reduce_add_sync(kAll, omc);
-    CLOCK(1)
     // the insert and swap gains, which only a local search reads: the PA
     // and OM vertices listed, four a lane
     if (searching) {
@@ -956,7 +922,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       warp_argmax(b0, i0);
       warp_argmax(b1, i1);
     }
-    CLOCK(2)
 
     // ---- the decision, every lane alike
     const float gi = b0, gs = b1;
@@ -1014,7 +979,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     const bool perturbing = l_left > 0.0f || at_opt;
     const int stamp = it + a.phi + (int)__fmul_rn(ut, (float)max(omc, 1));
     const float th = __fmul_rn(wcnt == 0 ? a.alpha_s : a.alpha_r, fc);
-    CLOCK(3)
     int move = do_ls ? kLocal : kNone;
     if (perturbing) {
       // the stamps this iteration reads: tabu[v] <= it; the directed mask,
@@ -1033,7 +997,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
     l_left = do_ls ? l_left : fmaxf(__fsub_rn(new_l, 1.0f), 0.0f);
     use_dir = at_opt ? directed : use_dir;
     __syncwarp();
-    CLOCK(4)
 
     // ---- the move
     if (move == kLocal || move == kDirected) {
@@ -1074,7 +1037,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       }
       if (ins >= 0 && bit(C, ins)) ins = -1;
       if (out >= 0 && !bit(C, out)) out = -1;
-      CLOCK(5)
       __syncwarp();
       if (lane == 0) {
         if (out >= 0) {
@@ -1086,7 +1048,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       }
       update_rows(ins, out);
       __syncwarp();
-      CLOCK(6)
       rebuild();
     } else if (move == kRandom) {
       // among free vertices whose stamp has expired or whose weight sum
@@ -1094,7 +1055,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
       // ones first: a live one can only win by beating their best, so
       // only such live ones sum their neighbours' weights (all of them
       // when no expired free vertex scores above NEG)
-      CLOCK_RANDOM
       float bv = -INFINITY;
       int bi = INT_MAX;
       bool tany = false;
@@ -1167,7 +1127,6 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           bi = ci;
         }
       }
-      CLOCK(5)
       if (rany) {                        // (C & adj[bi]) | {bi}
         const bool was_in = bit(C, bi);
         __syncwarp();
@@ -1190,11 +1149,8 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
         }
         const int nsize = csize - nout + !was_in;
         if (nout + !was_in > nsize + 1) {  // fewer rows to count anew
-          CLOCK(6)
           rebuild();
-          CLOCK(7)
           recount();
-          CLOCK(6)
         } else {
           int x_in = was_in ? -1 : bi;   // paired with the first to leave
           for (int j0 = 0; j0 < csize; j0 += 32) {
@@ -1207,17 +1163,12 @@ __global__ void __launch_bounds__(32 * kMaxWarps)
           }
           if (x_in >= 0) update_rows(x_in, -1);
           __syncwarp();
-          CLOCK(6)
           rebuild();
         }
       }
-    } else {
-      CLOCK(5)
     }
     __syncwarp();
-    CLOCK(7)
   }
-  CLOCK_END
   if (kStateS) cp_async_wait<0>();
   __syncwarp();
 
@@ -1348,12 +1299,3 @@ extern "C" int bls_steps_launch(
   }
   return (int)err;
 }
-
-#ifdef MWCP_BLS_CLOCKS
-// the clock split of the last launch: 16 entries a replica (see
-// CLOCK_END)
-extern "C" int bls_clocks(long long* out, int n) {
-  return (int)cudaMemcpyFromSymbol(out, g_bls_clocks,
-                                   sizeof(long long) * 16 * n);
-}
-#endif

@@ -321,29 +321,23 @@ def bls_work(st, f, cfg, n: int) -> dict:
 # the kernels
 # ---------------------------------------------------------------------------
 
-def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Declare the C entry points of a library built from csrc/mwcp_bls.cu
-    (its argument types: a pointer as c_void_p, not a 32-bit int)."""
-    p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.greedy_start_launch.restype = i
-    lib.greedy_start_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
-    lib.bls_steps_launch.restype = i
-    lib.bls_steps_launch.argtypes = [p] * 22 + [i] * 7 + [fl] * 3 + [p]
-    lib.bls_scratch_words.restype = ctypes.c_longlong
-    lib.bls_scratch_words.argtypes = [i] * 3
-    lib.bls_layout.restype = None
-    lib.bls_layout.argtypes = [i, i, p]
-    lib.clique_weight_launch.restype = i
-    lib.clique_weight_launch.argtypes = [p, p, i, i, p, p]
-    return lib
-
-
 def build() -> ctypes.CDLL:
     """The library of csrc/mwcp_bls.cu, built at first use (once per
     source hash) and loaded once."""
     lib, _, _ = build_library("mwcp_bls.cu")
     if lib.bls_steps_launch.argtypes is None:
-        bind(lib)
+        p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.greedy_start_launch.restype = i
+        lib.greedy_start_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
+        lib.bls_steps_launch.restype = i
+        lib.bls_steps_launch.argtypes = ([p] * 22 + [i] * 7 + [fl] * 3
+                                         + [p])
+        lib.bls_scratch_words.restype = ctypes.c_longlong
+        lib.bls_scratch_words.argtypes = [i] * 3
+        lib.bls_layout.restype = None
+        lib.bls_layout.argtypes = [i, i, p]
+        lib.clique_weight_launch.restype = i
+        lib.clique_weight_launch.argtypes = [p, p, i, i, p, p]
     return lib
 
 
@@ -504,14 +498,12 @@ def _check_bls(st, f, n):
         raise ValueError(f"n must be >= 0, got {n}")
 
 
-def _launch_bls(st, f, cfg, n, scratch, lib=None) -> None:
+def _launch_bls(st, f, cfg, n, scratch) -> None:
     """Launch the BLS kernels (the adjacency's packing, then n iterations)
     on checked tensors on the current stream: no count, `it` not
-    advanced.  bls_steps' launch path, and a timing loop's; `lib` another
-    build of the same source (bind()-declared), the package's by
-    default."""
+    advanced.  bls_steps' launch path, and a timing loop's."""
     r, v = st.in_c.shape
-    lib = lib or build()
+    lib = build()
     dev = st.in_c.device
     ptrs = [x.data_ptr() for x in (
         st.weights, st.adj, st.valid, st.l0, st.lmax, st.in_c, st.tabu,
