@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero), run in
-the order 1, 2, 3d, 3e, 3f, 3c, 3b, 4-8b, 10, 11, 9, 3, 3g, 10 counted:
+the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 9, 3, 3g,
+10 counted:
 every timed phase comes before the first CUPTI session (phase 3's kernel
 count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
@@ -74,16 +75,23 @@ count), which slows graph launches for the rest of the process:
      device ms against the eager step's ms to completion, capture s and
      the graph pool's bytes;
   3f. the JV kernel (jv_assign) against its plain version on every
-     frame's recorded [4, 48, 64] assignment of phase 3d and on 300
-     seeded random cases (tests/test_torch_ops.py's random and tie-heavy
+     frame's recorded [4, 48, 64] assignment of phase 3d, on every frame's
+     recorded assignment of the CLI (phase 10 eager), on 300 seeded
+     random cases (tests/test_torch_ops.py's random and tie-heavy
      generators at its shapes and the bench's, and more rows than
-     columns, up to [2, 300, 100]): col_of_row equal and match_cost equal
-     bit for bit; per frame the device-only µs per launch (timed as in
-     phase 3b), the wrapper's host µs per call, the plain version's ms
-     (the download and the host JV), the serial Dijkstra steps (the sum
-     over rows: the kernel's latency floor) and the bound: the larger of
-     the bytes over 3.35 TB/s and the float32 operations over 67 TFLOP/s
+     columns, up to [2, 300, 100]) and on JV_PAST_LIMIT's [1, 256, 256],
+     [1, 320, 320], [2, 400, 150] and [1, 12, 14000] (both generators;
+     an earlier kernel refused them; the last keeps even the column state
+     in the scratch): col_of_row equal and match_cost equal bit for bit;
+     per bench frame the device-only µs per launch (timed as in phase
+     3b), the wrapper's host µs per call, the plain version's ms (the
+     download and the host JV), the serial Dijkstra steps (the sum over
+     rows: the kernel's latency floor) and the bound: the larger of the
+     bytes over 3.35 TB/s and the float32 operations over 67 TFLOP/s
      (ops/hungarian.py::jv_work); an empty kernel's launch beside it;
+     the device-only ns a Dijkstra step (a launch over the slowest
+     camera's steps) on the bench's, the CLI's and the past-the-limit
+     cases;
   3g. the eager 2D route once more, under the CUPTI counter: every LK
      launch passes through the wrapper there, so the card's count equals
      the wrapper's (296 LK, 0 JV on the card): the check of phase 3's
@@ -172,8 +180,11 @@ count), which slows graph launches for the rest of the process:
      phase 3, 12 LK and 1 JV kernels run per 2D replay plus the capture's
      warm-up, the wrappers launch those of the capture's two calls, none
      on the CPU, no flat-gray frame), MOTA at w0/w3/w6 from the printed
-     table's results; run twice: timed (recording every solve's inputs
-     for phase 11), then counted (the solver's kernels as in phase 3);
+     table's results; run three times: on the eager 2D route (the
+     script's patch of phase 3d) to record every frame's assignment for
+     phase 3f, with only the table checked; timed (recording every
+     solve's inputs for phase 11); then counted (the solver's kernels as
+     in phase 3);
   11. mwcp: the solver's kernels (ops/mwcp_kernel.py) against their
      plain versions on the card, on the recorded solves of phase 3d (the
      bench, 37) and phase 10 (the CLI, 12): the greedy kernel bit-equal
@@ -188,7 +199,12 @@ count), which slows graph launches for the rest of the process:
      to ascending float32 sums bit for bit and to torch.sum within 1e-5
      relative.  Then synthetic solves past the BLS kernel's
      shared-memory layouts (V=6144 and V=16400, R=4, S=16, 60 iterations,
-     integer weights) bit-equal to the plain version.  Per bench solve:
+     integer weights) bit-equal to the plain version, their greedy starts
+     equal to the plain greedy's; the greedy kernel equal to its plain
+     version in each of its layouts: V=40000 (256 valid vertices, bound
+     256: tier 2; an earlier kernel refused it), V=6144 (tier 1), V=1100
+     (tier 0 past the register bit sets), and on an adjacency that is
+     not symmetric (V=1024, tier 0 in registers).  Per bench solve:
      each kernel's device-only µs (timed as in phase 3b), its wrapper's
      host µs, the plain version's ms and the bound
      (ops/mwcp_kernel.py::greedy_work, bls_work, clique_work), the serial
@@ -196,8 +212,11 @@ count), which slows graph launches for the rest of the process:
      PLAIN_EVERY-th solve a 50-iteration BLS block replayed as a graph
      (phase 3c's measure) and its kernel alone over the same iterations
      from the same states; the BLS kernel's device-only µs per iteration
-     on the 12 CLI solves too; all beside phase 3c's one-frame block and
-     its kernel alone, with the measured differences.
+     on the 12 CLI solves too, and the greedy kernel's µs a round (a
+     launch over the largest clique's rounds) on both; the clique
+     weights' library call, torch.sum(torch.where(...)), timed like the
+     kernel; all beside phase 3c's one-frame block and its kernel alone, with
+     the measured differences.
 
 The whole script takes about 5 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
@@ -212,11 +231,15 @@ kernel runs counted on the card for the graphed paths (main, cli:
 CUPTI; profile: trace events), the wrapper's count for the eager ones;
 `wrapper_launches` and `graph_replays_2d`, measured beside the card's
 counts on the graphed paths.  The JV kernel, on phase 3f's recorded
-frames, per bench frame (1 launch): the same keys, with `serial_steps`.
+frames, per bench frame (1 launch): the same keys, with `serial_steps`
+and `device_ns_per_step` (`_cli` on the CLI's frames,
+`_past_old_limit` by shape).
 The solver's kernels, on phase 11's recorded bench solves, per solve (a
 greedy start, the start's clique weights: 1 launch each; the BLS: its
 150 iterations, timed as 1 launch): the same keys, with `serial_steps`
-(and the BLS's `device_us_per_iteration`, `_cli` on the CLI's solves,
+(the greedy's `device_us_per_round`, `_cli` on the CLI's solves; the
+clique weights' `library_ms`; the BLS's `device_us_per_iteration`,
+`_cli` on the CLI's solves,
 `graph_block_us_per_iteration`, `kernel_block_us_per_iteration`, and
 `layout`: where the kernel keeps
 the graph and the state); their main-path and CLI launches are kernel
@@ -1254,13 +1277,27 @@ def phase_graphs(cfg, sc, frames, card):
     return rec, stages
 
 
+def jv_case(rng, shape, ties):
+    """One seeded assignment case: tests/test_torch_ops.py's tie-heavy
+    generator (five values, 30% forbidden) or its random one (costs over
+    five decades, 20% forbidden), 85% of rows and columns valid."""
+    import numpy as np
+    c, r, t = shape
+    if ties:
+        cost = rng.choice([0.0, 1.0, 2.0, 2.5, np.inf], (c, r, t),
+                          p=[0.2, 0.2, 0.2, 0.1, 0.3])
+    else:
+        cost = rng.rand(c, r, t) * 10 ** rng.uniform(-2, 3)
+        cost[rng.rand(c, r, t) < 0.2] = np.inf
+    return (cost.astype(np.float32), rng.rand(c, r) < 0.85,
+            rng.rand(c, t) < 0.85)
+
+
 def jv_cases(n=100):
-    """Seeded random assignment cases: `n` each of tests/test_torch_ops.py's
-    random generator (costs over five decades, 20% forbidden) and its
-    tie-heavy one (five values, 30% forbidden), 85% of rows and columns
-    valid, at its shapes and the tracker's, and `n` with more rows than
-    columns (the transposed solve), up to [2, 300, 100] (shared memory
-    above 48 KB)."""
+    """Seeded random assignment cases: `n` each of jv_case's random and
+    tie-heavy generators at tests/test_torch_ops.py's shapes and the
+    tracker's, and `n` with more rows than columns (the transposed
+    solve), up to [2, 300, 100]."""
     import numpy as np
     rng = np.random.RandomState(0)
     square = [(3, 5, 7), (2, 6, 6), (4, 16, 32), (4, 32, 64), (4, 48, 64),
@@ -1270,30 +1307,29 @@ def jv_cases(n=100):
     for kind, shapes in (("random", square), ("ties", square),
                          ("rows > columns", tall)):
         for k in range(n):
-            c, r, t = shapes[k % len(shapes)]
             ties = kind == "ties" or (kind != "random" and k % 2)
-            if ties:
-                cost = rng.choice([0.0, 1.0, 2.0, 2.5, np.inf], (c, r, t),
-                                  p=[0.2, 0.2, 0.2, 0.1, 0.3])
-            else:
-                cost = rng.rand(c, r, t) * 10 ** rng.uniform(-2, 3)
-                cost[rng.rand(c, r, t) < 0.2] = np.inf
-            out.append((kind, cost.astype(np.float32), rng.rand(c, r) < 0.85,
-                        rng.rand(c, t) < 0.85))
+            out.append((kind, *jv_case(rng, shapes[k % len(shapes)], ties)))
     return out
+
+
+# shapes an earlier JV kernel refused (its whole working matrix in shared
+# memory: above a working side of ~240 cudaFuncSetAttribute failed)
+JV_PAST_LIMIT = ((1, 256, 256), (1, 320, 320), (2, 400, 150),
+                 (1, 12, 14000))
 
 
 def jv_prepared(cost, row_mask, col_mask):
     """A zero-argument launch of the JV kernel on inputs made ready once
-    (contiguous, the kernel's types, outputs allocated): no checks, no
-    count."""
+    (contiguous, the kernel's types, outputs and scratch allocated): no
+    checks, no count."""
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import hungarian
-    c, r, _ = cost.shape
+    c, r, t = cost.shape
     ins = (cost.contiguous().float(), row_mask.contiguous().bool(),
            col_mask.contiguous().bool())
     outs = (torch.empty((c, r), dtype=torch.int32, device=cost.device),
-            torch.empty((c, r), device=cost.device))
+            torch.empty((c, r), device=cost.device),
+            hungarian.jv_scratch(c, r, t, cost.device))
     return lambda: hungarian._launch(*ins, *outs)
 
 
@@ -1312,13 +1348,27 @@ def jv_compare(cost, row_mask, col_mask, label):
     return int((col_r >= 0).sum())
 
 
-def phase_jv(recorded, card):
+def _jv_timed(cases):
+    """Per case (cost, row mask, col mask on the card): (device-only µs a
+    launch, the serial Dijkstra steps of the slowest camera)."""
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian
+    out = []
+    for cost, rm, cm in cases:
+        reps = 10 if cost.shape[1] * cost.shape[2] > 10000 else REPS
+        out.append((device_us(jv_prepared(cost, rm, cm), reps=reps),
+                    hungarian.jv_work(cost, rm, cm)["max_steps"]))
+    return out
+
+
+def phase_jv(recorded, card, cli_recorded=()):
     """The JV kernel on the card against its plain version on every
-    recorded bench assignment and on jv_cases(); then per recorded frame
-    its device-only µs (as phase 3b times the LK kernel), the wrapper's
-    host µs per call, the plain version's ms, the serial Dijkstra steps
-    and the bound (ops/hungarian.py::jv_work).  Returns the kernels-line
-    summary."""
+    recorded bench assignment, on jv_cases() and on JV_PAST_LIMIT's
+    shapes; then per recorded frame its device-only µs (as phase 3b times
+    the LK kernel), the wrapper's host µs per call, the plain version's
+    ms, the serial Dijkstra steps and the bound
+    (ops/hungarian.py::jv_work); the device-only ns a Dijkstra step on
+    the bench's, the CLI's (`cli_recorded`) and the past-the-limit
+    cases.  Returns the kernels-line summary."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
@@ -1330,11 +1380,26 @@ def phase_jv(recorded, card):
         args = [torch.tensor(x, device="cuda") for x in case]
         jv_compare(*args, f"case {n} ({kind})")
         kinds[kind] = kinds.get(kind, 0) + 1
+    rng = np.random.RandomState(1)
+    past = []
+    for shape in JV_PAST_LIMIT:
+        for ties in (False, True):
+            args = [torch.tensor(x, device="cuda")
+                    for x in jv_case(rng, shape, ties)]
+            jv_compare(*args, f"{'ties' if ties else 'random'} case past "
+                              f"the old limit")
+            past.append(args)
+    for t, x in enumerate(cli_recorded):
+        jv_compare(*x, f"CLI frame {t}")
     log(f"jv: kernel == plain version (col_of_row equal, match_cost bit "
         f"for bit) on all {len(recorded)} bench frames' "
         f"{list(recorded[0][0].shape)} assignments ({sum(matched)} "
-        f"matches) and on {sum(kinds.values())} random cases "
-        f"{json.dumps(kinds)}")
+        f"matches), all {len(cli_recorded)} CLI frames' "
+        f"{list(cli_recorded[0][0].shape) if cli_recorded else []}, "
+        f"{sum(kinds.values())} random cases {json.dumps(kinds)} and "
+        f"{len(past)} cases past the old kernel's limit "
+        f"{[list(x) for x in JV_PAST_LIMIT]} (layouts "
+        f"{[hungarian.jv_layout(r, t) for _, r, t in JV_PAST_LIMIT]})")
     lib = lk_kernel.build()
     stream = torch.cuda.current_stream().cuda_stream
     noop = device_us(lambda: lib.lk_noop_launch(stream))
@@ -1353,6 +1418,7 @@ def phase_jv(recorded, card):
     mean = a.mean(0)
     bound = np.maximum(a[:, 3], a[:, 4])
     bound_by = "bytes" if mean[3] >= mean[4] else "operations"
+    ns_step = 1e3 * mean[0] / mean[6]
     log(f"jv: per bench frame (1 launch, {len(rows)} frames; {card}): "
         f"device-only {mean[0]:.3f} us (min {a[:, 0].min():.3f}, max "
         f"{a[:, 0].max():.3f}), wrapper host {mean[1]:.3f} us/call, plain "
@@ -1360,14 +1426,33 @@ def phase_jv(recorded, card):
         f"{mean[8]:.0f} flop; bound {bound.mean():.5f} us ({bound_by}), "
         f"roofline share {bound.mean() / mean[0]:.5f}; serial Dijkstra "
         f"steps: {mean[5]:.1f} over the 4 cameras, {mean[6]:.1f} in the "
-        f"slowest (max {a[:, 6].max():.0f}), {1e3 * mean[0] / mean[6]:.1f} "
-        f"ns a step of the slowest camera; empty-kernel floor "
-        f"{noop:.3f} us")
-    return {"ms": mean[0] / 1e3, "plain_ms": mean[2],
-            "bound_ms": bound.mean() / 1e3, "bound_by": bound_by,
-            "device_us_per_launch": mean[0], "host_us_per_call": mean[1],
-            "bound_us": bound.mean(), "serial_steps": mean[5],
-            "serial_steps_slowest_camera": mean[6], "max_abs_err": 0.0}
+        f"slowest (max {a[:, 6].max():.0f}), {ns_step:.1f} ns a step of "
+        f"the slowest camera; empty-kernel floor {noop:.3f} us; layout "
+        f"{hungarian.jv_layout(*recorded[0][0].shape[1:])}")
+    out = {"ms": mean[0] / 1e3, "plain_ms": mean[2],
+           "bound_ms": bound.mean() / 1e3, "bound_by": bound_by,
+           "device_us_per_launch": mean[0], "host_us_per_call": mean[1],
+           "bound_us": bound.mean(), "serial_steps": mean[5],
+           "serial_steps_slowest_camera": mean[6],
+           "device_ns_per_step": ns_step, "max_abs_err": 0.0}
+    timed = {"cli": _jv_timed(cli_recorded), "past the old limit":
+             _jv_timed(past)}
+    for name, t in timed.items():
+        if t:
+            us, steps = np.asarray(t, np.float64).mean(0)
+            log(f"jv: {name} ({len(t)} cases; {card}): device-only "
+                f"{us:.3f} us a launch, {steps:.1f} serial steps in the "
+                f"slowest camera, {1e3 * us / steps:.1f} ns a step")
+    if timed["cli"]:
+        us, steps = np.asarray(timed["cli"], np.float64).mean(0)
+        out["device_us_per_launch_cli"] = us
+        out["device_ns_per_step_cli"] = 1e3 * us / steps
+    out["device_ns_per_step_past_old_limit"] = {
+        f"{list(x[0].shape)}{' ties' if k % 2 else ''}": 1e3 * us / steps
+        for k, (x, (us, steps)) in enumerate(zip(past,
+                                                 timed["past the old "
+                                                       "limit"]))}
+    return out
 
 
 class SolveCapture:
@@ -1705,11 +1790,13 @@ def _mwcp_check(solves, name):
 def _mwcp_times(solves, card, name="bench", plain_too=True):
     """Per recorded solve: each kernel's device-only µs (behind a sleep
     kernel, median of 3, as phase 3b), its wrapper's host µs per call and
-    the bound from greedy_work / bls_work / clique_work; on every
-    PLAIN_EVERY-th solve the plain versions' ms (with `plain_too`) and a
-    BLOCK-iteration BLS block as the captured program replays it and its
-    kernel alone (_block_us, phase 3c's measure).  Returns the
-    kernels-line summaries (means over the solves)."""
+    the bound from greedy_work / bls_work / clique_work; the library call
+    torch.sum(torch.where(...)) beside the clique weights, timed alike;
+    on every PLAIN_EVERY-th solve the plain versions' ms
+    (with `plain_too`) and a BLOCK-iteration BLS block as the captured
+    program replays it and its kernel alone (_block_us, phase 3c's
+    measure).  Returns the kernels-line summaries (means over the
+    solves)."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
@@ -1721,7 +1808,7 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
     lib = lk_kernel.build()
     stream = torch.cuda.current_stream().cuda_stream
     noop = device_us(lambda: lib.lk_noop_launch(stream))
-    g_rows, b_rows, c_rows = [], [], []
+    g_rows, b_rows, c_rows, lib_us = [], [], [], []
     plain = {"greedy": [], "bls": [], "clique": []}
     block_us = []
     for n, s in enumerate(solves):
@@ -1731,16 +1818,22 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         iters = f.g_dir.shape[0]
         orders = replica_orders(w, valid, f.noise)
         out = torch.empty((r, v), dtype=torch.bool, device=w.device)
+        gs = mk.greedy_scratch(v, w.device)
         gw = mk.greedy_work(w, adj, valid, orders, bound)
+
+        def greedy():
+            mk._launch_greedy(w, adj, valid, orders, bound, out, gs)
         g_rows.append((
-            device_us(lambda: mk._launch_greedy(w, adj, valid, orders, bound,
-                                                out)),
+            device_us(greedy),
             host_us(lambda: mk.greedy_start(w, adj, valid, orders, bound)),
             0.0, 1e6 * gw["bound_s"], gw["steps"], gw["max_steps"],
             gw["bytes"], gw["ops"], gw["bound_by"] == "bytes"))
         st = bls_start(w, adj, valid, s["init"], f, cfg, bound)
         scores = torch.empty(r, device=w.device)
         cw = mk.clique_work(st.in_c, w)
+        if plain_too:
+            lib_us.append(device_us(
+                lambda: torch.sum(torch.where(st.in_c, w, 0.0), -1)))
         c_rows.append((
             device_us(lambda: mk._launch_clique(st.in_c, w, scores)),
             host_us(lambda: mk.clique_weights(st.in_c, w)),
@@ -1784,6 +1877,22 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         "kernel_block_us_per_iteration": float(np.mean(block_us, 0)[1]),
         "host_us_per_call": bm[1], "bound_us": bm[3], "serial_steps": iters,
         "layout": lay}
+    g_by = "bytes" if gm[8] >= 0.5 else "operations"
+    out_greedy = {
+        "ms": gm[0] / 1e3, "plain_ms": gm[2], "bound_ms": gm[3] / 1e3,
+        "bound_by": g_by, "device_us_per_launch": gm[0],
+        "host_us_per_call": gm[1], "bound_us": gm[3], "serial_steps": gm[4],
+        "serial_steps_largest_clique": gm[5],
+        "device_us_per_round": gm[0] / gm[5], "max_abs_err": 0.0}
+    log(f"mwcp: greedy_start per {name} solve ({len(g)} solves, 1 launch, "
+        f"[{r}, {v}], layout {mk.greedy_layout(v)}; {card}): device-only "
+        f"{gm[0]:.3f} us (min {g[:, 0].min():.3f}, max {g[:, 0].max():.3f})"
+        f", wrapper host {gm[1]:.3f} us/call, plain {gm[2]:.4f} ms; work "
+        f"{gm[6]:.0f} B, {gm[7]:.0f} ops; bound {gm[3]:.5f} us ({g_by}), "
+        f"roofline share {gm[3] / gm[0]:.5f}; serial rounds {gm[4]:.1f} "
+        f"over the replicas, {gm[5]:.1f} in the largest clique "
+        f"({gm[0] / gm[5]:.4f} us a round of it); empty-kernel floor "
+        f"{noop:.3f} us")
     if not plain_too:
         log(f"mwcp: bls_steps per {name} solve ({len(b)} solves, "
             f"{iters:.0f} iterations in 1 launch, R={r}, V={v}, layout "
@@ -1796,24 +1905,17 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
             f"{out_bls['kernel_block_us_per_iteration']:.4f}; wrapper host "
             f"{bm[1]:.3f} us/call; bound {bm[3]:.4f} us "
             f"({out_bls['bound_by']}), roofline share {bm[3] / bm[0]:.6f}")
-        return {"bls_steps": out_bls}
+        return {"greedy_start": out_greedy, "bls_steps": out_bls}
     c_by = "bytes" if cm[8] >= 0.5 else "operations"
+    lib_mean = float(np.mean(lib_us))
     log(f"mwcp: clique_weights per bench solve ({len(c)} solves, 1 launch, "
         f"[{r}, {v}]; {card}): device-only {cm[0]:.3f} us, wrapper host "
-        f"{cm[1]:.3f} us/call, plain {cm[2]:.4f} ms; work {cm[6]:.0f} B, "
-        f"{cm[7]:.0f} ops; bound {cm[3]:.5f} us ({c_by}), roofline share "
-        f"{cm[3] / cm[0]:.5f}; serial additions {cm[5]:.1f} in the largest "
-        f"clique")
-    g_by = "bytes" if gm[8] >= 0.5 else "operations"
+        f"{cm[1]:.3f} us/call, plain {cm[2]:.4f} ms; library call "
+        f"torch.sum(torch.where(masks, weights, 0.0), -1) device-only "
+        f"{lib_mean:.3f} us; work {cm[6]:.0f} B, {cm[7]:.0f} ops; bound "
+        f"{cm[3]:.5f} us ({c_by}), roofline share {cm[3] / cm[0]:.5f}; "
+        f"serial additions {cm[5]:.1f} in the largest clique")
     b_by = "bytes" if bm[7] >= 0.5 else "operations"
-    log(f"mwcp: greedy_start per bench solve ({len(g)} solves, 1 launch, "
-        f"[{r}, {v}]; {card}): device-only {gm[0]:.3f} us (min "
-        f"{g[:, 0].min():.3f}, max {g[:, 0].max():.3f}), wrapper host "
-        f"{gm[1]:.3f} us/call, plain {gm[2]:.4f} ms; work {gm[6]:.0f} B, "
-        f"{gm[7]:.0f} ops; bound {gm[3]:.5f} us ({g_by}), roofline share "
-        f"{gm[3] / gm[0]:.5f}; serial rounds {gm[4]:.1f} over the replicas, "
-        f"{gm[5]:.1f} in the largest clique ({1e3 * gm[0] / gm[5]:.1f} ns a "
-        f"round of it); empty-kernel floor {noop:.3f} us")
     log(f"mwcp: bls_steps per bench solve ({len(b)} solves, {iters:.0f} "
         f"iterations in 1 launch, R={r}, V={v}; {card}): device-only "
         f"{bm[0]:.3f} us ({bm[0] / iters:.4f} us an iteration; min "
@@ -1826,18 +1928,13 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         f"{FrameProgram.BLOCK}-iteration block as a graph "
         f"{out_bls['graph_block_us_per_iteration']:.4f} us an iteration, "
         f"its kernel alone {out_bls['kernel_block_us_per_iteration']:.4f}")
-    return {"greedy_start": {
-                "ms": gm[0] / 1e3, "plain_ms": gm[2], "bound_ms": gm[3] / 1e3,
-             "bound_by": g_by, "device_us_per_launch": gm[0],
-             "host_us_per_call": gm[1], "bound_us": gm[3],
-             "serial_steps": gm[4], "serial_steps_largest_clique": gm[5],
-             "max_abs_err": 0.0},
+    return {"greedy_start": out_greedy,
             "bls_steps": out_bls,
             "clique_weights": {
              "ms": cm[0] / 1e3, "plain_ms": cm[2], "bound_ms": cm[3] / 1e3,
              "bound_by": c_by, "device_us_per_launch": cm[0],
              "host_us_per_call": cm[1], "bound_us": cm[3],
-             "serial_steps": cm[5]}}
+             "serial_steps": cm[5], "library_ms": lib_mean / 1e3}}
 
 
 # the synthetic solves past the shared-memory layouts: (V, valid)
@@ -1846,13 +1943,15 @@ LARGE_SOLVES = ((6144, 6000), (16400, 16000))
 
 def _large_solve_check(v, n, card):
     """A synthetic solve at V vertices (n valid, R=4, S=16, 60 iterations,
-    integer weights: every sum exact in any order) from its greedy start:
-    the BLS kernel (a 50- and a 10-iteration launch) against its plain
-    version, every BlsState tensor bit for bit."""
+    integer weights: every sum exact in any order): its greedy start (the
+    kernel, in bls_start) equal to the plain greedy's; from it the BLS
+    kernel (a 50- and a 10-iteration launch) against its plain version,
+    every BlsState tensor bit for bit."""
     import dataclasses
     import torch
     from mcmtt_opticalflow_tpu_torch.config import SolverConfig
     from mcmtt_opticalflow_tpu_torch.models.mwcp import (bls_start,
+                                                         replica_orders,
                                                          threefry_fields)
     from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
     from mcmtt_opticalflow_tpu_torch.utils import prng
@@ -1868,6 +1967,11 @@ def _large_solve_check(v, n, card):
     f = threefry_fields(prng.prng_key(v), 4, v, 60, "cuda")
     st = bls_start(w, adj, valid, torch.zeros((1, v), dtype=torch.bool,
                                               device="cuda"), f, cfg, v)
+    start = mk.greedy_start_reference(w, adj, valid,
+                                      replica_orders(w, valid, f.noise), v)
+    if not torch.equal(st.in_c, start):
+        fail(f"mwcp: synthetic solve V={v}: the greedy start differs from "
+             f"the plain greedy's")
     ref = _clone_state(st)
     t0 = time.perf_counter()
     for k in (50, 10):
@@ -1891,6 +1995,58 @@ def _large_solve_check(v, n, card):
         fail(f"mwcp: synthetic solve V={v}: no vertex ever left a clique")
 
 
+# the greedy start in each of its layouts (mwcp_kernel.greedy_layout):
+# V, valid vertices (the plain loop's length), replicas, symmetric, tier.
+# V=40000 lies past an earlier kernel's shared-memory limit (6 V bytes: it
+# failed above V ~ 38,700)
+GREEDY_CASES = ((40000, 256, 4, True, 2), (6144, 1500, 4, True, 1),
+                (1100, 1000, 8, True, 0), (1024, 900, 8, False, 0))
+
+
+def _greedy_checks(card):
+    """The greedy kernel against its plain version, in_c equal, on
+    GREEDY_CASES (dense random adjacency, integer weights, the valid
+    vertices spread over V, bound min(V, valid)): tier 2 (V=40000), tier
+    1 (V=6144), tier 0 past the register bit sets (V=1100) and in them
+    on an adjacency that is not symmetric (V=1024), where the kernel
+    still reads adj[candidate][member] as the plain version does."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import NEG
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+    for v, n, r, sym, tier in GREEDY_CASES:
+        lay = mk.greedy_layout(v)
+        if lay["tier"] != tier:
+            fail(f"mwcp: greedy start V={v}: layout {lay}, expected tier "
+                 f"{tier}")
+        g = torch.Generator(device="cuda").manual_seed(v)
+        adj = torch.randint(0, 10, (v, v), generator=g, device="cuda",
+                            dtype=torch.uint8) < 8
+        if sym:
+            adj = torch.triu(adj, 1)
+            adj |= adj.T.clone()
+        w = torch.floor(torch.rand(v, generator=g, device="cuda") * 30)
+        valid = torch.zeros(v, dtype=torch.bool, device="cuda")
+        valid[torch.randperm(v, generator=g, device="cuda")[:n]] = True
+        noise = torch.rand((r, v), generator=g, device="cuda") * 9
+        noise[0] = 0
+        orders = torch.argsort(-torch.where(valid, w + noise, NEG), dim=-1,
+                               stable=True).contiguous()
+        bound = n if v > 1024 else v
+        got = mk.greedy_start(w, adj, valid, orders, bound)
+        torch.cuda.synchronize()
+        want = mk.greedy_start_reference(w, adj, valid, orders, bound)
+        same = torch.equal(got, want)
+        log(f"mwcp: greedy start V={v} ({n} valid, R={r}, bound {bound}, "
+            f"{'symmetric' if sym else 'not symmetric'} adjacency; layout "
+            f"{lay}): kernel {'==' if same else 'DIFFERS from'} plain "
+            f"version, clique sizes {got.sum(-1).tolist()} ({card})")
+        if not same:
+            fail(f"mwcp: greedy start V={v}: the kernel differs from its "
+                 f"plain version")
+        del adj
+        torch.cuda.empty_cache()
+
+
 def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     """The solver's kernels (ops/mwcp_kernel.py) on the card against their
     plain versions, on the recorded solves of the bench main path (phase
@@ -1903,9 +2059,10 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     top score >= 0.99 x the plain version's, no clique twice; the start
     scores of the clique-weight kernel equal to ascending float32 sums.
     Then synthetic solves past the shared-memory layouts (LARGE_SOLVES)
-    bit-equal to the plain version, and the bench and CLI solves timed;
-    the BLS kernel's µs an iteration beside phase 3c's (`graph_stages`).
-    Returns the kernels-line summaries by kernel name."""
+    bit-equal to the plain version, the greedy start's _greedy_checks,
+    and the bench and CLI solves timed; the BLS kernel's µs an iteration beside
+    phase 3c's (`graph_stages`).  Returns the kernels-line summaries by
+    kernel name."""
     from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
     if not bench_solves or not cli_solves:
         fail(f"mwcp: {len(bench_solves)} bench and {len(cli_solves)} CLI "
@@ -1914,8 +2071,13 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     err_c, cerr_c = _mwcp_check(cli_solves, "cli")
     for v, n in LARGE_SOLVES:
         _large_solve_check(v, n, card)
+    _greedy_checks(card)
     out = _mwcp_times(bench_solves, card)
-    cli = _mwcp_times(cli_solves, card, "cli", plain_too=False)["bls_steps"]
+    cli_out = _mwcp_times(cli_solves, card, "cli", plain_too=False)
+    cli = cli_out["bls_steps"]
+    greedy, greedy_cli = out["greedy_start"], cli_out["greedy_start"]
+    for k in ("device_us_per_launch", "device_us_per_round"):
+        greedy[f"{k}_cli"] = greedy_cli[k]
     bls = out["bls_steps"]
     bls["max_abs_err"] = max(err_b, err_c)
     bls["device_us_per_iteration_cli"] = cli["device_us_per_iteration"]
@@ -2697,14 +2859,17 @@ def write_dataset(root, sc, frames):
     return params
 
 
-def phase_cli(card, counted):
+def phase_cli(card, counted, record_jv=False):
     """`python -m mcmtt_opticalflow_tpu_torch.main <parameters.txt>` in
     process on the bench scene in the reference layout, at the default
     EngineConfig; the only cut is the sequence length.  `counted`: the
     kernels the card runs are counted by CUPTI (which slows graph
     launches: the CLI's times come from a run with counted=False), the
     wrappers' launches beside them either way; the timed run records
-    every solve's inputs (phase 11)."""
+    every solve's inputs (phase 11).  `record_jv`: the 2D step runs on
+    the eager route (_Eager2DRoute) to record every frame's assignment
+    inputs (phase 3f), returned as {"jv_inputs"} after the CLEAR-MOT
+    table, with none of the graph route's checks."""
     import contextlib
     import io
     import tempfile
@@ -2720,6 +2885,7 @@ def phase_cli(card, counted):
     from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     sc, frames = bench_scene(CLI_FRAMES)
+    route = _Eager2DRoute() if record_jv else contextlib.nullcontext()
     engines, per_frame, sweeps, missing = [], [], [], []
     cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0,
                  **{f"{w}_reference": 0 for w, _ in SOLVER_KERNELS}}
@@ -2777,7 +2943,7 @@ def phase_cli(card, counted):
         solves = SolveCapture(EngineConfig().solver)
         t0 = time.perf_counter()
         try:
-            with contextlib.redirect_stdout(out), \
+            with contextlib.redirect_stdout(out), route, \
                     (KernelEvents() if counted else solves) as ev:
                 cli.main()
         finally:
@@ -2785,6 +2951,15 @@ def phase_cli(card, counted):
             for mod, name, _ in patches:
                 setattr(mod, name, orig[name])
         wall = time.perf_counter() - t0
+    if record_jv:
+        if "== K=10 repeat=0" not in out.getvalue() or \
+                len(route.inputs) != CLI_FRAMES:
+            fail(f"cli (eager 2D route): {len(route.inputs)} assignments "
+                 f"recorded (expected {CLI_FRAMES}) or no CLEAR-MOT table")
+        log(f"cli (eager 2D route): {CLI_FRAMES} frames in {wall:.1f} s, "
+            f"every frame's {list(route.inputs[0][0].shape)} assignment "
+            f"recorded")
+        return {"jv_inputs": route.inputs}
     wrapper = (lk_kernel.lk_level.launches,
                lk_kernel.lk_level.serial_launches,
                hungarian.jv_assign.launches)
@@ -2916,7 +3091,8 @@ def main():
     # path's count), which slows graph launches for the rest of the process
     calls, jv_inputs, graph_run, bench_solves = phase_routes(card)
     phase_graph2d(cfg, sc, frames, card)
-    jv = phase_jv(jv_inputs, card)
+    cli_jv = phase_cli(card, counted=False, record_jv=True)["jv_inputs"]
+    jv = phase_jv(jv_inputs, card, cli_jv)
     graph_rec = graph_run.record
     eager_rec, graph_stages = phase_graphs(cfg, sc, frames, card)
     mota = [[r[f"mota_w{w}"] for w in WINDOWS] for r in (graph_rec,

@@ -17,16 +17,33 @@
 // duplicate test compares scores within 1e-5, less than 2 ulp at the
 // bench's scores of ~250.
 //
-// greedy_start_kernel, one block per replica.  It walks the replica's
-// order (a permutation of the vertices, argsort outside the kernel) and
-// admits the vertex at position i when i < bound, i < sum(valid), the
-// vertex is valid with a weight >= 0 and every member of the clique so
-// far is adjacent to it.  ok[u] holds the last condition for every vertex
-// u: it starts true and is ANDed with adj[u][x] when x joins.  As ok only
-// shrinks, a position found inadmissible stays so, and each round takes
-// the first admissible position after the last admitted one with a
-// block-wide min: the rounds are the clique's size plus one, not V.  It is
-// integer logic only, so the result is bit-equal to the plain version's.
+// greedy_start_kernel, one warp per replica and up to eight replicas a
+// block.  It walks the replica's order (a permutation of the vertices,
+// argsort outside the kernel) and admits the vertex at position i when
+// i < bound, i < sum(valid), the vertex is valid with a weight >= 0 and
+// every member of the clique so far is adjacent to it (adj[u][x] for the
+// candidate u and each member x, as the plain version reads it).  The
+// last two conditions are one bit set over the vertices, ok: the
+// eligible vertices at first, ANDed with column x of the adjacency when
+// x joins.  The columns come as bits, packed once a launch by
+// pack_columns_kernel (exact for any adjacency, symmetric or not), so the
+// update is ceil(V / 32) whole words, one a lane.  As ok only shrinks, a
+// position found inadmissible stays so, and each round scans on from the
+// last admitted position 32 positions at a time: each lane tests its
+// position's vertex against ok, a ballot, the lowest lane; the window's
+// vertices stay in registers while the scan stands there, and the next
+// window's are loaded ahead.  Up to 1024 vertices lane k holds word k of
+// ok and of the clique in a register: a test is one shuffle, an update
+// one shared load.  The rounds are the clique's size plus one, not V, and
+// need no block barrier.  The kernel is launched as the packing's
+// programmatic dependent: its copies of the replicas' orders and its pass
+// over the eligible vertices overlap the packing, and it waits for that
+// grid (griddepcontrol.wait) before it copies the columns into shared
+// memory.  It is integer logic only, so the result is bit-equal to the
+// plain version's.  No vertex limit: the packed columns and the orders
+// sit in shared memory where they fit (tier 0), the columns in device
+// memory above that (tier 1), and the orders read where they lie where
+// even a replica's do not fit (tier 2; `greedy_tiers`).
 //
 // bls_steps_kernel runs n iterations of every replica in one launch, one
 // warp per replica and up to kMaxWarps replicas a block, which share the
@@ -80,8 +97,9 @@
 //     they fit (tier 0: V up to ~1200 at the bench's S), the adjacency in
 //     device memory (L2) above that (tier 1), and the state too where one
 //     replica's does not fit (tier 2: V above ~5000, the fields then read
-//     where they lie).  The adjacency is packed by pack_adj_kernel before
-//     each launch and brought into shared memory by one bulk copy.
+//     where they lie).  The adjacency is packed by pack_columns_kernel
+//     (the greedy start's packer) before each launch and brought into
+//     shared memory by one bulk copy.
 //
 // Summation order, the one tolerance.  fc (the clique's weight) and
 // nbr_w_in_c (each vertex's weight sum over adjacent members) are float32
@@ -119,7 +137,6 @@ namespace {
 
 constexpr unsigned kAll = 0xffffffffu;
 constexpr float kNeg = -1e30f;             // models/mwcp.py's NEG
-constexpr int kGreedyThreads = 256;
 constexpr int kMaxWarps = 4;               // replicas a BLS block
 constexpr int kStages = 3;                 // field rows in flight a replica
 constexpr size_t kSmemMax = 232448;        // a block's shared memory
@@ -177,64 +194,330 @@ __device__ __forceinline__ bool bit(const uint32_t* s, int v) {
   return (s[v >> 5] >> (v & 31)) & 1u;
 }
 
+// ---- Hopper's asynchronous copies (PTX)
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
+               "r"(count)
+               : "memory");
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// one thread: the arrival on `bar` that expects `bytes` of bulk copies
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
+                   "r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// one thread: the copy of `bytes` (a multiple of 16, both ends 16-byte
+// aligned) from device to shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+long long round4(long long x) { return (x + 3) & ~3LL; }
+
 // ---------------------------------------------------------------------------
 // the greedy start
 // ---------------------------------------------------------------------------
 
-__global__ void __launch_bounds__(kGreedyThreads)
-    greedy_start_kernel(const int64_t* __restrict__ orders,
-                        const uint8_t* __restrict__ adj,
-                        const uint8_t* __restrict__ valid,
-                        const float* __restrict__ weights, int V, int bound,
-                        uint8_t* __restrict__ in_c) {
-  extern __shared__ int gsm[];
-  int* ord = gsm;                                            // [V] by position
-  uint8_t* adm = reinterpret_cast<uint8_t*>(ord + V);        // [V] by position
-  uint8_t* ok = adm + V;                                     // [V] by vertex
-  __shared__ int red[32];
-  const int r = blockIdx.x, tid = threadIdx.x, nt = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = nt >> 5;
-  const int64_t* o = orders + (size_t)r * V;
-  uint8_t* out = in_c + (size_t)r * V;
-
-  int nv = 0;
-  for (int v = tid; v < V; v += nt) nv += valid[v] != 0;
-  for (int off = 16; off > 0; off >>= 1) nv += __shfl_xor_sync(kAll, nv, off);
-  if (lane == 0) red[warp] = nv;
-  __syncthreads();
-  nv = 0;
-  for (int k = 0; k < nw; ++k) nv += red[k];
-  const int lim = min(bound, nv);      // positions past either admit nothing
-  for (int i = tid; i < V; i += nt) {
-    const int64_t x = o[i];
-    const bool in_range = x >= 0 && x < V;
-    ord[i] = in_range ? (int)x : 0;
-    adm[i] = in_range && i < lim && valid[x] && weights[x] >= 0.0f;
-    ok[i] = 1;
-    out[i] = 0;
-  }
-  int cursor = 0;
-  for (;;) {
-    __syncthreads();
-    int first = INT_MAX;
-    for (int i = cursor + tid; i < lim; i += nt) {
-      if (adm[i] && ok[ord[i]]) {
-        first = i;
-        break;
-      }
+// P[k * as + x], bit b: adj[32k + b][x] (0 past V), column x of the
+// adjacency as bits whatever its symmetry; one warp a 32 x 32 tile: lane b
+// reads row 32k + b's 32 bytes of the tile, one ballot a column.
+__global__ void pack_columns_kernel(const uint8_t* __restrict__ adj, int V,
+                                    int as, int aligned16,
+                                    uint32_t* __restrict__ P) {
+  const int lane = threadIdx.x & 31;
+  const int nk = (V + 31) >> 5;
+  const long long tile =
+      (long long)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  // the greedy kernel may start now: it waits for this grid's writes
+  // before it reads them (griddepcontrol.wait)
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+  if (tile >= (long long)nk * nk) return;
+  const int k = (int)(tile / nk), c0 = 32 * (int)(tile - (long long)k * nk);
+  const int row = 32 * k + lane;
+  uint32_t q[8] = {};        // the row's bytes at columns c0.., four a word
+  if (row < V) {
+    const uint8_t* src = adj + (size_t)row * V + c0;
+    if (aligned16 && c0 + 32 <= V) {
+      const uint4 lo = reinterpret_cast<const uint4*>(src)[0];
+      const uint4 hi = reinterpret_cast<const uint4*>(src)[1];
+      q[0] = lo.x; q[1] = lo.y; q[2] = lo.z; q[3] = lo.w;
+      q[4] = hi.x; q[5] = hi.y; q[6] = hi.z; q[7] = hi.w;
+    } else {
+#pragma unroll
+      for (int c = 0; c < 32; ++c)
+        if (c0 + c < V) q[c >> 2] |= (uint32_t)(src[c] != 0) << (8 * (c & 3));
     }
-    for (int off = 16; off > 0; off >>= 1)
-      first = min(first, __shfl_xor_sync(kAll, first, off));
-    if (lane == 0) red[warp] = first;
-    __syncthreads();
-    first = INT_MAX;
-    for (int k = 0; k < nw; ++k) first = min(first, red[k]);
-    if (first == INT_MAX) break;
-    const int x = ord[first];
-    if (tid == 0) out[x] = 1;
-    for (int u = tid; u < V; u += nt)
-      if (ok[u] && !adj[(size_t)u * V + x]) ok[u] = 0;
-    cursor = first + 1;
+  }
+  uint32_t mine = 0;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const unsigned word =
+        __ballot_sync(kAll, (q[c >> 2] >> (8 * (c & 3))) & 0xffu);
+    if (lane == c) mine = word;
+  }
+  if (c0 + lane < V) P[(size_t)k * as + c0 + lane] = mine;
+}
+
+// Where the greedy start keeps what.  Offsets and sizes in 4-byte words.
+struct GreedyLayout {
+  int nk;             // words of a vertex bit set
+  int as;             // words between the packed columns' rows k and k + 1
+                      // (odd: lane k's word of a column in bank k)
+  long long a_words;  // the packed columns [nk][as], a multiple of 4
+  int elig;           // the block's eligible vertices [nk], rounded to 4
+  int tier;           // 0: the packed columns and the replicas' orders in
+                      // shared memory; 1: the columns in device memory;
+                      // 2: the orders read where they lie too
+  int wpb;            // replicas (one warp each) a block
+  int rep;            // a replica's words: ok and members [nk] (past 1024
+                      // vertices; in registers below), and its order [V]
+                      // as int64 (tiers 0 and 1)
+  size_t smem;        // dynamic shared memory a block, in bytes
+};
+
+constexpr int kGreedyWarps = 8;      // a greedy block's warps
+
+GreedyLayout greedy_tiers(int V) {
+  GreedyLayout G{};
+  G.nk = (V + 31) >> 5;
+  G.as = V | 1;
+  G.a_words = round4((long long)G.nk * G.as);
+  G.elig = (int)round4(G.nk);
+  const long long bits = G.nk <= 32 ? 0 : 2LL * G.nk;
+  const long long with_ord = round4(bits + 2LL * V);
+  const long long avail = (long long)(kSmemMax - kStaticSmem) / 4;
+  long long fixed = G.elig, rep = with_ord;
+  if (G.a_words + G.elig + with_ord <= avail) {
+    G.tier = 0;
+    fixed += G.a_words;
+  } else if (G.elig + with_ord <= avail) {
+    G.tier = 1;
+  } else {
+    G.tier = 2;
+    rep = round4(bits);
+  }
+  G.rep = (int)rep;
+  G.wpb = (int)std::max<long long>(
+      1, std::min<long long>(kGreedyWarps,
+                             rep ? (avail - fixed) / rep : kGreedyWarps));
+  G.smem = 4 * (size_t)(fixed + (long long)G.wpb * rep);
+  return G;
+}
+
+struct GreedyArgs {
+  const int64_t* orders;     // [R, V]
+  const float* weights;      // [V]
+  const uint8_t* valid;      // [V]
+  const uint32_t* cols;      // the packed columns (pack_columns_kernel)
+  uint8_t* in_c;             // [R, V]
+  int R, V, bound;
+  int out4;                  // in_c's rows start on 4 bytes
+  GreedyLayout L;
+};
+
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// One warp per replica, wpb replicas a block of kGreedyWarps warps (the
+// rest help with the copies); see the file's comment.  kReg (V <= 1024,
+// tier 0): lane k holds word k of ok and of the clique in a register.
+template <int kTier, bool kReg>
+__global__ void __launch_bounds__(32 * kGreedyWarps)
+    greedy_start_kernel(const GreedyArgs a) {
+  extern __shared__ __align__(16) uint32_t smem[];
+  __shared__ int red[kGreedyWarps];
+  const GreedyLayout& L = a.L;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int V = a.V, nk = L.nk;
+  const int r = blockIdx.x * L.wpb + warp;
+  const bool mine = warp < L.wpb && r < a.R;
+
+  // ---- the block: each replica's order (tiers 0, 1) and, once the
+  // packing grid is done, the packed columns (tier 0) copied by cp.async,
+  // while every warp finds the eligible vertices (valid, weight >= 0) and
+  // sum(valid); the kernel is launched as the packing's dependent, so the
+  // orders' copy overlaps the packing
+  uint32_t* sw = smem;
+  const uint32_t* cols = a.cols;
+  if (kTier == 0) sw += L.a_words;
+  uint32_t* elig = sw;
+  sw += L.elig;
+  uint32_t* ok = sw + (size_t)warp * L.rep;      // by vertex (not kReg)
+  uint32_t* mem = ok + nk;                       // the clique (not kReg)
+  const int64_t* ord = a.orders + (size_t)r * V;
+  if (kTier < 2) {
+    int64_t* os = reinterpret_cast<int64_t*>(kReg ? ok : mem + nk);
+    if (mine) {
+      const uint32_t dst = smem_u32(os);
+      for (int p = lane; p < V; p += 32) cp_async8(dst + 8 * p, ord + p);
+    }
+    ord = os;
+  }
+  asm volatile("griddepcontrol.wait;" ::: "memory");
+  if (kTier == 0) {
+    const uint32_t dst = smem_u32(smem);
+    for (int q = tid; q < L.a_words / 4; q += 32 * kGreedyWarps)
+      cp_async16(dst + 16 * q, a.cols + 4 * q);
+    cols = smem;
+  }
+  cp_async_commit();
+  int nv = 0;
+  for (int k0 = warp; k0 < nk; k0 += 8 * kGreedyWarps) {
+    bool va[8];
+    float wt[8];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int v = 32 * (k0 + u * kGreedyWarps) + lane;
+      const int vc = min(v, V - 1);
+      va[u] = (v < V) & (a.valid[vc] != 0);
+      wt[u] = a.weights[vc];
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      if (k0 + u * kGreedyWarps >= nk) break;
+      const unsigned e = __ballot_sync(kAll, va[u] && wt[u] >= 0.0f);
+      nv += __popc(__ballot_sync(kAll, va[u]));
+      if (lane == 0) elig[k0 + u * kGreedyWarps] = e;
+    }
+  }
+  if (lane == 0) red[warp] = nv;
+  cp_async_wait<0>();
+  __syncthreads();
+  if (!mine) return;                 // no block barrier after this
+  nv = 0;
+#pragma unroll
+  for (int k = 0; k < kGreedyWarps; ++k) nv += red[k];
+  const int lim = min(a.bound, nv);  // positions past either admit nothing
+
+  // ---- the replica: ok starts as the eligible set (it only shrinks, and
+  // eligibility is the admission's other condition on the vertex)
+  uint32_t okw = 0, memw = 0;        // kReg: word `lane`
+  if (kReg) {
+    okw = lane < nk ? elig[lane] : 0u;
+  } else {
+    for (int k = lane; k < nk; k += 32) {
+      ok[k] = elig[k];
+      mem[k] = 0;
+    }
+    __syncwarp();
+  }
+
+  // ---- the rounds: the first position from the cursor on, below lim,
+  // whose vertex is in ok; then ok &= the new member's column.  The scan
+  // stands at window k (positions 32k ..), its vertices xc a lane (-1:
+  // none) and the next window's loaded ahead.
+  const int nkl = (lim + 31) >> 5;
+  int64_t xn = -1;
+  int xc = -1;
+  if (lane < lim) {
+    const int64_t x0 = ord[lane];
+    xc = x0 >= 0 && x0 < V ? (int)x0 : -1;
+  }
+  if (32 + lane < lim) xn = ord[32 + lane];
+  for (int k = 0, cursor = 0; k < nkl;) {
+    const int okword = kReg ? (int)__shfl_sync(kAll, okw, max(xc, 0) >> 5)
+                            : 0;
+    bool hit = xc >= 0 && 32 * k + lane >= cursor;
+    if (kReg)
+      hit = hit && ((okword >> (xc & 31)) & 1);
+    else
+      hit = hit && bit(ok, xc);
+    const unsigned hits = __ballot_sync(kAll, hit);
+    if (!hits) {                     // on to the next window
+      ++k;
+      xc = xn >= 0 && xn < V ? (int)xn : -1;
+      xn = -1;
+      if (32 * (k + 1) + lane < lim) xn = ord[32 * (k + 1) + lane];
+      continue;
+    }
+    const int l = __ffs(hits) - 1;
+    const int xnew = __shfl_sync(kAll, xc, l);
+    cursor = 32 * k + l + 1;
+    if (kReg) {
+      if (lane < nk) okw &= cols[(size_t)lane * L.as + xnew];
+      if (lane == xnew >> 5) memw |= 1u << (xnew & 31);
+    } else {
+      if (lane == ((xnew >> 5) & 31)) mem[xnew >> 5] |= 1u << (xnew & 31);
+      for (int q = lane; q < nk; q += 32)
+        ok[q] &= cols[(size_t)q * L.as + xnew];
+      __syncwarp();
+    }
+  }
+
+  // ---- in_c's row from the members' bits, four bytes a store where the
+  // row is aligned
+  uint8_t* out = a.in_c + (size_t)r * V;
+  if (kReg) {
+    if (a.out4) {
+      uint32_t* out4 = reinterpret_cast<uint32_t*>(out) + 8 * lane;
+#pragma unroll
+      for (int q = 0; q < 8; ++q)
+        if (32 * lane + 4 * q < V)
+          out4[q] = (((memw >> (4 * q)) & 0xfu) * 0x00204081u) & 0x01010101u;
+    } else {
+      for (int b = 0; b < 32 && 32 * lane + b < V; ++b)
+        out[32 * lane + b] = (memw >> b) & 1u;
+    }
+  } else {
+    __syncwarp();
+    if (a.out4) {
+      uint32_t* out4 = reinterpret_cast<uint32_t*>(out);
+      for (int q = lane; q < V / 4; q += 32) {
+        const uint32_t nib = (mem[q >> 3] >> (4 * (q & 7))) & 0xfu;
+        out4[q] = (nib * 0x00204081u) & 0x01010101u;
+      }
+    } else {
+      for (int v = lane; v < V; v += 32) out[v] = bit(mem, v);
+    }
   }
 }
 
@@ -261,21 +544,11 @@ __global__ void clique_weight_kernel(const uint8_t* __restrict__ masks,
 // the BLS iterations
 // ---------------------------------------------------------------------------
 
-// A[k * as + v], bit b: adj[v][32k + b] (0 past V); one warp a row.  By
-// symmetry A[k * as + x] is also row x's word k: bit b is adj[x][32k + b].
-__global__ void pack_adj_kernel(const uint8_t* __restrict__ adj, int V,
-                                int as, uint32_t* __restrict__ A) {
-  const int lane = threadIdx.x & 31;
-  const int v = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (v >= V) return;
-  const int nk = (V + 31) >> 5;
-  const uint8_t* row = adj + (size_t)v * V;
-  for (int k = 0; k < nk; ++k) {
-    const int c = 32 * k + lane;
-    const unsigned word = __ballot_sync(kAll, c < V && row[c]);
-    if (lane == 0) A[(size_t)k * as + v] = word;
-  }
-}
+// The packed adjacency A is pack_columns_kernel's: A[k * as + x], bit b,
+// is adj[32k + b][x] (0 past V).  The kernel relies on the symmetry of
+// the engine's compatibility matrix: A[k * as + x] is then also row x's
+// word k, bit b adj[x][32k + b], and A[k * as + v] bit b of member 32k + b
+// is adj[v][32k + b], the entry the plain version's matrix product reads.
 
 // Where a launch keeps what.  Offsets and sizes in 4-byte words.
 struct Layout {
@@ -307,8 +580,6 @@ int bits_for(long long x) {  // bits that hold 0..x
   while ((1LL << b) <= x) ++b;
   return b;
 }
-
-long long round4(long long x) { return (x + 3) & ~3LL; }
 
 Layout layout(int V, int S) {
   Layout L{};
@@ -396,64 +667,6 @@ struct BlsArgs {
 };
 
 enum Move { kNone = 0, kLocal, kDirected, kRandom };
-
-// ---- Hopper's asynchronous copies (PTX)
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar),
-               "r"(count)
-               : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-}
-
-// one thread: the arrival on `bar` that expects `bytes` of bulk copies
-__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-// one thread: the copy of `bytes` (a multiple of 16, both ends 16-byte
-// aligned) from device to shared memory, completing on `bar`
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
-                                          uint32_t bytes, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];" ::"r"(dst),
-      "l"(src), "r"(bytes), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done)
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(dst),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
-}
 
 // whether bit sets x and y differ, by one warp
 __device__ __forceinline__ bool differ(const uint32_t* x, const uint32_t* y,
@@ -1221,23 +1434,71 @@ cudaError_t launch_bls(const BlsArgs& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Launched as the packing kernel's programmatic dependent: it may start
+// before that grid ends, and waits for it where it reads the columns.
+template <int kTier, bool kReg>
+cudaError_t launch_greedy(const GreedyArgs& a, cudaStream_t stream) {
+  static size_t allowed[kMaxDevices] = {};
+  const void* kernel =
+      reinterpret_cast<const void*>(greedy_start_kernel<kTier, kReg>);
+  const cudaError_t err = allow_smem(kernel, a.L.smem, allowed);
+  if (err != cudaSuccess) return err;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((a.R + a.L.wpb - 1) / a.L.wpb);
+  cfg.blockDim = dim3(32 * kGreedyWarps);
+  cfg.dynamicSmemBytes = a.L.smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, greedy_start_kernel<kTier, kReg>, a);
+}
+
 }  // namespace
 
-// Launches greedy_start_kernel on `stream`: in_c [R, V] from orders [R, V]
-// (int64 permutations), adj [V, V], valid [V] (bool), weights [V] float32.
+// Launches pack_columns_kernel into `scratch` and then greedy_start_kernel
+// on `stream`: in_c [R, V] from orders [R, V] (int64 permutations), adj
+// [V, V], valid [V] (bool), weights [V] float32.  `scratch` holds
+// greedy_scratch_words(V) int32 words.
 extern "C" int greedy_start_launch(const int64_t* orders, const uint8_t* adj,
                                    const uint8_t* valid, const float* weights,
                                    int R, int V, int bound, uint8_t* in_c,
-                                   void* stream) {
+                                   uint32_t* scratch, void* stream) {
   if (R <= 0 || V <= 0) return (int)cudaSuccess;
-  static size_t allowed[kMaxDevices] = {};
-  const size_t smem = (size_t)6 * V;
-  const cudaError_t err = allow_smem(
-      reinterpret_cast<const void*>(greedy_start_kernel), smem, allowed);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const GreedyLayout L = greedy_tiers(V);
+  const long long tiles = (long long)L.nk * L.nk;
+  const int aligned16 = V % 16 == 0 && (uintptr_t)adj % 16 == 0;
+  pack_columns_kernel<<<(unsigned)((tiles + 7) / 8), 256, 0, st>>>(
+      adj, V, L.as, aligned16, scratch);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  greedy_start_kernel<<<R, kGreedyThreads, smem, (cudaStream_t)stream>>>(
-      orders, adj, valid, weights, V, bound, in_c);
-  return (int)cudaGetLastError();
+  const int out4 = V % 4 == 0 && (uintptr_t)in_c % 4 == 0;
+  const GreedyArgs a{orders, weights, valid, scratch, in_c, R, V, bound,
+                     out4, L};
+  // up to 1024 vertices the columns fit in shared memory: tier 0
+  if (L.nk <= 32) err = launch_greedy<0, true>(a, st);
+  else if (L.tier == 0) err = launch_greedy<0, false>(a, st);
+  else if (L.tier == 1) err = launch_greedy<1, false>(a, st);
+  else err = launch_greedy<2, false>(a, st);
+  return (int)err;
+}
+
+// The int32 words of greedy_start_launch's `scratch` for a V-vertex graph:
+// the packed columns.
+extern "C" long long greedy_scratch_words(int V) {
+  return greedy_tiers(V).a_words;
+}
+
+// The greedy start's layout for a V-vertex graph: out = {tier, replicas a
+// block, dynamic shared memory bytes a block}.
+extern "C" void greedy_layout(int V, long long* out) {
+  const GreedyLayout L = greedy_tiers(V);
+  out[0] = L.tier;
+  out[1] = L.wpb;
+  out[2] = (long long)L.smem;
 }
 
 // Launches clique_weight_kernel on `stream`: out [R] from masks [R, V]
@@ -1267,7 +1528,7 @@ extern "C" void bls_layout(int V, int S, long long* out) {
   out[2] = (long long)L.smem;
 }
 
-// Launches pack_adj_kernel into `scratch` and then bls_steps_kernel (n
+// Launches pack_columns_kernel into `scratch` and then bls_steps_kernel (n
 // iterations, one warp per replica) on `stream`.  `scratch` holds
 // bls_scratch_words(R, V, S) int32 words.
 extern "C" int bls_steps_launch(
@@ -1282,7 +1543,9 @@ extern "C" int bls_steps_launch(
   if (R <= 0 || V <= 0 || n <= 0) return (int)cudaSuccess;
   const cudaStream_t st = (cudaStream_t)stream;
   const Layout L = layout(V, S);
-  pack_adj_kernel<<<(V + 7) / 8, 256, 0, st>>>(adj, V, L.as, scratch);
+  const long long tiles = (long long)L.nk * L.nk;
+  pack_columns_kernel<<<(unsigned)((tiles + 7) / 8), 256, 0, st>>>(
+      adj, V, L.as, V % 16 == 0 && (uintptr_t)adj % 16 == 0, scratch);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int aligned16 = V % 4 == 0 && (uintptr_t)g_dir % 16 == 0 &&

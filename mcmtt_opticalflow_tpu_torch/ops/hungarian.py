@@ -3,8 +3,10 @@ mcmtt_opticalflow_tpu/ops/hungarian.py.
 
 The JAX package runs Jonker-Volgenant shortest augmenting paths as device
 while_loops inside the 2D tracker's jitted step.  Here the same algorithm
-is a hand-written CUDA kernel (csrc/jv_assign.cu, one warp per camera)
-wrapped by `jv_assign`, with its plain version beside it:
+is a hand-written CUDA kernel (csrc/jv_assign.cu: one warp per camera
+runs the rows, with the column state in registers up to 256 working
+columns and in memory past that; any shape) wrapped by `jv_assign`, with
+its plain version beside it:
 `jv_assign_reference`, a numpy transcription of hungarian.py:90-169 run
 on the host in lockstep over the camera axis (every Dijkstra step one
 vectorised [C, T] min/argmin/where).  Both compute in float32 in the
@@ -245,11 +247,33 @@ def build() -> ctypes.CDLL:
     source hash) and loaded once."""
     lib, _, _ = build_library("jv_assign.cu")
     if lib.jv_assign_launch.argtypes is None:
-        lib.jv_assign_launch.restype = ctypes.c_int
-        lib.jv_assign_launch.argtypes = ([ctypes.c_void_p] * 3
-                                         + [ctypes.c_int] * 3
-                                         + [ctypes.c_void_p] * 3)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.jv_assign_launch.restype = i
+        lib.jv_assign_launch.argtypes = [p] * 3 + [i] * 3 + [p] * 4
+        lib.jv_scratch_words.restype = ctypes.c_longlong
+        lib.jv_scratch_words.argtypes = [i, i]
+        lib.jv_layout.restype = None
+        lib.jv_layout.argtypes = [i, i, p]
     return lib
+
+
+def jv_layout(r: int, t: int) -> dict:
+    """Where the JV kernel keeps [R, T] matrices (see csrc/jv_assign.cu):
+    {"columns_per_lane": 1, 2, 4 or 8 (the column state in registers) or
+    0 (in memory, past 256 working columns), "rows_in_smem" (else in
+    device memory), "state_in_smem", "smem_bytes"}."""
+    out = (ctypes.c_longlong * 4)()
+    build().jv_layout(r, t, out)
+    return {"columns_per_lane": out[0], "rows_in_smem": bool(out[1]),
+            "state_in_smem": bool(out[2]), "smem_bytes": out[3]}
+
+
+def jv_scratch(c: int, r: int, t: int, device) -> torch.Tensor:
+    """The JV kernel's scratch for [C, R, T] matrices: the normalised rows
+    and the column state where they do not fit in shared memory (empty at
+    the tracker's shapes)."""
+    words = build().jv_scratch_words(r, t)
+    return torch.empty(c * words, dtype=torch.float32, device=device)
 
 
 def _check(cost, row_mask, col_mask):
@@ -262,10 +286,11 @@ def _check(cost, row_mask, col_mask):
                          f"{tuple(col_mask.shape)}")
 
 
-def _launch(cost, row_mask, col_mask, col_of_row, match_cost) -> None:
+def _launch(cost, row_mask, col_mask, col_of_row, match_cost,
+            scratch) -> None:
     """Launch the kernel on prepared tensors (contiguous, of the kernel's
-    types, outputs allocated) on the current stream: no checks, no count.
-    jv_assign's launch path, and a timing loop's."""
+    types, outputs and `jv_scratch` allocated) on the current stream: no
+    checks, no count.  jv_assign's launch path, and a timing loop's."""
     c, r, t = cost.shape
     lib = build()
     # the launch and its shared-memory attribute go to the current device
@@ -273,6 +298,7 @@ def _launch(cost, row_mask, col_mask, col_of_row, match_cost) -> None:
         err = lib.jv_assign_launch(
             cost.data_ptr(), row_mask.data_ptr(), col_mask.data_ptr(), c, r,
             t, col_of_row.data_ptr(), match_cost.data_ptr(),
+            scratch.data_ptr(),
             torch.cuda.current_stream(cost.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"jv_assign kernel launch failed: CUDA error "
@@ -294,12 +320,13 @@ def jv_assign(cost: torch.Tensor, row_mask: torch.Tensor,
         raise ValueError(f"jv_assign: no kernel for device {cost.device}")
     if row_mask.device != cost.device or col_mask.device != cost.device:
         raise ValueError("jv_assign: all inputs must be on one device")
-    c, r, _ = cost.shape
+    c, r, t = cost.shape
     col_of_row = torch.empty((c, r), dtype=torch.int32, device=cost.device)
     match_cost = torch.empty((c, r), dtype=torch.float32, device=cost.device)
     # no-ops for inputs already of the kernel's types (the tracker's)
     _launch(cost.contiguous().float(), row_mask.contiguous().bool(),
-            col_mask.contiguous().bool(), col_of_row, match_cost)
+            col_mask.contiguous().bool(), col_of_row, match_cost,
+            jv_scratch(c, r, t, cost.device))
     if c and r:
         jv_assign.launches += 1
     return col_of_row, match_cost

@@ -328,7 +328,11 @@ def build() -> ctypes.CDLL:
     if lib.bls_steps_launch.argtypes is None:
         p, i, fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.greedy_start_launch.restype = i
-        lib.greedy_start_launch.argtypes = [p] * 4 + [i] * 3 + [p, p]
+        lib.greedy_start_launch.argtypes = [p] * 4 + [i] * 3 + [p] * 3
+        lib.greedy_scratch_words.restype = ctypes.c_longlong
+        lib.greedy_scratch_words.argtypes = [i]
+        lib.greedy_layout.restype = None
+        lib.greedy_layout.argtypes = [i, p]
         lib.bls_steps_launch.restype = i
         lib.bls_steps_launch.argtypes = ([p] * 22 + [i] * 7 + [fl] * 3
                                          + [p])
@@ -339,6 +343,25 @@ def build() -> ctypes.CDLL:
         lib.clique_weight_launch.restype = i
         lib.clique_weight_launch.argtypes = [p, p, i, i, p, p]
     return lib
+
+
+def greedy_layout(v: int) -> dict:
+    """Where the greedy kernel keeps a V-vertex graph (see
+    csrc/mwcp_bls.cu): {"tier": 0 (the packed columns and the replicas'
+    orders in shared memory), 1 (the columns in device memory) or 2 (the
+    orders read from device memory too), "replicas_per_block",
+    "smem_bytes"}."""
+    out = (ctypes.c_longlong * 3)()
+    build().greedy_layout(v, out)
+    return {"tier": out[0], "replicas_per_block": out[1],
+            "smem_bytes": out[2]}
+
+
+def greedy_scratch(v: int, device) -> torch.Tensor:
+    """The greedy kernel's scratch for a V-vertex graph: the adjacency's
+    columns packed as bits."""
+    return torch.empty(build().greedy_scratch_words(v), dtype=torch.int32,
+                       device=device)
 
 
 def bls_layout(v: int, s: int) -> dict:
@@ -379,8 +402,10 @@ def _check_greedy(weights, adj, valid, orders, bound):
         raise ValueError(f"bound must be in [0, {v}], got {bound}")
 
 
-def _launch_greedy(weights, adj, valid, orders, bound, in_c) -> None:
-    """Launch the greedy kernel on checked, contiguous tensors on the
+def _launch_greedy(weights, adj, valid, orders, bound, in_c,
+                   scratch) -> None:
+    """Launch the greedy kernels (the adjacency's columns packed, then the
+    rounds) on checked, contiguous tensors and `greedy_scratch` on the
     current stream: no count.  greedy_start's launch path, and a timing
     loop's."""
     r, v = orders.shape
@@ -389,6 +414,7 @@ def _launch_greedy(weights, adj, valid, orders, bound, in_c) -> None:
         err = lib.greedy_start_launch(
             orders.data_ptr(), adj.data_ptr(), valid.data_ptr(),
             weights.data_ptr(), r, v, bound, in_c.data_ptr(),
+            scratch.data_ptr(),
             torch.cuda.current_stream(orders.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"greedy_start kernel launch failed: CUDA error "
@@ -402,8 +428,9 @@ def greedy_start(weights: torch.Tensor, adj: torch.Tensor,
     (permutations putting the valid vertices first) over the first
     `bound` positions, with adj [V, V] bool, valid [V] bool and weights
     [V] float32: in_c [R, V] bool, as `greedy_start_reference`, on the
-    inputs' device (the kernel on a card).  `greedy_start.launches`
-    counts kernel launches."""
+    inputs' device (the kernel on a card: any V, and any adjacency, read
+    as adj[candidate][member] whether it is symmetric or not).
+    `greedy_start.launches` counts kernel launches."""
     _check_greedy(weights, adj, valid, orders, bound)
     dev = _device("greedy_start", (weights, adj, valid, orders))
     if dev.type == "cpu":
@@ -412,7 +439,8 @@ def greedy_start(weights: torch.Tensor, adj: torch.Tensor,
     in_c = torch.empty((r, v), dtype=torch.bool, device=dev)
     if r and v:
         _launch_greedy(weights.contiguous(), adj.contiguous(),
-                       valid.contiguous(), orders.contiguous(), bound, in_c)
+                       valid.contiguous(), orders.contiguous(), bound, in_c,
+                       greedy_scratch(v, dev))
         greedy_start.launches += 1
     return in_c
 

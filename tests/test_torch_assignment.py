@@ -3,7 +3,8 @@ and solve_assignment over `jv_assign`, whose plain version runs for CPU
 tensors) against the JAX package's jax.vmap(solve_assignment) on the same
 seeded numpy inputs: exact equality of col_of_row and match_cost on the
 random and tie-heavy generators of tests/test_torch_ops.py, on more rows
-than columns, at the tracker's bench shape, and on the [C, D, T] cost
+than columns, at the tracker's bench shape, at shapes whose working matrix
+passes a block's 227 KB of shared memory, and on the [C, D, T] cost
 matrices the 10-frame pipeline scene hands the assignment.  Also the
 wrapper's checks, the work count behind the kernel's bound, and (on a
 card only) the CUDA kernel against its plain version."""
@@ -75,6 +76,18 @@ def test_more_rows_than_columns_equals_jax(seed, shape, ties):
     """JV needs rows <= columns: the transposed solve and its inversion
     (the JAX function's :75-88)."""
     _check(*_case(100 + seed, shape, ties))
+
+
+@pytest.mark.parametrize("ties", [False, True])
+@pytest.mark.parametrize("shape", [(1, 256, 256), (1, 320, 240),
+                                   (2, 400, 150)])
+def test_past_shared_memory_equals_jax(shape, ties):
+    """Working matrices past a block's 227 KB of shared memory (a side of
+    about 240), which the kernel keeps in device memory: square, and more
+    rows than columns (the transposed solve).  The kernel must take any
+    shape, as the JAX function does; the plain version it is held to is
+    held to the JAX function here."""
+    _check(*_case(200 + shape[1], shape, ties))
 
 
 def test_degenerate_cases_equal_jax():
@@ -183,7 +196,9 @@ def test_work_counts_dijkstra_steps():
 def test_cuda_kernel_equals_plain_version(cuda_device):
     hungarian.build()
     for n, shape in enumerate([(3, 5, 7), (4, 48, 64), (2, 64, 48),
-                               (2, 128, 256)]):
+                               (2, 128, 256), (1, 256, 256), (1, 320, 240),
+                               (2, 400, 150), (1, 320, 320),
+                               (1, 12, 14000)]):
         for ties in (False, True):
             args = [torch.tensor(x, device=cuda_device)
                     for x in _case(n, shape, ties)]

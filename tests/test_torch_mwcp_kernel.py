@@ -1,9 +1,10 @@
 """The solver's device loops and start scores (ops/mwcp_kernel.py):
 `greedy_start`, on CPU tensors its plain version, against the JAX
 package's _greedy_initial run on every order row (exact, on random graphs
-with ties in the weights, a -inf weight outside the graph, an empty valid
-set and bounds below V); `bls_steps` run in pieces against one call of
-the whole count (bit-equal, `it` advanced); `clique_weights`, on CPU
+with ties in the weights, a -inf weight outside the graph, an adjacency
+that is not symmetric, an empty valid set and bounds below V);
+`bls_steps` run in pieces against one call of the whole count
+(bit-equal, `it` advanced); `clique_weights`, on CPU
 tensors torch.sum; the wrappers' checks; the work counts behind the
 kernels' bounds against a hand count; the plain solve against the JAX
 solve past the size where the BLS kernel's state leaves shared memory
@@ -26,7 +27,7 @@ from mcmtt_opticalflow_tpu_torch.models import mwcp
 from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel
 from mcmtt_opticalflow_tpu_torch.ops.mwcp_kernel import (
     bls_steps, bls_steps_reference, bls_work, clique_weights,
-    clique_weights_reference, clique_work, greedy_start,
+    clique_weights_reference, clique_work, greedy_layout, greedy_start,
     greedy_start_reference, greedy_work)
 from mcmtt_opticalflow_tpu_torch.utils import prng
 from torch_parity import (cuda_device, jax_mwcp_fields,  # noqa: F401
@@ -40,11 +41,12 @@ _jax_greedy = jax.jit(jax.vmap(jax_mwcp._greedy_initial,
 
 
 def _graph(seed, v, n, dens=0.6, ties=False, inf_outside=True,
-           integer=False):
+           integer=False, sym=True):
     """Weights [v] (few distinct values with `ties`, integers with
     `integer`, -inf at one vertex outside the graph with
-    `inf_outside`), a symmetric adjacency with a False diagonal, valid
-    vertices among the first n (about 80%); numpy arrays."""
+    `inf_outside`), an adjacency with a False diagonal (symmetric unless
+    `sym` is False), valid vertices among the first n (about 80%); numpy
+    arrays."""
     rng = np.random.RandomState(seed)
     w = rng.rand(v) * 10
     if ties:
@@ -54,6 +56,8 @@ def _graph(seed, v, n, dens=0.6, ties=False, inf_outside=True,
     w = w.astype(np.float32)
     up = np.triu(rng.rand(v, v) < dens, 1)
     adj = up | up.T
+    if not sym:
+        adj = (rng.rand(v, v) < dens) & ~np.eye(v, dtype=bool)
     valid = (np.arange(v) < n) & (rng.rand(v) < 0.8)
     if inf_outside and n + 2 < v:
         w[n + 2] = -np.inf
@@ -85,6 +89,8 @@ GREEDY_CASES = {
     "ties": dict(seed=3, v=256, n=230, ties=True),
     "no_inf": dict(seed=4, v=64, n=50, inf_outside=False),
     "dense": dict(seed=5, v=96, n=96, dens=0.97),
+    # adj[candidate][member] read, as the JAX loop reads it
+    "asymmetric": dict(seed=7, v=160, n=150, dens=0.8, sym=False),
 }
 
 
@@ -322,6 +328,44 @@ def test_cuda_kernels_equal_plain_versions(cuda_device):
         bls_steps_reference(ref, f, cfg, 100)
         for name, a, b in zip(st._fields, st, ref):
             assert torch.equal(a, b), (v, name)
+
+
+@pytest.mark.cuda
+def test_cuda_greedy_start_any_size_and_asymmetric(cuda_device):
+    """The greedy kernel against its plain version in each of its layouts
+    (`greedy_layout`): past the 6 V bytes of shared memory a block-wide
+    layout would ask for (V = 40000, 256 valid vertices, bound 256: tier
+    2, the orders read from device memory too), V = 6144 (tier 1, the
+    columns in device memory), V = 1100 (tier 0 past the register bit
+    sets), V = 1024 and 160 (tier 0, registers), and on an adjacency that
+    is not symmetric (the packed columns hold adj[candidate][member] as
+    the plain version reads it)."""
+    mwcp_kernel.build()
+    for seed, (v, n, dens, sym, bound, tier) in enumerate([
+            (40000, 256, 0.8, True, 256, 2),
+            (1024, 900, 0.8, False, 1024, 0),
+            (160, 150, 0.8, False, 160, 0),
+            (6144, 1500, 0.8, True, 1500, 1),
+            (1100, 1000, 0.8, False, 1100, 0)]):
+        assert greedy_layout(v)["tier"] == tier
+        rng = np.random.RandomState(seed)
+        w = torch.tensor(np.floor(rng.rand(v) * 30), dtype=torch.float32,
+                         device=cuda_device)
+        g = torch.Generator(device=cuda_device).manual_seed(seed)
+        adj = torch.rand((v, v), generator=g, device=cuda_device) < dens
+        if sym:
+            adj = torch.triu(adj, 1)
+            adj |= adj.T.clone()
+        valid = torch.zeros(v, dtype=torch.bool, device=cuda_device)
+        valid[torch.tensor(rng.permutation(v)[:n], device=cuda_device)] = True
+        orders = torch.argsort(-torch.where(valid, w, NEG), dim=-1,
+                               stable=True).expand(6, v).contiguous()
+        launches = greedy_start.launches
+        got = greedy_start(w, adj, valid, orders, bound)
+        assert greedy_start.launches == launches + 1
+        assert torch.equal(got, greedy_start_reference(w, adj, valid,
+                                                       orders, bound))
+        del adj
 
 
 def _drop_state(r=4, v=48, iters=40):
