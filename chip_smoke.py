@@ -4,16 +4,16 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero), run in
-the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 9, 3, 3g,
-10 counted:
+the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 12, 9, 3,
+3g, 10 counted:
 every timed phase comes before the first CUPTI session (phase 3's kernel
 count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
      level kernel (ops/csrc/lk_level.cu), the JV assignment kernel
      (ops/csrc/jv_assign.cu), the solver's greedy start, BLS and clique
-     weight kernels (ops/csrc/mwcp_bls.cu) and the CUPTI counter are
-     built with nvcc,
-     all at once;
+     weight kernels (ops/csrc/mwcp_bls.cu), its field draw
+     (ops/csrc/threefry_fields.cu) and the CUPTI counter are built with
+     nvcc, all at once;
   2. the LK kernel against its plain PyTorch version at synthetic bench
      shapes (4 cameras, 576x768 and 288x384 levels, 6912 and 9216
      feature slots, points uniform over the image, ~25% active at
@@ -46,12 +46,13 @@ count), which slows graph launches for the rest of the process:
      captured per bucket, three of them by precompile after warm-up):
      graph replays > 0 and 0 calls of its eager body; the capture time
      per bucket, the graph pool's bytes and the static buffers' bytes;
-     the solver's greedy_start_kernel, bls_steps_kernel and
-     clique_weight_kernel runs counted by CUPTI equal to those of each
-     captured program's head and
+     the solver's greedy_start_kernel, bls_steps_kernel,
+     clique_weight_kernel and threefry_fields_kernel runs counted by
+     CUPTI equal to those of each captured program's draw, head and
      iteration parts (warm-ups, replays, the head's replay before each
      iteration part's capture), their wrappers' launches those of the
-     captures' two calls, and no plain version (LK or solver) called;
+     captures' two calls, and no plain version (LK, solver or field
+     draw) called;
   3d. both 2D routes, no counter running: run_bench on the main path's
      route, then again with every 2D step run eagerly (no graph) and its
      assignment downloaded to the plain JV on the host and the matching
@@ -60,7 +61,7 @@ count), which slows graph launches for the rest of the process:
      medians of both routes (tracker2d, get2d, hyp.solve, hyp.collect
      called out), the host JV's ms a frame, ids and points equal on every
      frame; then the solver's threefry field draw of one frame, timed
-     alone.  On the way it
+     alone, by the kernel route and by its plain version.  On the way it
      records every frame's assignment inputs (phase 3f), every solve's
      inputs (phase 11) and the arguments of the 8 `lk_level` calls of
      frame CAPTURE_FRAME (phase 3b), which replays do not pass through;
@@ -102,7 +103,8 @@ count), which slows graph launches for the rest of the process:
      card on the same inputs and subkeys, bit for bit, over at least two
      buckets; one dispatch's host ms (hyp.dispatch) and wall ms to
      completion, eager against replay, on those inputs; the device ms of
-     each stage of the body (field draw, window scores, compatibility,
+     each stage of the body (field draw, and its plain version beside
+     it, window scores, compatibility,
      greedy start, BLS per iteration, K-best), each stage replayed as
      one graph between CUDA events queued behind a sleep kernel, and the
      BLS block's kernel alone over the same iterations from the same
@@ -171,8 +173,8 @@ count), which slows graph launches for the rest of the process:
      PROFILE_FRAMES steady bench frames: device busy share, device ms
      per frame, top 5 kernels, and the events of lk_level_kernel (8 per
      frame) and jv_assign_kernel (1 per frame), all in 2D graph replays,
-     and of the solver's three kernels (the window's 3D
-     head and iteration-part replays), none through a wrapper;
+     and of the solver's four kernels (the window's 3D
+     draw, head and iteration-part replays), none through a wrapper;
   10. the dataset CLI: the bench scene (12 frames) written in the
      reference's layout (Tsai XML, detection files, .ppm frames, ground
      truth, parameters.txt), run through `main.py <parameters.txt>` in
@@ -197,7 +199,10 @@ count), which slows graph launches for the rest of the process:
      weight sum within 1e-4, no clique twice, the top score >= 0.99 x
      the plain version's; the clique-weight kernel's start scores equal
      to ascending float32 sums bit for bit and to torch.sum within 1e-5
-     relative.  Then synthetic solves past the BLS kernel's
+     relative, and so on random masks at [1, 33], [7, 1000], [4, 6144]
+     and [3, 16400] in both its schedules (CLIQUE_CASES, each timed
+     beside the library call).  Then synthetic solves past the BLS
+     kernel's
      shared-memory layouts (V=6144 and V=16400, R=4, S=16, 60 iterations,
      integer weights) bit-equal to the plain version, their greedy starts
      equal to the plain greedy's; the greedy kernel equal to its plain
@@ -214,9 +219,19 @@ count), which slows graph launches for the rest of the process:
      from the same states; the BLS kernel's device-only µs per iteration
      on the 12 CLI solves too, and the greedy kernel's µs a round (a
      launch over the largest clique's rounds) on both; the clique
-     weights' library call, torch.sum(torch.where(...)), timed like the
-     kernel; all beside phase 3c's one-frame block and its kernel alone, with
-     the measured differences.
+     weights' library call, torch.sum(torch.where(...)), and the clique
+     kernel's shuffle-chain schedule timed like the kernel, on both; all
+     beside phase 3c's one-frame block and its kernel alone, with the
+     measured differences;
+  12. threefry: the solver's field draw kernel (ops/threefry_kernel.py)
+     bit-equal to its plain version on the card on every element of the
+     five fields, from the subkey of every recorded bench (37, [38, 1024,
+     150]) and CLI (12, [18, 256, 2000]) solve, where both also equal the
+     fields the captured program drew, and at DRAW_ODD [5, 1000, 7] into
+     buffers off 16-byte alignment; then a bench and a CLI draw: the
+     kernel's device-only µs (timed as phase 3b), the wrapper's host µs,
+     the plain version's ms, the bound (threefry_kernel.field_work) and
+     its binding term, the roofline share.
 
 The whole script takes about 5 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
@@ -238,12 +253,15 @@ The solver's kernels, on phase 11's recorded bench solves, per solve (a
 greedy start, the start's clique weights: 1 launch each; the BLS: its
 150 iterations, timed as 1 launch): the same keys, with `serial_steps`
 (the greedy's `device_us_per_round`, `_cli` on the CLI's solves; the
-clique weights' `library_ms`; the BLS's `device_us_per_iteration`,
-`_cli` on the CLI's solves,
+clique weights' `library_ms`, `device_us_per_launch_chain` (the other
+schedule), `_cli` on the CLI's solves; the BLS's
+`device_us_per_iteration`, `_cli` on the CLI's solves,
 `graph_block_us_per_iteration`, `kernel_block_us_per_iteration`, and
 `layout`: where the kernel keeps
 the graph and the state); their main-path and CLI launches are kernel
-runs counted by CUPTI.
+runs counted by CUPTI.  The field draw (phase 12), per bench draw (1
+launch): the same keys, with `numbers`, and the CLI draw's
+`device_us_per_launch_cli`, `plain_ms_cli`, `bound_us_cli`.
 The last line is {"ok": true, "device": {...}}.
 """
 
@@ -595,27 +613,36 @@ def kernel_runs(ev):
             ev.count("lk_level_kernel<true"), ev.count("jv_assign_kernel"))
 
 
-# the solver's kernels: wrapper (ops/mwcp_kernel.py), CUDA kernel name
+# the solver's kernels: wrapper (in ops/mwcp_kernel.py, the field draw's
+# in ops/threefry_kernel.py), CUDA kernel name
 SOLVER_KERNELS = (("greedy_start", "greedy_start_kernel"),
                   ("bls_steps", "bls_steps_kernel"),
-                  ("clique_weights", "clique_weight_kernel"))
+                  ("clique_weights", "clique_weight_kernel"),
+                  ("threefry_fields", "threefry_fields_kernel"))
+
+
+def solver_module(wrapper):
+    """The module that holds a solver kernel's wrapper and plain version."""
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel, threefry_kernel
+    return threefry_kernel if wrapper == "threefry_fields" else mwcp_kernel
 
 
 def solver_kernel_runs(ev):
-    """(greedy start, BLS, clique weight) kernel runs that a KernelEvents
-    session counted on the card."""
+    """(greedy start, BLS, clique weight, field draw) kernel runs that a
+    KernelEvents session counted on the card."""
     return tuple(ev.count(k) for _, k in SOLVER_KERNELS)
 
 
 def solver_runs_expected(assocs):
-    """The solver kernels' (greedy start, BLS, clique weight) runs on the
-    card that the captured 3D programs of `assocs` made, and their
-    wrappers' launches: per program the head's warm-up, its replays, and
-    one replay before each iteration part's capture (FrameProgram.capture)
-    run the greedy start and the clique weights; per iteration part its
-    warm-up and its replays run the BLS.  A wrapper counts each part's
-    warm-up and recording."""
-    runs, wrapper = [0, 0], [0, 0]
+    """The solver kernels' (greedy start, BLS, clique weight, field draw)
+    runs on the card that the captured 3D programs of `assocs` made, and
+    their wrappers' launches: per program the head's warm-up, its
+    replays, and one replay before each iteration part's capture
+    (FrameProgram.capture) run the greedy start and the clique weights;
+    per iteration part its warm-up and its replays run the BLS; the draw
+    part's warm-up and its replays run the field draw.  A wrapper counts
+    each part's warm-up and recording."""
+    runs, wrapper = [0, 0, 0], [0, 0, 0]
     for assoc in assocs:
         for p in assoc._programs.values():
             if p.head.graph is None:
@@ -625,18 +652,21 @@ def solver_runs_expected(assocs):
             runs[1] += sum(1 + x.n_replays for x in loops)
             wrapper[0] += 2
             wrapper[1] += 2 * len(loops)
-    return (*runs, runs[0]), (*wrapper, wrapper[0])
+            if p.draw.graph is not None:
+                runs[2] += 1 + p.draw.n_replays
+                wrapper[2] += 2
+    return ((runs[0], runs[1], runs[0], runs[2]),
+            (wrapper[0], wrapper[1], wrapper[0], wrapper[2]))
 
 
 def solver_launches():
-    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel
-    return tuple(getattr(mwcp_kernel, w).launches for w, _ in SOLVER_KERNELS)
+    return tuple(getattr(solver_module(w), w).launches
+                 for w, _ in SOLVER_KERNELS)
 
 
 def reset_solver_launches():
-    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel
     for w, _ in SOLVER_KERNELS:
-        getattr(mwcp_kernel, w).launches = 0
+        getattr(solver_module(w), w).launches = 0
 
 
 def phase_main_path(card, timed):
@@ -653,8 +683,7 @@ def phase_main_path(card, timed):
     import numpy as np
     from mcmtt_opticalflow_tpu_torch import bench
     from mcmtt_opticalflow_tpu_torch.models import pipeline
-    from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk, lk_kernel,
-                                                 mwcp_kernel)
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk, lk_kernel
     from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     total = WARMUP + MEASURED
@@ -663,9 +692,7 @@ def phase_main_path(card, timed):
     # its recording), replays none
     counted = {(mod, name): _count_calls(mod, name) for mod, name in (
         (lk_kernel, "lk_level_reference"), (lk, "lk_track_points"),
-        (mwcp_kernel, "greedy_start_reference"),
-        (mwcp_kernel, "bls_steps_reference"),
-        (mwcp_kernel, "clique_weights_reference"),
+        *[(solver_module(w), f"{w}_reference") for w, _ in SOLVER_KERNELS],
         (pipeline, "tracker2d_step"))}
     eager = EagerCount()
     lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
@@ -723,9 +750,10 @@ def phase_main_path(card, timed):
     want_s_runs, want_s_wrapper = solver_runs_expected([assoc])
     log(f"main path: solver kernels run on the card (CUPTI) greedy_start="
         f"{s_runs[0]} bls_steps={s_runs[1]} clique_weights={s_runs[2]} "
-        f"(expected {want_s_runs}: each captured program's head and "
-        f"iteration parts, their warm-ups and replays), wrapper launches "
-        f"{s_wrapper} (expected {want_s_wrapper}: the captures' two calls)")
+        f"threefry_fields={s_runs[3]} (expected {want_s_runs}: each "
+        f"captured program's draw, head and iteration parts, their "
+        f"warm-ups and replays), wrapper launches {s_wrapper} (expected "
+        f"{want_s_wrapper}: the captures' two calls)")
     if s_runs != want_s_runs or s_wrapper != want_s_wrapper:
         fail(f"main path: the solver kernels ran {s_runs} times and their "
              f"wrappers launched {s_wrapper}, expected {want_s_runs} and "
@@ -859,6 +887,8 @@ def phase_routes(card):
     import numpy as np
     from mcmtt_opticalflow_tpu_torch import bench
     from mcmtt_opticalflow_tpu_torch.models.mwcp import threefry_fields
+    from mcmtt_opticalflow_tpu_torch.ops.threefry_kernel import (
+        field_work, threefry_fields_reference)
     from mcmtt_opticalflow_tpu_torch.utils import prng
 
     graph_run = bench.run_bench(MEASURED, "cuda")
@@ -896,15 +926,20 @@ def phase_routes(card):
         f"{float(jv_ms.max()):.3f}); ids and points equal to the graph "
         f"route's on all {len(run.results)} frames")
 
-    # the solver's random fields of one bench frame, drawn alone
+    # the solver's random fields of one bench frame, drawn alone: the
+    # kernel route and the plain version
     r = bench.bench_config().solver.num_replicas + \
         bench.bench_config().assoc3d.k_best_size
-    key = prng.split(prng.prng_key(0))[1]
+    key = prng.split(prng.prng_key(0))[1].cuda()
     draw_ms = time_ms(lambda: threefry_fields(key, r, 1024, 150, "cuda"),
                       reps=10)
+    plain_ms = time_ms(
+        lambda: threefry_fields_reference(key, r, 1024, 150), reps=10)
     log(f"2D routes: threefry field draw (R={r}, V=1024, 150 iterations: "
-        f"{2 * 150 * r * 1024 + 2 * 150 * r + r * 1024} numbers) "
-        f"{draw_ms:.3f} ms a frame (CUDA events, median of 10) on {card}")
+        f"{field_work(r, 1024, 150)['numbers']} numbers) {draw_ms:.4f} ms "
+        f"a frame by the kernel route, {plain_ms:.3f} ms by the plain "
+        f"version (CUDA events with the host's calls, median of 10) on "
+        f"{card}")
     return capture.calls, route.inputs, graph_run, solves.solves
 
 
@@ -1158,6 +1193,8 @@ def _stage_ms(assoc, host, key, iters):
     from mcmtt_opticalflow_tpu_torch.models.costs import score_track_windows
     from mcmtt_opticalflow_tpu_torch.models.mwcp import (
         bls_result, bls_start, iters_padded, threefry_fields)
+    from mcmtt_opticalflow_tpu_torch.ops.threefry_kernel import \
+        threefry_fields_reference
     cfg, acfg = assoc._solver_cfg_fused, assoc.acfg
     r, vmax = cfg.num_replicas, cfg.max_vertices
     ip = iters_padded(cfg, iters)
@@ -1175,6 +1212,8 @@ def _stage_ms(assoc, host, key, iters):
     out = {
         "field draw": _graph_ms(
             lambda: threefry_fields(kd, r, vmax, ip, dev)),
+        "field draw, plain version": _graph_ms(
+            lambda: threefry_fields_reference(kd, r, vmax, ip)),
         "window scores": _graph_ms(lambda: score_track_windows(
             t[0].float(), t[1].float(), t[2], t[3].float(), t[4],
             assoc.cams, acfg)),
@@ -1460,10 +1499,11 @@ class SolveCapture:
     3D program call (models/associator3d.py::FrameProgram): the graph
     (weights, adjacency, validity), the warm starts, the random fields,
     the greedy bound (the bucket's graph rows), the solver configuration
-    (`solver_cfg` with the program's replica count) and the K-best size
-    (the replicas beyond solver_cfg's, one a carried hypothesis); the
-    head's outputs and the fields are the program's own buffers, so they
-    are cloned after each call, before the next."""
+    (`solver_cfg` with the program's replica count), the K-best size
+    (the replicas beyond solver_cfg's, one a carried hypothesis) and the
+    subkey the fields were drawn from; the head's outputs, the fields and
+    the key are the program's own buffers, so they are cloned after each
+    call, before the next."""
 
     def __init__(self, solver_cfg):
         self.solver_cfg, self.solves = solver_cfg, []
@@ -1482,7 +1522,8 @@ class SolveCapture:
             self.solves.append({
                 "weights": st.weights.clone(), "adj": st.adj.clone(),
                 "valid": st.valid.clone(), "init": prog.inputs[12].clone(),
-                "fields": f, "bound": prog.bucket[1],
+                "fields": f, "key": prog.key.clone(),
+                "bound": prog.bucket[1],
                 "k": f.noise.shape[0] - self.solver_cfg.num_replicas,
                 "cfg": dataclasses.replace(
                     self.solver_cfg, num_replicas=f.noise.shape[0])})
@@ -1791,7 +1832,8 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
     """Per recorded solve: each kernel's device-only µs (behind a sleep
     kernel, median of 3, as phase 3b), its wrapper's host µs per call and
     the bound from greedy_work / bls_work / clique_work; the library call
-    torch.sum(torch.where(...)) beside the clique weights, timed alike;
+    torch.sum(torch.where(...)) and the clique kernel's shuffle-chain
+    schedule beside the clique weights, timed alike;
     on every PLAIN_EVERY-th solve the plain versions' ms
     (with `plain_too`) and a BLOCK-iteration BLS block as the captured
     program replays it and its kernel alone (_block_us, phase 3c's
@@ -1808,7 +1850,7 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
     lib = lk_kernel.build()
     stream = torch.cuda.current_stream().cuda_stream
     noop = device_us(lambda: lib.lk_noop_launch(stream))
-    g_rows, b_rows, c_rows, lib_us = [], [], [], []
+    g_rows, b_rows, c_rows, lib_us, chain_us = [], [], [], [], []
     plain = {"greedy": [], "bls": [], "clique": []}
     block_us = []
     for n, s in enumerate(solves):
@@ -1831,9 +1873,10 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         st = bls_start(w, adj, valid, s["init"], f, cfg, bound)
         scores = torch.empty(r, device=w.device)
         cw = mk.clique_work(st.in_c, w)
-        if plain_too:
-            lib_us.append(device_us(
-                lambda: torch.sum(torch.where(st.in_c, w, 0.0), -1)))
+        lib_us.append(device_us(
+            lambda: torch.sum(torch.where(st.in_c, w, 0.0), -1)))
+        chain_us.append(device_us(
+            lambda: mk._launch_clique(st.in_c, w, scores, chain=True)))
         c_rows.append((
             device_us(lambda: mk._launch_clique(st.in_c, w, scores)),
             host_us(lambda: mk.clique_weights(st.in_c, w)),
@@ -1893,6 +1936,25 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         f"over the replicas, {gm[5]:.1f} in the largest clique "
         f"({gm[0] / gm[5]:.4f} us a round of it); empty-kernel floor "
         f"{noop:.3f} us")
+    c_by = "bytes" if cm[8] >= 0.5 else "operations"
+    lib_mean, chain_mean = float(np.mean(lib_us)), float(np.mean(chain_us))
+    plain_c = f"plain {cm[2]:.4f} ms; " if plain_too else ""
+    log(f"mwcp: clique_weights per {name} solve ({len(c)} solves, 1 "
+        f"launch, [{r}, {v}]; {card}): device-only {cm[0]:.3f} us (min "
+        f"{c[:, 0].min():.3f}, max {c[:, 0].max():.3f}; the shuffle-chain "
+        f"schedule {chain_mean:.3f}; empty-kernel floor {noop:.3f}), "
+        f"wrapper host {cm[1]:.3f} us/call, {plain_c}library call "
+        f"torch.sum(torch.where(masks, weights, 0.0), -1) device-only "
+        f"{lib_mean:.3f} us ({lib_mean / cm[0]:.2f}x the kernel); work "
+        f"{cm[6]:.0f} B, {cm[7]:.0f} ops; bound {cm[3]:.5f} us ({c_by}), "
+        f"roofline share {cm[3] / cm[0]:.5f}; serial additions {cm[5]:.1f} "
+        f"in the largest clique")
+    out_clique = {
+        "ms": cm[0] / 1e3, "plain_ms": cm[2], "bound_ms": cm[3] / 1e3,
+        "bound_by": c_by, "device_us_per_launch": cm[0],
+        "device_us_per_launch_chain": chain_mean,
+        "host_us_per_call": cm[1], "bound_us": cm[3], "serial_steps": cm[5],
+        "library_ms": lib_mean / 1e3}
     if not plain_too:
         log(f"mwcp: bls_steps per {name} solve ({len(b)} solves, "
             f"{iters:.0f} iterations in 1 launch, R={r}, V={v}, layout "
@@ -1905,16 +1967,8 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
             f"{out_bls['kernel_block_us_per_iteration']:.4f}; wrapper host "
             f"{bm[1]:.3f} us/call; bound {bm[3]:.4f} us "
             f"({out_bls['bound_by']}), roofline share {bm[3] / bm[0]:.6f}")
-        return {"greedy_start": out_greedy, "bls_steps": out_bls}
-    c_by = "bytes" if cm[8] >= 0.5 else "operations"
-    lib_mean = float(np.mean(lib_us))
-    log(f"mwcp: clique_weights per bench solve ({len(c)} solves, 1 launch, "
-        f"[{r}, {v}]; {card}): device-only {cm[0]:.3f} us, wrapper host "
-        f"{cm[1]:.3f} us/call, plain {cm[2]:.4f} ms; library call "
-        f"torch.sum(torch.where(masks, weights, 0.0), -1) device-only "
-        f"{lib_mean:.3f} us; work {cm[6]:.0f} B, {cm[7]:.0f} ops; bound "
-        f"{cm[3]:.5f} us ({c_by}), roofline share {cm[3] / cm[0]:.5f}; "
-        f"serial additions {cm[5]:.1f} in the largest clique")
+        return {"greedy_start": out_greedy, "bls_steps": out_bls,
+                "clique_weights": out_clique}
     b_by = "bytes" if bm[7] >= 0.5 else "operations"
     log(f"mwcp: bls_steps per bench solve ({len(b)} solves, {iters:.0f} "
         f"iterations in 1 launch, R={r}, V={v}; {card}): device-only "
@@ -1928,13 +1982,8 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         f"{FrameProgram.BLOCK}-iteration block as a graph "
         f"{out_bls['graph_block_us_per_iteration']:.4f} us an iteration, "
         f"its kernel alone {out_bls['kernel_block_us_per_iteration']:.4f}")
-    return {"greedy_start": out_greedy,
-            "bls_steps": out_bls,
-            "clique_weights": {
-             "ms": cm[0] / 1e3, "plain_ms": cm[2], "bound_ms": cm[3] / 1e3,
-             "bound_by": c_by, "device_us_per_launch": cm[0],
-             "host_us_per_call": cm[1], "bound_us": cm[3],
-             "serial_steps": cm[5], "library_ms": lib_mean / 1e3}}
+    return {"greedy_start": out_greedy, "bls_steps": out_bls,
+            "clique_weights": out_clique}
 
 
 # the synthetic solves past the shared-memory layouts: (V, valid)
@@ -2047,6 +2096,129 @@ def _greedy_checks(card):
         torch.cuda.empty_cache()
 
 
+# the clique-weight kernel past the recorded shapes: (R, V, member
+# density); V not a multiple of 16 takes its byte-by-byte loads, V above
+# 1024 its chunks
+CLIQUE_CASES = ((1, 33, 0.3), (7, 1000, 0.1), (4, 6144, 0.02),
+                (3, 16400, 0.01))
+
+
+def _clique_checks(card):
+    """The clique-weight kernel, both schedules, against ascending float32
+    sums bit for bit on CLIQUE_CASES (random masks and weights); each
+    case's device-only µs beside the library call's."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
+    rng = np.random.RandomState(11)
+    for r, v, dens in CLIQUE_CASES:
+        w = (rng.randn(v) * 50).astype(np.float32)
+        masks = rng.rand(r, v) < dens
+        want = np.asarray([_ascending_sum(w, m) for m in masks], np.float32)
+        mt, wt = torch.from_numpy(masks).cuda(), torch.from_numpy(w).cuda()
+        got = mk.clique_weights(mt, wt)
+        out = torch.empty(r, device="cuda")
+        mk._launch_clique(mt, wt, out, chain=True)
+        same = [np.array_equal(x.cpu().numpy(), want) for x in (got, out)]
+        us = [device_us(lambda: mk._launch_clique(mt, wt, out, chain=c))
+              for c in (False, True)]
+        lib_us = device_us(lambda: torch.sum(torch.where(mt, wt, 0.0), -1))
+        log(f"mwcp: clique weights [{r}, {v}] ({int(masks.sum())} members): "
+            f"kernel {'==' if same[0] else 'DIFFERS from'} ascending "
+            f"float32 sums, the shuffle-chain schedule "
+            f"{'==' if same[1] else 'DIFFERS'}; device-only {us[0]:.3f} us "
+            f"(chain {us[1]:.3f}), library call {lib_us:.3f} us ({card})")
+        if not all(same):
+            fail(f"mwcp: clique weights [{r}, {v}]: the kernel differs from "
+                 f"an ascending float32 sum")
+
+
+# the field draw's odd shape (r, v, iters_pad): nothing a multiple of 4
+DRAW_ODD = (5, 1000, 7)
+
+
+def _draw_times(r, v, ip, card, label):
+    """The field draw at [r, v, ip] from a fixed subkey: the kernel's
+    device-only µs (a prepared launch into fixed buffers, timed as phase
+    3b), the wrapper's host µs per call, the plain version's ms (CUDA
+    events, median of 5) and the bound (threefry_kernel.field_work)."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
+    from mcmtt_opticalflow_tpu_torch.utils import prng
+    key = prng.split(prng.prng_key(r * v + ip))[1].cuda()
+    out = tuple(torch.empty(x, device="cuda")
+                for x in tk.field_shapes(r, v, ip))
+    dev = device_us(lambda: tk._launch(key, r, v, ip, out), reps=20)
+    host = host_us(lambda: tk.threefry_fields(key, r, v, ip, out), reps=20)
+    plain = time_ms(lambda: tk.threefry_fields_reference(key, r, v, ip),
+                    reps=5)
+    work = tk.field_work(r, v, ip)
+    bound = 1e6 * work["bound_s"]
+    log(f"threefry: {label} draw [{r}, {v}, {ip}] ({work['numbers']} "
+        f"numbers, {work['bytes']} B, {work['ops']} ops): device-only "
+        f"{dev:.3f} us, plain version {plain:.3f} ms ({1e3 * plain / dev:.0f}"
+        f"x), wrapper host {host:.3f} us/call; bound {bound:.3f} us "
+        f"({work['bound_by']}), roofline share {bound / dev:.4f} ({card})")
+    return {"device_us": dev, "host_us": host, "plain_ms": plain,
+            "bound_us": bound, "bound_by": work["bound_by"],
+            "numbers": work["numbers"]}
+
+
+def phase_threefry(bench_solves, cli_solves, card):
+    """The solver's field draw (ops/threefry_kernel.py) against its plain
+    version on the card, bit for bit on every element of all five fields:
+    from the subkey of every recorded bench solve ([38, 1024, 150]) and
+    CLI solve ([18, 256, 2000]), where both must also equal the fields
+    the captured program drew for that solve, and at DRAW_ODD from a
+    fixed subkey into buffers one element off 16-byte alignment.  Then
+    the bench's and the CLI's draw timed (_draw_times).  Returns the
+    kernels-line summary."""
+    import math
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
+    from mcmtt_opticalflow_tpu_torch.utils import prng
+    shapes = {}
+    for name, solves in (("bench", bench_solves), ("cli", cli_solves)):
+        for n, s in enumerate(solves):
+            ip, r, v = s["fields"].g_dir.shape
+            got = tk.threefry_fields(s["key"], r, v, ip)
+            plain = tk.threefry_fields_reference(s["key"], r, v, ip)
+            bad = [f for f, g, p, rec in zip(tk.FIELDS, got, plain,
+                                             s["fields"])
+                   if not (_bits_equal(g, p) and _bits_equal(g, rec))]
+            if bad:
+                fail(f"threefry: {name} solve {n} [{r}, {v}, {ip}]: the "
+                     f"kernel's {bad} differ from the plain version's or "
+                     f"the program's")
+            shape = str([r, v, ip])
+            shapes[shape] = shapes.get(shape, 0) + 1
+    r, v, ip = DRAW_ODD
+    key = prng.split(prng.prng_key(13))[1].cuda()
+    bufs = [torch.full((math.prod(x) + 1,), 7.0, device="cuda")
+            for x in tk.field_shapes(r, v, ip)]
+    out = [b[1:].view(x) for b, x in zip(bufs, tk.field_shapes(r, v, ip))]
+    tk.threefry_fields(key, r, v, ip, out)
+    plain = tk.threefry_fields_reference(key, r, v, ip)
+    if not all(_bits_equal(g, p) for g, p in zip(out, plain)):
+        fail(f"threefry: the kernel differs from the plain version at "
+             f"{list(DRAW_ODD)} (unaligned buffers)")
+    log(f"threefry: kernel == plain version bit for bit on every element "
+        f"of the five fields, and == the captured program's fields, for "
+        f"the recorded solves' subkeys (shape: solves) {shapes}; and at "
+        f"{list(DRAW_ODD)} into unaligned buffers ({card})")
+    bench = _draw_times(38, 1024, 150, card, "bench")
+    cli = _draw_times(18, 256, 2000, card, "cli")
+    return {"ms": bench["device_us"] / 1e3, "plain_ms": bench["plain_ms"],
+            "bound_ms": bench["bound_us"] / 1e3,
+            "bound_by": bench["bound_by"], "max_abs_err": 0.0,
+            "device_us_per_launch": bench["device_us"],
+            "host_us_per_call": bench["host_us"],
+            "bound_us": bench["bound_us"], "numbers": bench["numbers"],
+            "device_us_per_launch_cli": cli["device_us"],
+            "plain_ms_cli": cli["plain_ms"], "bound_us_cli": cli["bound_us"],
+            "numbers_cli": cli["numbers"]}
+
+
 def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     """The solver's kernels (ops/mwcp_kernel.py) on the card against their
     plain versions, on the recorded solves of the bench main path (phase
@@ -2072,6 +2244,7 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     for v, n in LARGE_SOLVES:
         _large_solve_check(v, n, card)
     _greedy_checks(card)
+    _clique_checks(card)
     out = _mwcp_times(bench_solves, card)
     cli_out = _mwcp_times(cli_solves, card, "cli", plain_too=False)
     cli = cli_out["bls_steps"]
@@ -2086,6 +2259,9 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
         bls[f"{k}_cli"] = cli[k]
     bls["layout_cli"] = cli["layout"]
     out["clique_weights"]["max_abs_err"] = max(cerr_b, cerr_c)
+    for k in ("device_us_per_launch", "device_us_per_launch_chain",
+              "library_ms"):
+        out["clique_weights"][f"{k}_cli"] = cli_out["clique_weights"][k]
     blk = [k for k in graph_stages if k.startswith("BLS per iteration")][0]
     alone = [k for k in graph_stages if k.startswith("BLS kernel alone")][0]
     g3c, a3c = 1e3 * graph_stages[blk], 1e3 * graph_stages[alone]
@@ -2624,9 +2800,10 @@ def phase_mesh(cfg, sc, frames):
         fail(f"mesh: {launches} LK and {jv_launches} JV launches, "
              f"expected {32 * MESH_FRAMES} and {4 * MESH_FRAMES}")
     log(f"mesh: solver wrapper launches (greedy_start, bls_steps, "
-        f"clique_weights) {s_launches} (expected one each per eager 3D "
-        f"program call: {eager.calls})")
-    if s_launches != (eager.calls,) * 3 or not eager.calls:
+        f"clique_weights, threefry_fields) {s_launches} (expected one each "
+        f"per eager 3D program call: {eager.calls})")
+    if s_launches != (eager.calls,) * len(SOLVER_KERNELS) or \
+            not eager.calls:
         fail(f"mesh: solver launches {s_launches} for {eager.calls} eager "
              f"3D program calls")
 
@@ -2656,8 +2833,8 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
     mesh (two blocks each) must equal its per-block solves plus the
     argmax, the same in both; each launches the solver's kernels, as
     many times as the other.  Each process is killed at MP_LIMIT_S.
-    Returns the LK, JV, greedy start, BLS and clique weight launches of
-    both processes."""
+    Returns the LK, JV, greedy start, BLS, clique weight and field draw
+    launches of both processes."""
     import tempfile
     import numpy as np
     from mcmtt_opticalflow_tpu_torch.parallel import multihost_sim
@@ -2681,7 +2858,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             for r in mesh_results]
     keys = ("best_score", "best_mask", "all_masks_sha256",
             "all_scores_sha256")
-    launches = [0] * 5
+    launches = [0] * (2 + len(SOLVER_KERNELS))
     for pid, (*_, res) in enumerate(outs):
         eng, solver = res["engine"], res["solver"]
         got = [(f["frame"], f["ids"], np.reshape(f["points"], (-1, 3)))
@@ -2702,7 +2879,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             f"{d_pts:.3e} mm; lk_level launches={eng['lk_launches']} "
             f"(expected {16 * MESH_FRAMES}), jv_assign launches="
             f"{eng['jv_launches']} (expected {2 * MESH_FRAMES}), solver "
-            f"(greedy_start, bls_steps, clique_weights) "
+            f"(greedy_start, bls_steps, clique_weights, threefry_fields) "
             f"{tuple(eng['solver_launches'])} (one each a 3D solve); engine "
             f"{eng['wall_s']:.2f} s "
             f"against {mesh_wall:.2f} s for the one-process mesh run; "
@@ -2731,14 +2908,14 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             fail("multiprocess: the processes made different collectives")
         solver = tuple(eng["solver_launches"])
         if solver != tuple(outs[0][3]["engine"]["solver_launches"]) or \
-                not solver[0] or solver != (solver[0],) * 3:
+                not solver[0] or solver != (solver[0],) * len(SOLVER_KERNELS):
             fail(f"multiprocess: process {pid} launched the solver kernels "
                  f"{solver} times (expected > 0, one each a 3D solve, as "
                  f"many as process 0)")
         launches[0] += eng["lk_launches"]
         launches[1] += eng["jv_launches"]
-        for k in range(3):
-            launches[2 + k] += solver[k]
+        for k, n in enumerate(solver):
+            launches[2 + k] += n
     report.pop("frames")
     log(f"multiprocess: scaling_report {json.dumps(report)} on {card}; both "
         f"processes in {wall:.1f} s")
@@ -2807,8 +2984,8 @@ def phase_profile(cfg, sc, frames):
              f"events in the trace, expected {8 * PROFILE_FRAMES} and "
              f"{PROFILE_FRAMES}")
     log(f"profile: greedy_start_kernel, bls_steps_kernel, "
-        f"clique_weight_kernel events {n_solver} "
-        f"(expected {want_s}: the window's 3D head and iteration-part "
+        f"clique_weight_kernel, threefry_fields_kernel events {n_solver} "
+        f"(expected {want_s}: the window's 3D draw, head and iteration-part "
         f"replays, and the warm-ups of any capture in it), wrapper "
         f"launches {s_launches} (expected {want_s_wrapper}: those "
         f"captures' calls)")
@@ -2880,8 +3057,7 @@ def phase_cli(card, counted, record_jv=False):
     from mcmtt_opticalflow_tpu_torch.eval import experiment
     from mcmtt_opticalflow_tpu_torch.bench import bench_scene
     from mcmtt_opticalflow_tpu_torch.models import pipeline
-    from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk, lk_kernel,
-                                                 mwcp_kernel)
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk, lk_kernel
     from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
 
     sc, frames = bench_scene(CLI_FRAMES)
@@ -2924,8 +3100,10 @@ def phase_cli(card, counted, record_jv=False):
                 counting("lk_level_reference", lk_kernel.lk_level_reference)),
                (lk, "lk_track_points",
                 counting("lk_track_points", lk.lk_track_points)),
-               *[(mwcp_kernel, n, counting(n, getattr(mwcp_kernel, n)))
-                 for n in (f"{w}_reference" for w, _ in SOLVER_KERNELS)]]
+               *[(solver_module(w), f"{w}_reference",
+                  counting(f"{w}_reference",
+                           getattr(solver_module(w), f"{w}_reference")))
+                 for w, _ in SOLVER_KERNELS]]
     orig = {name: getattr(mod, name) for mod, name, _ in patches}
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as root:
@@ -3003,7 +3181,8 @@ def phase_cli(card, counted, record_jv=False):
     want_s_runs, want_s_wrapper = solver_runs_expected(
         [e.assoc for e in engines])
     log(f"{name}: solver " + (f"kernels run on the card (CUPTI) "
-                              f"(greedy_start, bls_steps, clique_weights) "
+                              f"(greedy_start, bls_steps, clique_weights, "
+                              f"threefry_fields) "
                               f"{s_runs} "
                               f"(expected {want_s_runs}), " if counted
                               else "") +
@@ -3053,7 +3232,8 @@ def main():
         from mcmtt_opticalflow_tpu_torch.bench import (bench_config,
                                                        bench_scene)
         from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk_kernel,
-                                                     mwcp_kernel)
+                                                     mwcp_kernel,
+                                                     threefry_kernel)
         from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import build_library
         from mcmtt_opticalflow_tpu_torch.utils import kernel_events
     except ImportError as e:
@@ -3066,17 +3246,20 @@ def main():
 
     # one nvcc for each source, started together
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(4) as pool:
+    with ThreadPoolExecutor(5) as pool:
         for job in [pool.submit(lk_kernel.build),
                     pool.submit(hungarian.build),
                     pool.submit(mwcp_kernel.build),
+                    pool.submit(threefry_kernel.build),
                     pool.submit(kernel_events.build)]:
             job.result()
     log(f"build: lk_level.cu (batched + serial kernels), jv_assign.cu, "
-        f"mwcp_bls.cu (greedy start + BLS) and the CUPTI kernel counter "
+        f"mwcp_bls.cu (greedy start, BLS, clique weights), "
+        f"threefry_fields.cu (the field draw) and the CUPTI kernel counter "
         f"(kernel_events.cpp) built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
-    for source in ("lk_level.cu", "jv_assign.cu", "mwcp_bls.cu"):
+    for source in ("lk_level.cu", "jv_assign.cu", "mwcp_bls.cu",
+                   "threefry_fields.cu"):
         for line in build_library(source)[2].splitlines():
             if "registers" in line or "spill" in line:
                 log(f"build: {line.strip()}")
@@ -3118,6 +3301,8 @@ def main():
     cli_solves = phase_cli(card, counted=False)["solves"]
     solver_summary = phase_mwcp(bench_solves, cli_solves, card,
                                 graph_stages)
+    solver_summary["threefry_fields"] = phase_threefry(bench_solves,
+                                                       cli_solves, card)
     del bench_solves, cli_solves
     paths["profile"], jv_paths["profile"], solver_paths["profile"] = \
         phase_profile(cfg, sc, frames)
@@ -3163,13 +3348,14 @@ def main():
         "launches": jv_paths["main"], "library_ms": None, **jv,
         "launches_by_path": jv_paths, **graphed["jv_assign"]})
     # the JAX lines each replaces: the greedy fori_loop, the BLS
-    # while_loop, the start score's sum
-    for i, ((kname, _), line) in enumerate(zip(SOLVER_KERNELS,
-                                                (48, 324, 143))):
+    # while_loop, the start score's sum, the loop's field draws
+    for i, ((kname, _), line, src) in enumerate(zip(
+            SOLVER_KERNELS, (48, 324, 143, 280),
+            ("mwcp_bls.cu",) * 3 + ("threefry_fields.cu",))):
         by_path = {k: v[i] for k, v in solver_paths.items()}
         kernels.append({
             "name": kname, "route": "cuda",
-            "source": "mcmtt_opticalflow_tpu_torch/ops/csrc/mwcp_bls.cu",
+            "source": f"mcmtt_opticalflow_tpu_torch/ops/csrc/{src}",
             "replaces": f"mcmtt_opticalflow_tpu/models/mwcp.py:{line}",
             "launches": by_path["main"], "library_ms": None,
             **solver_summary[kname], "launches_by_path": by_path,

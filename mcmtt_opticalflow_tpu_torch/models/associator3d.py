@@ -168,7 +168,8 @@ class FrameProgram:
     The buffers hold the host's uploads (`inputs`, in the order of
     `Associator3D._rescore_and_solve`'s first 13 arguments), the
     solver's subkey (`key`) and its random fields (`fields`).  The
-    program runs in parts, each a `Graphed`: the field draw, the head
+    program runs in parts, each a `Graphed`: the field draw (the kernel
+    writes `fields` in place), the head
     (window scores, weights, the compatibility graph, the solver's
     start), a block of BLOCK iterations replayed iters/BLOCK times, a
     block of the remaining iterations, and the tail (the last record,
@@ -206,7 +207,7 @@ class FrameProgram:
             g_rnd=zeros((ip, r, vmax)))
 
         def draw():
-            self._fill_fields(threefry_fields(self.key, r, vmax, ip, dev))
+            return threefry_fields(self.key, r, vmax, ip, dev, self.fields)
 
         def head():
             (pts, raws, rmask, merr, lens, row_map, host_base, tree_ids,
@@ -255,10 +256,6 @@ class FrameProgram:
                 self.head.graph.replay()
             part.capture()
 
-    def _fill_fields(self, fields: MwcpFields) -> None:
-        for dst, src in zip(self.fields, fields):
-            dst.copy_(src)
-
     def __call__(self, host: Sequence[np.ndarray], key: torch.Tensor,
                  field_source=None):
         """Run one frame: copy the host arrays and the subkey into the
@@ -275,7 +272,9 @@ class FrameProgram:
             self.key.copy_(key, non_blocking=True)
             self.draw()
         else:
-            self._fill_fields(field_source.draw(*self._draw_args))
+            for dst, src in zip(self.fields,
+                                field_source.draw(*self._draw_args)):
+                dst.copy_(src)
         pack_a, _ = self.head()
         for _ in range(self.blocks):
             self.block()

@@ -17,7 +17,7 @@ for CPU tensors).
 Randomness is the JAX package's: a solve takes a PRNG key
 (utils/prng.py) and draws its fields from it exactly as the JAX
 solve_mwcp draws them from its key (mwcp.py:134-141, 279-284), on the
-solve's device.  In place of a key a caller may hand in a *field source*,
+solve's device (on a card in one kernel launch, ops/threefry_kernel.py).  In place of a key a caller may hand in a *field source*,
 an object whose ``draw(r, v, iters_pad, device)`` returns the
 `MwcpFields` of one solve; `ThreefryFields` is the one that splits a key
 per solve as the JAX associator does.
@@ -42,6 +42,7 @@ from mcmtt_opticalflow_tpu_torch.ops.mwcp_kernel import (  # noqa: F401
     _argmax_first, _record, bls_steps, clique_weights)
 from mcmtt_opticalflow_tpu_torch.ops.mwcp_kernel import \
     greedy_start as _greedy_initial
+from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel
 from mcmtt_opticalflow_tpu_torch.utils import prng
 
 NEG = -1e30
@@ -64,17 +65,14 @@ class MwcpFields(NamedTuple):
 
 
 def threefry_fields(key: torch.Tensor, r: int, v: int, iters_pad: int,
-                    device) -> MwcpFields:
+                    device, out: MwcpFields | None = None) -> MwcpFields:
     """The fields the JAX package's solve_mwcp(key=key) draws: one split
     into r replica keys (their greedy-order noise) and one more, split in
-    four for the loop's fields (mwcp.py:134-141, 279-284)."""
-    keys = prng.split(torch.as_tensor(key, device=device), r + 1)
-    ku1, kg2, ku3, kg4 = prng.split(keys[r], 4)
-    return MwcpFields(noise=prng.uniform(keys[:r], (v,)),
-                      u_dir=prng.uniform(ku1, (iters_pad, r)),
-                      g_dir=prng.gumbel(kg2, (iters_pad, r, v)),
-                      u_ten=prng.uniform(ku3, (iters_pad, r)),
-                      g_rnd=prng.gumbel(kg4, (iters_pad, r, v)))
+    four for the loop's fields (mwcp.py:134-141, 279-284).  On a card one
+    launch of the draw kernel (ops/threefry_kernel.py), for a CPU key its
+    plain version; with `out` the fields are written into its tensors."""
+    return MwcpFields(*threefry_kernel.threefry_fields(
+        torch.as_tensor(key, device=device), r, v, iters_pad, out))
 
 
 def draw_fields(fields, r: int, v: int, iters_pad: int,

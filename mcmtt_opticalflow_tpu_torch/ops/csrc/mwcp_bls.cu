@@ -10,7 +10,8 @@
 // Neither is a Pallas kernel: both are XLA loops inside the JAX package's
 // jitted per-frame program.  Their plain versions are
 // ops/mwcp_kernel.py::greedy_start_reference and bls_steps_reference.
-// A third, clique_weight_kernel, sums each start clique's weights in the
+// A third, clique_weight_kernel (a warp a row, all loads issued first; see
+// its note), sums each start clique's weights in the
 // BLS kernel's order (the JAX package takes one reduction for the start's
 // score and the loop's, :143 and :185), so that a clique scores the same
 // in the ring whether the start or an iteration recorded it: the record's
@@ -521,24 +522,111 @@ __global__ void __launch_bounds__(32 * kGreedyWarps)
   }
 }
 
-// each row's clique weight, one warp a row: the members' weights added in
-// ascending order from 0, as bls_steps_kernel sums fc
-__global__ void clique_weight_kernel(const uint8_t* __restrict__ masks,
-                                     const float* __restrict__ weights,
-                                     int R, int V, float* __restrict__ out) {
-  const int lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  if (row >= R) return;
-  const uint8_t* m = masks + (size_t)row * V;
+// Each row's clique weight, one warp a row and a row a block (so that the
+// rows spread over the SMs): the members' weights added in ascending order
+// from 0, as bls_steps_kernel sums fc.  The row is taken kCliqueChunk
+// columns at a time, 32 contiguous columns a lane.  Every load of a chunk
+// is issued before any is used: a lane's 32 mask bytes as two 16-byte
+// loads and its 32 weights as eight float4 loads whether the vertex is a
+// member or not (kVec: V % 16 == 0 and 16-byte aligned rows; else a byte
+// and a float at a time); the members are then bit tests in registers.
+// The ascending chain runs once a chunk, by one of two schedules (kChain):
+//   false (the wrappers' choice): the members' weights are compacted into
+//     shared memory in ascending order (each lane's place by a prefix of
+//     the lanes' member counts over five shuffles, each member's by the
+//     lane's members before it), and lane 0 adds them eight at a time
+//     from two 16-byte loads;
+//   true: the partial sum passes lane to lane by shuffles, over the lanes
+//     that hold members, each adding its own from registers.
+// Either way the additions are the same, in the same order.
+constexpr int kCliqueChunk = 1024;
+
+template <bool kChain, bool kVec>
+__global__ void __launch_bounds__(32)
+    clique_weight_kernel(const uint8_t* __restrict__ masks,
+                         const float* __restrict__ weights, int V,
+                         float* __restrict__ out) {
+  __shared__ __align__(16) float sw[kChain ? 4 : kCliqueChunk];
+  const int lane = threadIdx.x;
+  const uint8_t* m = masks + (size_t)blockIdx.x * V;
   float s = 0.0f;
-  for (int k = 0; k < V; k += 32) {
-    const int c = k + lane;
-    const bool in = c < V && m[c];
-    const float wc = in ? weights[c] : 0.0f;
-    for (unsigned bits = __ballot_sync(kAll, in); bits; bits &= bits - 1)
-      s = __fadd_rn(s, __shfl_sync(kAll, wc, __ffs(bits) - 1));
+  for (int c0 = 0; c0 < V; c0 += kCliqueChunk) {
+    const int col = c0 + 32 * lane;
+    float w[32];
+    unsigned bits = 0;
+    if (kVec) {
+      uint4 q[2];
+      float4 f[8];
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        q[h] = col + 16 * h < V
+                   ? __ldg(reinterpret_cast<const uint4*>(m + col + 16 * h))
+                   : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+      for (int k = 0; k < 8; ++k)
+        f[k] = col + 4 * k < V
+                   ? __ldg(reinterpret_cast<const float4*>(weights + col) + k)
+                   : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      const unsigned words[8] = {q[0].x, q[0].y, q[0].z, q[0].w,
+                                 q[1].x, q[1].y, q[1].z, q[1].w};
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const unsigned nz = __vcmpne4(words[k], 0u);   // 0xff a member byte
+        bits |= ((nz & 1u) | ((nz >> 7) & 2u) | ((nz >> 14) & 4u) |
+                 ((nz >> 21) & 8u)) << (4 * k);
+        w[4 * k] = f[k].x;
+        w[4 * k + 1] = f[k].y;
+        w[4 * k + 2] = f[k].z;
+        w[4 * k + 3] = f[k].w;
+      }
+    } else {
+      uint8_t b[32];
+#pragma unroll
+      for (int k = 0; k < 32; ++k) {
+        b[k] = col + k < V ? __ldg(m + col + k) : (uint8_t)0;
+        w[k] = col + k < V ? __ldg(weights + col + k) : 0.0f;
+      }
+#pragma unroll
+      for (int k = 0; k < 32; ++k) bits |= (unsigned)(b[k] != 0) << k;
+    }
+    if (kChain) {
+      for (unsigned h = __ballot_sync(kAll, bits != 0u); h; h &= h - 1) {
+        const int src = __ffs(h) - 1;
+        if (lane == src) {
+#pragma unroll
+          for (int k = 0; k < 32; ++k)
+            if ((bits >> k) & 1u) s = __fadd_rn(s, w[k]);
+        }
+        s = __shfl_sync(kAll, s, src);
+      }
+    } else {
+      const int cnt = __popc(bits);
+      int pos = cnt;                   // inclusive prefix over the lanes
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        const int t = __shfl_up_sync(kAll, pos, d);
+        if (lane >= d) pos += t;
+      }
+      const int total = __shfl_sync(kAll, pos, 31);
+      pos -= cnt;
+#pragma unroll
+      for (int k = 0; k < 32; ++k)
+        if ((bits >> k) & 1u) sw[pos + __popc(bits & ((1u << k) - 1u))] = w[k];
+      __syncwarp();
+      if (lane == 0) {
+        const float4* sw4 = reinterpret_cast<const float4*>(sw);
+        for (int i = 0; i < total; i += 8) {
+          const float4 a = sw4[i >> 2], b = sw4[(i >> 2) + 1];
+          const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+#pragma unroll
+          for (int j = 0; j < 8; ++j)
+            if (i + j < total) s = __fadd_rn(s, x[j]);
+        }
+      }
+    }
+    __syncwarp();
   }
-  if (lane == 0) out[row] = s;
+  if (lane == 0) out[blockIdx.x] = s;
 }
 // ---------------------------------------------------------------------------
 // the BLS iterations
@@ -1502,12 +1590,19 @@ extern "C" void greedy_layout(int V, long long* out) {
 }
 
 // Launches clique_weight_kernel on `stream`: out [R] from masks [R, V]
-// (bool) and weights [V] float32.
+// (bool) and weights [V] float32, a block a row; `chain` picks the
+// shuffle-chain schedule (chip_smoke times both), 0 the compaction.
 extern "C" int clique_weight_launch(const uint8_t* masks, const float* weights,
-                                    int R, int V, float* out, void* stream) {
+                                    int R, int V, float* out, int chain,
+                                    void* stream) {
   if (R <= 0) return (int)cudaSuccess;
-  clique_weight_kernel<<<(R + 7) / 8, 256, 0, (cudaStream_t)stream>>>(
-      masks, weights, R, V, out);
+  const bool vec = V % 16 == 0 && (uintptr_t)masks % 16 == 0 &&
+                   (uintptr_t)weights % 16 == 0;
+  auto* kernel = chain ? (vec ? clique_weight_kernel<true, true>
+                              : clique_weight_kernel<true, false>)
+                       : (vec ? clique_weight_kernel<false, true>
+                              : clique_weight_kernel<false, false>);
+  kernel<<<R, 32, 0, (cudaStream_t)stream>>>(masks, weights, V, out);
   return (int)cudaGetLastError();
 }
 

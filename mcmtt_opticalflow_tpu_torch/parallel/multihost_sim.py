@@ -235,7 +235,7 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     source to draw from instead."""
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
     from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk_kernel,
-                                                 mwcp_kernel)
+                                                 mwcp_kernel, threefry_kernel)
     from mcmtt_opticalflow_tpu_torch.parallel import mesh as mesh_mod
 
     if bench:
@@ -283,7 +283,7 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     per_call, count_per_call, results = [], [], []
     lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
     solver = (mwcp_kernel.greedy_start, mwcp_kernel.bls_steps,
-              mwcp_kernel.clique_weights)
+              mwcp_kernel.clique_weights, threefry_kernel.threefry_fields)
     for fn in solver:
         fn.launches = 0
     t0 = time.perf_counter()

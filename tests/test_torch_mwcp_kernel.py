@@ -9,7 +9,8 @@ tensors torch.sum; the wrappers' checks; the work counts behind the
 kernels' bounds against a hand count; the plain solve against the JAX
 solve past the size where the BLS kernel's state leaves shared memory
 (V = 4160, not a multiple of 32); a random move that drops most of the
-clique in one iteration; and (on a card only) the CUDA kernels against
+clique in one iteration; the clique weights at V = 1, 33 and 1000 and
+R = 0; and (on a card only) the CUDA kernels against
 their plain versions, bit-equal on graphs whose weights are integers
 (every sum exact in any order) at V from 64 to 8192, the clique weights
 bit-equal to an ascending float32 sum."""
@@ -189,6 +190,51 @@ def test_clique_weights_on_cpu_are_the_plain_version():
     want = np.where(masks, w.astype(np.float64), 0.0).sum(-1)
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6)
     assert got[0] == 0.0 and clique_weights.launches == 0
+
+
+# (R, V): one vertex, V not a multiple of 16 or 32, no rows
+CLIQUE_SHAPES = [(4, 1), (6, 33), (5, 1000), (0, 64)]
+
+
+def _ascending(masks, w):
+    """Each row's members' weights added in ascending order from 0 in
+    float32, as the kernel sums them."""
+    out = np.zeros(masks.shape[0], np.float32)
+    for i, row in enumerate(masks):
+        for c in np.flatnonzero(row):
+            out[i] = np.float32(out[i] + w[c])
+    return out
+
+
+def _clique_case(r, v):
+    rng = np.random.RandomState(r * 1000 + v)
+    w = (rng.randn(v) * 50).astype(np.float32)
+    return rng.rand(r, v) < 0.3, w
+
+
+@pytest.mark.parametrize("r,v", CLIQUE_SHAPES)
+def test_clique_weights_on_cpu_at_any_shape(r, v):
+    """On CPU tensors torch.sum(torch.where()), within float32 rounding of
+    the ascending sum, an [R] float32 result even for R = 0 or V = 1."""
+    masks, w = _clique_case(r, v)
+    got = clique_weights(*_t(masks, w))
+    assert got.dtype == torch.float32 and got.shape == (r,)
+    assert torch.equal(got, clique_weights_reference(*_t(masks, w)))
+    np.testing.assert_allclose(got.numpy(), _ascending(masks, w),
+                               rtol=1e-5, atol=1e-4)
+    assert clique_weights.launches == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,v", CLIQUE_SHAPES)
+def test_cuda_clique_weights_at_any_shape(cuda_device, r, v):
+    """The kernel at the same shapes: the ascending float32 sum bit for
+    bit, one launch where there are rows."""
+    masks, w = _clique_case(r, v)
+    launches = clique_weights.launches
+    got = clique_weights(*[t.to(cuda_device) for t in _t(masks, w)])
+    assert clique_weights.launches == launches + (r > 0)
+    np.testing.assert_array_equal(got.cpu().numpy(), _ascending(masks, w))
 
 
 def test_clique_weights_rejects_bad_inputs():
