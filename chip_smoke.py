@@ -200,10 +200,8 @@ count), which slows graph launches for the rest of the process:
      the plain version's; the clique-weight kernel's start scores equal
      to ascending float32 sums bit for bit and to torch.sum within 1e-5
      relative, and so on random masks at [1, 33], [7, 1000], [4, 6144]
-     and [3, 16400] in both its schedules (CLIQUE_CASES, each timed
-     beside the library call).  Then synthetic solves past the BLS
-     kernel's
-     shared-memory layouts (V=6144 and V=16400, R=4, S=16, 60 iterations,
+     and [3, 16400] (CLIQUE_CASES, each timed beside the library call).
+     Then synthetic solves past the BLS kernel's shared-memory layouts (V=6144 and V=16400, R=4, S=16, 60 iterations,
      integer weights) bit-equal to the plain version, their greedy starts
      equal to the plain greedy's; the greedy kernel equal to its plain
      version in each of its layouts: V=40000 (256 valid vertices, bound
@@ -219,8 +217,8 @@ count), which slows graph launches for the rest of the process:
      from the same states; the BLS kernel's device-only µs per iteration
      on the 12 CLI solves too, and the greedy kernel's µs a round (a
      launch over the largest clique's rounds) on both; the clique
-     weights' library call, torch.sum(torch.where(...)), and the clique
-     kernel's shuffle-chain schedule timed like the kernel, on both; all
+     weights' library call, torch.sum(torch.where(...)), timed like the
+     kernel, on both; all
      beside phase 3c's one-frame block and its kernel alone, with the
      measured differences;
   12. threefry: the solver's field draw kernel (ops/threefry_kernel.py)
@@ -253,8 +251,7 @@ The solver's kernels, on phase 11's recorded bench solves, per solve (a
 greedy start, the start's clique weights: 1 launch each; the BLS: its
 150 iterations, timed as 1 launch): the same keys, with `serial_steps`
 (the greedy's `device_us_per_round`, `_cli` on the CLI's solves; the
-clique weights' `library_ms`, `device_us_per_launch_chain` (the other
-schedule), `_cli` on the CLI's solves; the BLS's
+clique weights' `library_ms`, `_cli` on the CLI's solves; the BLS's
 `device_us_per_iteration`, `_cli` on the CLI's solves,
 `graph_block_us_per_iteration`, `kernel_block_us_per_iteration`, and
 `layout`: where the kernel keeps
@@ -613,24 +610,20 @@ def kernel_runs(ev):
             ev.count("lk_level_kernel<true"), ev.count("jv_assign_kernel"))
 
 
-# the solver's kernels: wrapper (in ops/mwcp_kernel.py, the field draw's
-# in ops/threefry_kernel.py), CUDA kernel name
-SOLVER_KERNELS = (("greedy_start", "greedy_start_kernel"),
-                  ("bls_steps", "bls_steps_kernel"),
-                  ("clique_weights", "clique_weight_kernel"),
-                  ("threefry_fields", "threefry_fields_kernel"))
-
-
-def solver_module(wrapper):
-    """The module that holds a solver kernel's wrapper and plain version."""
+def solver_kernels():
+    """The solver's kernels: (the module of the wrapper and its plain
+    version, wrapper, CUDA kernel name)."""
     from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel, threefry_kernel
-    return threefry_kernel if wrapper == "threefry_fields" else mwcp_kernel
+    return ((mwcp_kernel, "greedy_start", "greedy_start_kernel"),
+            (mwcp_kernel, "bls_steps", "bls_steps_kernel"),
+            (mwcp_kernel, "clique_weights", "clique_weight_kernel"),
+            (threefry_kernel, "threefry_fields", "threefry_fields_kernel"))
 
 
 def solver_kernel_runs(ev):
     """(greedy start, BLS, clique weight, field draw) kernel runs that a
     KernelEvents session counted on the card."""
-    return tuple(ev.count(k) for _, k in SOLVER_KERNELS)
+    return tuple(ev.count(k) for *_, k in solver_kernels())
 
 
 def solver_runs_expected(assocs):
@@ -660,13 +653,12 @@ def solver_runs_expected(assocs):
 
 
 def solver_launches():
-    return tuple(getattr(solver_module(w), w).launches
-                 for w, _ in SOLVER_KERNELS)
+    return tuple(getattr(m, w).launches for m, w, _ in solver_kernels())
 
 
 def reset_solver_launches():
-    for w, _ in SOLVER_KERNELS:
-        getattr(solver_module(w), w).launches = 0
+    for m, w, _ in solver_kernels():
+        getattr(m, w).launches = 0
 
 
 def phase_main_path(card, timed):
@@ -692,7 +684,7 @@ def phase_main_path(card, timed):
     # its recording), replays none
     counted = {(mod, name): _count_calls(mod, name) for mod, name in (
         (lk_kernel, "lk_level_reference"), (lk, "lk_track_points"),
-        *[(solver_module(w), f"{w}_reference") for w, _ in SOLVER_KERNELS],
+        *[(m, f"{w}_reference") for m, w, _ in solver_kernels()],
         (pipeline, "tracker2d_step"))}
     eager = EagerCount()
     lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
@@ -969,6 +961,19 @@ def phase_eager_counted(card):
     if runs != wrapper or runs != (8 * total, 0, 0):
         fail(f"eager 2D route: the card ran {runs} kernels, the wrappers "
              f"launched {wrapper}, expected {(8 * total, 0, 0)} both")
+
+
+def _max_abs_err(pairs) -> float:
+    """The largest |a - b| over pairs of tensors of one shape, 0 where
+    they are equal (so equal infinities count 0)."""
+    import torch
+    err = 0.0
+    for a, b in pairs:
+        if a.numel():
+            b = b.to(a.device)
+            d = torch.where(a == b, 0.0, (a.double() - b.double()).abs())
+            err = max(err, float(d.max()))
+    return err
 
 
 def _bits_equal(a, b) -> bool:
@@ -1374,7 +1379,8 @@ def jv_prepared(cost, row_mask, col_mask):
 
 def jv_compare(cost, row_mask, col_mask, label):
     """One kernel launch against the plain version on the same inputs:
-    col_of_row equal and match_cost equal bit for bit, or fail."""
+    col_of_row equal and match_cost equal bit for bit, or fail.  Returns
+    (the plain version's matches, the largest |match_cost difference|)."""
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import hungarian
     col_k, mc_k = hungarian.jv_assign(cost, row_mask, col_mask)
@@ -1384,7 +1390,7 @@ def jv_compare(cost, row_mask, col_mask, label):
             not _bits_equal(mc_k.cpu(), mc_r):
         fail(f"jv_assign: the kernel differs from its plain version on "
              f"{label} {tuple(cost.shape)}")
-    return int((col_r >= 0).sum())
+    return int((col_r >= 0).sum()), _max_abs_err([(mc_k, mc_r)])
 
 
 def _jv_timed(cases):
@@ -1412,12 +1418,13 @@ def phase_jv(recorded, card, cli_recorded=()):
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
 
-    matched = [jv_compare(*x, f"bench frame {t}")
-               for t, x in enumerate(recorded)]
+    matched, errs = zip(*[jv_compare(*x, f"bench frame {t}")
+                          for t, x in enumerate(recorded)])
+    errs = list(errs)
     kinds = {}
     for n, (kind, *case) in enumerate(jv_cases()):
         args = [torch.tensor(x, device="cuda") for x in case]
-        jv_compare(*args, f"case {n} ({kind})")
+        errs.append(jv_compare(*args, f"case {n} ({kind})")[1])
         kinds[kind] = kinds.get(kind, 0) + 1
     rng = np.random.RandomState(1)
     past = []
@@ -1425,11 +1432,12 @@ def phase_jv(recorded, card, cli_recorded=()):
         for ties in (False, True):
             args = [torch.tensor(x, device="cuda")
                     for x in jv_case(rng, shape, ties)]
-            jv_compare(*args, f"{'ties' if ties else 'random'} case past "
-                              f"the old limit")
+            errs.append(jv_compare(
+                *args, f"{'ties' if ties else 'random'} case past the old "
+                       f"limit")[1])
             past.append(args)
     for t, x in enumerate(cli_recorded):
-        jv_compare(*x, f"CLI frame {t}")
+        errs.append(jv_compare(*x, f"CLI frame {t}")[1])
     log(f"jv: kernel == plain version (col_of_row equal, match_cost bit "
         f"for bit) on all {len(recorded)} bench frames' "
         f"{list(recorded[0][0].shape)} assignments ({sum(matched)} "
@@ -1473,7 +1481,7 @@ def phase_jv(recorded, card, cli_recorded=()):
            "device_us_per_launch": mean[0], "host_us_per_call": mean[1],
            "bound_us": bound.mean(), "serial_steps": mean[5],
            "serial_steps_slowest_camera": mean[6],
-           "device_ns_per_step": ns_step, "max_abs_err": 0.0}
+           "device_ns_per_step": ns_step, "max_abs_err": max(errs)}
     timed = {"cli": _jv_timed(cli_recorded), "past the old limit":
              _jv_timed(past)}
     for name, t in timed.items():
@@ -1754,7 +1762,7 @@ def _mwcp_check(solves, name):
     """The solver's kernels against their plain versions on recorded
     solves; see phase_mwcp.  Returns (the largest |score difference| of
     the solves equal up to rounding, the largest |clique weight
-    difference|)."""
+    difference|, the largest |greedy start mask difference|)."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.models.mwcp import (
@@ -1762,17 +1770,19 @@ def _mwcp_check(solves, name):
     from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
 
     n_eq = n_round = rows = 0
-    err, ratio, clique_err = 0.0, [], 0.0
+    err, ratio, clique_err, greedy_err = 0.0, [], 0.0, 0.0
     for n, s in enumerate(solves):
         label = f"{name} solve {n}"
         w, adj, valid, f, cfg = (s["weights"], s["adj"], s["valid"],
                                  s["fields"], s["cfg"])
         orders = replica_orders(w, valid, f.noise)
         greedy = mk.greedy_start(w, adj, valid, orders, s["bound"])
-        if not torch.equal(greedy, mk.greedy_start_reference(
-                w, adj, valid, orders, s["bound"])):
+        greedy_p = mk.greedy_start_reference(w, adj, valid, orders,
+                                             s["bound"])
+        if not torch.equal(greedy, greedy_p):
             fail(f"mwcp: {label}: the greedy kernel differs from its plain "
                  f"version")
+        greedy_err = max(greedy_err, _max_abs_err([(greedy, greedy_p)]))
         rows += greedy.shape[0]
         st0 = bls_start(w, adj, valid, s["init"], f, cfg, s["bound"])
         # the start scores: the clique-weight kernel's ascending sums, bit
@@ -1825,15 +1835,14 @@ def _mwcp_check(solves, name):
         f"decision parted) on {n_round}, parted within rounding on "
         f"{len(solves) - n_eq - n_round}; kernel / plain top score min "
         f"{min(ratio):.6f} mean {sum(ratio) / len(ratio):.6f}")
-    return err, clique_err
+    return err, clique_err, greedy_err
 
 
 def _mwcp_times(solves, card, name="bench", plain_too=True):
     """Per recorded solve: each kernel's device-only µs (behind a sleep
     kernel, median of 3, as phase 3b), its wrapper's host µs per call and
     the bound from greedy_work / bls_work / clique_work; the library call
-    torch.sum(torch.where(...)) and the clique kernel's shuffle-chain
-    schedule beside the clique weights, timed alike;
+    torch.sum(torch.where(...)) beside the clique weights, timed alike;
     on every PLAIN_EVERY-th solve the plain versions' ms
     (with `plain_too`) and a BLOCK-iteration BLS block as the captured
     program replays it and its kernel alone (_block_us, phase 3c's
@@ -1850,7 +1859,7 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
     lib = lk_kernel.build()
     stream = torch.cuda.current_stream().cuda_stream
     noop = device_us(lambda: lib.lk_noop_launch(stream))
-    g_rows, b_rows, c_rows, lib_us, chain_us = [], [], [], [], []
+    g_rows, b_rows, c_rows, lib_us = [], [], [], []
     plain = {"greedy": [], "bls": [], "clique": []}
     block_us = []
     for n, s in enumerate(solves):
@@ -1875,8 +1884,6 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         cw = mk.clique_work(st.in_c, w)
         lib_us.append(device_us(
             lambda: torch.sum(torch.where(st.in_c, w, 0.0), -1)))
-        chain_us.append(device_us(
-            lambda: mk._launch_clique(st.in_c, w, scores, chain=True)))
         c_rows.append((
             device_us(lambda: mk._launch_clique(st.in_c, w, scores)),
             host_us(lambda: mk.clique_weights(st.in_c, w)),
@@ -1926,7 +1933,7 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         "bound_by": g_by, "device_us_per_launch": gm[0],
         "host_us_per_call": gm[1], "bound_us": gm[3], "serial_steps": gm[4],
         "serial_steps_largest_clique": gm[5],
-        "device_us_per_round": gm[0] / gm[5], "max_abs_err": 0.0}
+        "device_us_per_round": gm[0] / gm[5]}
     log(f"mwcp: greedy_start per {name} solve ({len(g)} solves, 1 launch, "
         f"[{r}, {v}], layout {mk.greedy_layout(v)}; {card}): device-only "
         f"{gm[0]:.3f} us (min {g[:, 0].min():.3f}, max {g[:, 0].max():.3f})"
@@ -1937,12 +1944,12 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
         f"({gm[0] / gm[5]:.4f} us a round of it); empty-kernel floor "
         f"{noop:.3f} us")
     c_by = "bytes" if cm[8] >= 0.5 else "operations"
-    lib_mean, chain_mean = float(np.mean(lib_us)), float(np.mean(chain_us))
+    lib_mean = float(np.mean(lib_us))
     plain_c = f"plain {cm[2]:.4f} ms; " if plain_too else ""
     log(f"mwcp: clique_weights per {name} solve ({len(c)} solves, 1 "
         f"launch, [{r}, {v}]; {card}): device-only {cm[0]:.3f} us (min "
-        f"{c[:, 0].min():.3f}, max {c[:, 0].max():.3f}; the shuffle-chain "
-        f"schedule {chain_mean:.3f}; empty-kernel floor {noop:.3f}), "
+        f"{c[:, 0].min():.3f}, max {c[:, 0].max():.3f}; empty-kernel floor "
+        f"{noop:.3f}), "
         f"wrapper host {cm[1]:.3f} us/call, {plain_c}library call "
         f"torch.sum(torch.where(masks, weights, 0.0), -1) device-only "
         f"{lib_mean:.3f} us ({lib_mean / cm[0]:.2f}x the kernel); work "
@@ -1952,7 +1959,6 @@ def _mwcp_times(solves, card, name="bench", plain_too=True):
     out_clique = {
         "ms": cm[0] / 1e3, "plain_ms": cm[2], "bound_ms": cm[3] / 1e3,
         "bound_by": c_by, "device_us_per_launch": cm[0],
-        "device_us_per_launch_chain": chain_mean,
         "host_us_per_call": cm[1], "bound_us": cm[3], "serial_steps": cm[5],
         "library_ms": lib_mean / 1e3}
     if not plain_too:
@@ -2104,9 +2110,9 @@ CLIQUE_CASES = ((1, 33, 0.3), (7, 1000, 0.1), (4, 6144, 0.02),
 
 
 def _clique_checks(card):
-    """The clique-weight kernel, both schedules, against ascending float32
-    sums bit for bit on CLIQUE_CASES (random masks and weights); each
-    case's device-only µs beside the library call's."""
+    """The clique-weight kernel against ascending float32 sums bit for bit
+    on CLIQUE_CASES (random masks and weights); each case's device-only µs
+    beside the library call's."""
     import numpy as np
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import mwcp_kernel as mk
@@ -2117,18 +2123,15 @@ def _clique_checks(card):
         want = np.asarray([_ascending_sum(w, m) for m in masks], np.float32)
         mt, wt = torch.from_numpy(masks).cuda(), torch.from_numpy(w).cuda()
         got = mk.clique_weights(mt, wt)
+        same = np.array_equal(got.cpu().numpy(), want)
         out = torch.empty(r, device="cuda")
-        mk._launch_clique(mt, wt, out, chain=True)
-        same = [np.array_equal(x.cpu().numpy(), want) for x in (got, out)]
-        us = [device_us(lambda: mk._launch_clique(mt, wt, out, chain=c))
-              for c in (False, True)]
+        us = device_us(lambda: mk._launch_clique(mt, wt, out))
         lib_us = device_us(lambda: torch.sum(torch.where(mt, wt, 0.0), -1))
         log(f"mwcp: clique weights [{r}, {v}] ({int(masks.sum())} members): "
-            f"kernel {'==' if same[0] else 'DIFFERS from'} ascending "
-            f"float32 sums, the shuffle-chain schedule "
-            f"{'==' if same[1] else 'DIFFERS'}; device-only {us[0]:.3f} us "
-            f"(chain {us[1]:.3f}), library call {lib_us:.3f} us ({card})")
-        if not all(same):
+            f"kernel {'==' if same else 'DIFFERS from'} ascending float32 "
+            f"sums; device-only {us:.3f} us, library call {lib_us:.3f} us "
+            f"({card})")
+        if not same:
             fail(f"mwcp: clique weights [{r}, {v}]: the kernel differs from "
                  f"an ascending float32 sum")
 
@@ -2177,7 +2180,7 @@ def phase_threefry(bench_solves, cli_solves, card):
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
     from mcmtt_opticalflow_tpu_torch.utils import prng
-    shapes = {}
+    shapes, err = {}, 0.0
     for name, solves in (("bench", bench_solves), ("cli", cli_solves)):
         for n, s in enumerate(solves):
             ip, r, v = s["fields"].g_dir.shape
@@ -2190,6 +2193,7 @@ def phase_threefry(bench_solves, cli_solves, card):
                 fail(f"threefry: {name} solve {n} [{r}, {v}, {ip}]: the "
                      f"kernel's {bad} differ from the plain version's or "
                      f"the program's")
+            err = max(err, _max_abs_err(zip(got, plain)))
             shape = str([r, v, ip])
             shapes[shape] = shapes.get(shape, 0) + 1
     r, v, ip = DRAW_ODD
@@ -2202,6 +2206,7 @@ def phase_threefry(bench_solves, cli_solves, card):
     if not all(_bits_equal(g, p) for g, p in zip(out, plain)):
         fail(f"threefry: the kernel differs from the plain version at "
              f"{list(DRAW_ODD)} (unaligned buffers)")
+    err = max(err, _max_abs_err(zip(out, plain)))
     log(f"threefry: kernel == plain version bit for bit on every element "
         f"of the five fields, and == the captured program's fields, for "
         f"the recorded solves' subkeys (shape: solves) {shapes}; and at "
@@ -2210,7 +2215,7 @@ def phase_threefry(bench_solves, cli_solves, card):
     cli = _draw_times(18, 256, 2000, card, "cli")
     return {"ms": bench["device_us"] / 1e3, "plain_ms": bench["plain_ms"],
             "bound_ms": bench["bound_us"] / 1e3,
-            "bound_by": bench["bound_by"], "max_abs_err": 0.0,
+            "bound_by": bench["bound_by"], "max_abs_err": err,
             "device_us_per_launch": bench["device_us"],
             "host_us_per_call": bench["host_us"],
             "bound_us": bench["bound_us"], "numbers": bench["numbers"],
@@ -2239,8 +2244,8 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     if not bench_solves or not cli_solves:
         fail(f"mwcp: {len(bench_solves)} bench and {len(cli_solves)} CLI "
              f"solves recorded")
-    err_b, cerr_b = _mwcp_check(bench_solves, "bench")
-    err_c, cerr_c = _mwcp_check(cli_solves, "cli")
+    err_b, cerr_b, gerr_b = _mwcp_check(bench_solves, "bench")
+    err_c, cerr_c, gerr_c = _mwcp_check(cli_solves, "cli")
     for v, n in LARGE_SOLVES:
         _large_solve_check(v, n, card)
     _greedy_checks(card)
@@ -2249,6 +2254,7 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
     cli_out = _mwcp_times(cli_solves, card, "cli", plain_too=False)
     cli = cli_out["bls_steps"]
     greedy, greedy_cli = out["greedy_start"], cli_out["greedy_start"]
+    greedy["max_abs_err"] = max(gerr_b, gerr_c)
     for k in ("device_us_per_launch", "device_us_per_round"):
         greedy[f"{k}_cli"] = greedy_cli[k]
     bls = out["bls_steps"]
@@ -2259,8 +2265,7 @@ def phase_mwcp(bench_solves, cli_solves, card, graph_stages):
         bls[f"{k}_cli"] = cli[k]
     bls["layout_cli"] = cli["layout"]
     out["clique_weights"]["max_abs_err"] = max(cerr_b, cerr_c)
-    for k in ("device_us_per_launch", "device_us_per_launch_chain",
-              "library_ms"):
+    for k in ("device_us_per_launch", "library_ms"):
         out["clique_weights"][f"{k}_cli"] = cli_out["clique_weights"][k]
     blk = [k for k in graph_stages if k.startswith("BLS per iteration")][0]
     alone = [k for k in graph_stages if k.startswith("BLS kernel alone")][0]
@@ -2802,7 +2807,7 @@ def phase_mesh(cfg, sc, frames):
     log(f"mesh: solver wrapper launches (greedy_start, bls_steps, "
         f"clique_weights, threefry_fields) {s_launches} (expected one each "
         f"per eager 3D program call: {eager.calls})")
-    if s_launches != (eager.calls,) * len(SOLVER_KERNELS) or \
+    if s_launches != (eager.calls,) * len(solver_kernels()) or \
             not eager.calls:
         fail(f"mesh: solver launches {s_launches} for {eager.calls} eager "
              f"3D program calls")
@@ -2858,7 +2863,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             for r in mesh_results]
     keys = ("best_score", "best_mask", "all_masks_sha256",
             "all_scores_sha256")
-    launches = [0] * (2 + len(SOLVER_KERNELS))
+    launches = [0] * (2 + len(solver_kernels()))
     for pid, (*_, res) in enumerate(outs):
         eng, solver = res["engine"], res["solver"]
         got = [(f["frame"], f["ids"], np.reshape(f["points"], (-1, 3)))
@@ -2908,7 +2913,7 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             fail("multiprocess: the processes made different collectives")
         solver = tuple(eng["solver_launches"])
         if solver != tuple(outs[0][3]["engine"]["solver_launches"]) or \
-                not solver[0] or solver != (solver[0],) * len(SOLVER_KERNELS):
+                not solver[0] or solver != (solver[0],) * len(solver_kernels()):
             fail(f"multiprocess: process {pid} launched the solver kernels "
                  f"{solver} times (expected > 0, one each a 3D solve, as "
                  f"many as process 0)")
@@ -2966,7 +2971,7 @@ def phase_profile(cfg, sc, frames):
     n_jv = sum(c for k, c in s.kernel_counts.items()
                if "jv_assign_kernel" in k)
     n_solver = tuple(sum(c for k, c in s.kernel_counts.items() if part in k)
-                     for _, part in SOLVER_KERNELS)
+                     for *_, part in solver_kernels())
     top = [(k[:60], round(ms, 4), c) for k, ms, c in s.top_kernels]
     log(f"profile: {PROFILE_FRAMES} steady bench frames under "
         f"torch.profiler ({wall:.2f} s): device busy share "
@@ -3064,7 +3069,7 @@ def phase_cli(card, counted, record_jv=False):
     route = _Eager2DRoute() if record_jv else contextlib.nullcontext()
     engines, per_frame, sweeps, missing = [], [], [], []
     cpu_calls = {"lk_level_reference": 0, "lk_track_points": 0,
-                 **{f"{w}_reference": 0 for w, _ in SOLVER_KERNELS}}
+                 **{f"{w}_reference": 0 for _, w, _ in solver_kernels()}}
 
     class Engine(pipeline.TrackingEngine):
         def __init__(self, *a, **k):
@@ -3100,10 +3105,9 @@ def phase_cli(card, counted, record_jv=False):
                 counting("lk_level_reference", lk_kernel.lk_level_reference)),
                (lk, "lk_track_points",
                 counting("lk_track_points", lk.lk_track_points)),
-               *[(solver_module(w), f"{w}_reference",
-                  counting(f"{w}_reference",
-                           getattr(solver_module(w), f"{w}_reference")))
-                 for w, _ in SOLVER_KERNELS]]
+               *[(m, f"{w}_reference",
+                  counting(f"{w}_reference", getattr(m, f"{w}_reference")))
+                 for m, w, _ in solver_kernels()]]
     orig = {name: getattr(mod, name) for mod, name, _ in patches}
     out = io.StringIO()
     with tempfile.TemporaryDirectory() as root:
@@ -3349,8 +3353,8 @@ def main():
         "launches_by_path": jv_paths, **graphed["jv_assign"]})
     # the JAX lines each replaces: the greedy fori_loop, the BLS
     # while_loop, the start score's sum, the loop's field draws
-    for i, ((kname, _), line, src) in enumerate(zip(
-            SOLVER_KERNELS, (48, 324, 143, 280),
+    for i, ((_, kname, _), line, src) in enumerate(zip(
+            solver_kernels(), (48, 324, 143, 280),
             ("mwcp_bls.cu",) * 3 + ("threefry_fields.cu",))):
         by_path = {k: v[i] for k, v in solver_paths.items()}
         kernels.append({

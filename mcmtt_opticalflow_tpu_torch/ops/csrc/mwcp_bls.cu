@@ -530,23 +530,21 @@ __global__ void __launch_bounds__(32 * kGreedyWarps)
 // loads and its 32 weights as eight float4 loads whether the vertex is a
 // member or not (kVec: V % 16 == 0 and 16-byte aligned rows; else a byte
 // and a float at a time); the members are then bit tests in registers.
-// The ascending chain runs once a chunk, by one of two schedules (kChain):
-//   false (the wrappers' choice): the members' weights are compacted into
-//     shared memory in ascending order (each lane's place by a prefix of
-//     the lanes' member counts over five shuffles, each member's by the
-//     lane's members before it), and lane 0 adds them eight at a time
-//     from two 16-byte loads;
-//   true: the partial sum passes lane to lane by shuffles, over the lanes
-//     that hold members, each adding its own from registers.
-// Either way the additions are the same, in the same order.
+// The ascending chain runs once a chunk: the members' weights are
+// compacted into shared memory in ascending order (each lane's place by a
+// prefix of the lanes' member counts over five shuffles, each member's by
+// the lane's members before it), and lane 0 adds them eight at a time from
+// two 16-byte loads.  (Passing the partial sum lane to lane by shuffles,
+// each lane adding its own members, makes the same additions in the same
+// order but was slower on the H100: PERF.md, section 6.)
 constexpr int kCliqueChunk = 1024;
 
-template <bool kChain, bool kVec>
+template <bool kVec>
 __global__ void __launch_bounds__(32)
     clique_weight_kernel(const uint8_t* __restrict__ masks,
                          const float* __restrict__ weights, int V,
                          float* __restrict__ out) {
-  __shared__ __align__(16) float sw[kChain ? 4 : kCliqueChunk];
+  __shared__ __align__(16) float sw[kCliqueChunk];
   const int lane = threadIdx.x;
   const uint8_t* m = masks + (size_t)blockIdx.x * V;
   float s = 0.0f;
@@ -589,39 +587,27 @@ __global__ void __launch_bounds__(32)
 #pragma unroll
       for (int k = 0; k < 32; ++k) bits |= (unsigned)(b[k] != 0) << k;
     }
-    if (kChain) {
-      for (unsigned h = __ballot_sync(kAll, bits != 0u); h; h &= h - 1) {
-        const int src = __ffs(h) - 1;
-        if (lane == src) {
+    const int cnt = __popc(bits);
+    int pos = cnt;                   // inclusive prefix over the lanes
 #pragma unroll
-          for (int k = 0; k < 32; ++k)
-            if ((bits >> k) & 1u) s = __fadd_rn(s, w[k]);
-        }
-        s = __shfl_sync(kAll, s, src);
-      }
-    } else {
-      const int cnt = __popc(bits);
-      int pos = cnt;                   // inclusive prefix over the lanes
+    for (int d = 1; d < 32; d <<= 1) {
+      const int t = __shfl_up_sync(kAll, pos, d);
+      if (lane >= d) pos += t;
+    }
+    const int total = __shfl_sync(kAll, pos, 31);
+    pos -= cnt;
 #pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int t = __shfl_up_sync(kAll, pos, d);
-        if (lane >= d) pos += t;
-      }
-      const int total = __shfl_sync(kAll, pos, 31);
-      pos -= cnt;
+    for (int k = 0; k < 32; ++k)
+      if ((bits >> k) & 1u) sw[pos + __popc(bits & ((1u << k) - 1u))] = w[k];
+    __syncwarp();
+    if (lane == 0) {
+      const float4* sw4 = reinterpret_cast<const float4*>(sw);
+      for (int i = 0; i < total; i += 8) {
+        const float4 a = sw4[i >> 2], b = sw4[(i >> 2) + 1];
+        const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
 #pragma unroll
-      for (int k = 0; k < 32; ++k)
-        if ((bits >> k) & 1u) sw[pos + __popc(bits & ((1u << k) - 1u))] = w[k];
-      __syncwarp();
-      if (lane == 0) {
-        const float4* sw4 = reinterpret_cast<const float4*>(sw);
-        for (int i = 0; i < total; i += 8) {
-          const float4 a = sw4[i >> 2], b = sw4[(i >> 2) + 1];
-          const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
-#pragma unroll
-          for (int j = 0; j < 8; ++j)
-            if (i + j < total) s = __fadd_rn(s, x[j]);
-        }
+        for (int j = 0; j < 8; ++j)
+          if (i + j < total) s = __fadd_rn(s, x[j]);
       }
     }
     __syncwarp();
@@ -1590,18 +1576,13 @@ extern "C" void greedy_layout(int V, long long* out) {
 }
 
 // Launches clique_weight_kernel on `stream`: out [R] from masks [R, V]
-// (bool) and weights [V] float32, a block a row; `chain` picks the
-// shuffle-chain schedule (chip_smoke times both), 0 the compaction.
+// (bool) and weights [V] float32, a block a row.
 extern "C" int clique_weight_launch(const uint8_t* masks, const float* weights,
-                                    int R, int V, float* out, int chain,
-                                    void* stream) {
+                                    int R, int V, float* out, void* stream) {
   if (R <= 0) return (int)cudaSuccess;
   const bool vec = V % 16 == 0 && (uintptr_t)masks % 16 == 0 &&
                    (uintptr_t)weights % 16 == 0;
-  auto* kernel = chain ? (vec ? clique_weight_kernel<true, true>
-                              : clique_weight_kernel<true, false>)
-                       : (vec ? clique_weight_kernel<false, true>
-                              : clique_weight_kernel<false, false>);
+  auto* kernel = vec ? clique_weight_kernel<true> : clique_weight_kernel<false>;
   kernel<<<R, 32, 0, (cudaStream_t)stream>>>(masks, weights, V, out);
   return (int)cudaGetLastError();
 }

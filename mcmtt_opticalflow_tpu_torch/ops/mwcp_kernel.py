@@ -341,7 +341,7 @@ def build() -> ctypes.CDLL:
         lib.bls_layout.restype = None
         lib.bls_layout.argtypes = [i, i, p]
         lib.clique_weight_launch.restype = i
-        lib.clique_weight_launch.argtypes = [p, p, i, i, p, i, p]
+        lib.clique_weight_launch.argtypes = [p, p, i, i, p, p]
     return lib
 
 
@@ -448,17 +448,15 @@ def greedy_start(weights: torch.Tensor, adj: torch.Tensor,
 greedy_start.launches = 0
 
 
-def _launch_clique(masks, weights, out, chain: bool = False) -> None:
+def _launch_clique(masks, weights, out) -> None:
     """Launch the clique-weight kernel on checked, contiguous tensors on
-    the current stream: no count.  `chain` takes the shuffle-chain
-    schedule in place of the compaction (csrc/mwcp_bls.cu; the same
-    sums, for timing both)."""
+    the current stream: no count."""
     r, v = masks.shape
     lib = build()
     with torch.cuda.device(masks.device):
         err = lib.clique_weight_launch(
             masks.data_ptr(), weights.data_ptr(), r, v, out.data_ptr(),
-            int(chain), torch.cuda.current_stream(masks.device).cuda_stream)
+            torch.cuda.current_stream(masks.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"clique_weights kernel launch failed: CUDA "
                            f"error {err}")
