@@ -5,7 +5,7 @@
 
 Phases (each prints its own lines; any failure exits non-zero), run in
 the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 12, 9, 3,
-3g, 10 counted:
+3g, 8 counted, 10 counted:
 every timed phase comes before the first CUPTI session (phase 3's kernel
 count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
@@ -38,10 +38,11 @@ count), which slows graph launches for the rest of the process:
      the route's times are phase 3d's), stage medians,
      tracks_peak,
      pool_dropped, the MOTA triple at w0/w3/w6 beside the CPU record
-     (bench_reference.json: the JAX engine, and the port with the LK
-     kernel's plain version), the first frame whose 3D ids leave the
-     plain record, and a failure when a window's MOTA leaves it by more
-     than MOTA_BOUND.  The fused 3D
+     (bench_reference.json: the JAX engine on the gather LK and on its
+     Pallas kernel, and the port with the LK kernel's plain version), the
+     first frame whose 3D ids leave the plain record, and a failure when
+     a window's MOTA leaves `plain` or `jax_pallas` by more than
+     MOTA_BOUND.  The fused 3D
      program runs as CUDA graphs (models/associator3d.py::FrameProgram,
      captured per bucket, three of them by precompile after warm-up):
      graph replays > 0 and 0 calls of its eager body; the capture time
@@ -154,21 +155,47 @@ count), which slows graph launches for the rest of the process:
      iterations: 3 batched-kernel launches, held against the CPU call at
      the limits of phase 2;
   8. mesh: the bench configuration for MESH_FRAMES frames without a mesh
-     and on make_mesh(devices=[cuda:0] * 4) (4 camera groups; the fused
-     3D program's row inputs split in 4 chunks): equal ids, points
-     within 1 mm, LK launches counted; solve_mwcp_sharded at V=1024,
-     R=38, 150 iterations over 2 blocks equals its per-block solves plus
-     the global argmax; the solver's wrappers launch once each per eager
-     3D program call;
+     and on make_mesh(devices=[cuda:0] * 4) (4 camera groups, each its
+     own 2D program, a CUDA graph; the fused 3D program's row inputs
+     split in 4 chunks, each a row part, a CUDA graph, joined on the
+     card for the captured parts that follow): equal ids, points within
+     1 mm; after every frame each group's replayed state and pack equal
+     an eager tracker2d_step on the same inputs, and every mesh 3D
+     program call's outputs equal the eager body on the same uploads,
+     bit for bit; every captured program's dispatch under
+     set_sync_debug_mode("error"); each group replays once a frame, each
+     row part once a solve, no eager step or body runs but the
+     captures', the wrappers count only the captures' calls.  No counter
+     running: the dispatch host ms of the mesh 3D replay set against the
+     eager mesh body and the one-card program, and of the four 2D
+     replays against four eager steps and the one-card 2D replay, on the
+     same inputs; the median per-frame wall time of the pipelined engine
+     over MEASURED frames after WARMUP frames and precompile() (the
+     bench's protocol), with the mesh and without, in turns.
+     solve_mwcp_sharded at V=1024, R=38, 150 iterations over 2 blocks
+     equals its per-block solves plus the global argmax.  With four or
+     more cards visible, all of it again on a mesh over four distinct
+     cards (cuda:0-3: cross-device copies and joins, a graph pool a
+     card); with one card that part is not run.  8 counted:
+     the mesh run again under the CUPTI counter, after every timed
+     phase: 8 LK and 1 JV kernels a group's replay and its capture's
+     warm-up, the solver's kernels as the captured 3D parts prescribe,
+     ids equal;
   8b. multiprocess: parallel/multihost_sim.py --bench in two processes on
      the one card, joined by gloo, each with two cuda:0 entries of the
-     global cam 4 x block 1 mesh: 16 LK launches per process per frame,
-     ids equal to phase 8's mesh run frame by frame (points within 1 mm);
-     the solve of phase 8 over a 1 x 4 mesh with two blocks in each
-     process equals its per-block solves plus the argmax; wall time
-     against phase 8's, the median time per frame in collectives, and
-     scaling_report; each process launches the solver's kernels as often
-     as the other;
+     global cam 4 x block 1 mesh: each replays its two groups' 2D
+     programs once a frame and its two chunks' row parts once a solve,
+     joins the rows by an all-gather and replays the rest of the 3D
+     program; ids equal to phase 8's mesh run frame by frame (points
+     within 1 mm), 3D replays equal to that run's and each other's, the
+     wrappers 32 LK and 4 JV launches (the captures' calls); the kernels
+     the card runs for each process, counted by CUPTI inside it around
+     its frames (8 LK and 1 JV a 2D replay and a capture's warm-up; the
+     solver's as the other process's and phase 8's counted run's), go to
+     the kernels line; the solve of phase 8 over a 1 x 4 mesh with two blocks
+     in each process equals its per-block solves plus the argmax; wall
+     time against phase 8's, the median time per frame in collectives,
+     and scaling_report;
   9. profile: utils/timing.py::profile_trace (torch.profiler) around
      PROFILE_FRAMES steady bench frames: device busy share, device ms
      per frame, top 5 kernels, and the events of lk_level_kernel (8 per
@@ -240,8 +267,9 @@ binds (`bound_by`); `library_ms` null (no single PyTorch call computes
 an LK level); `call_ms_synthetic`, phase 2's per-frame time with the
 wrapper's host work; `launches_by_path`, the launches of each path that
 runs the kernel, each counted from 0 (`launches` is the main path's):
-kernel runs counted on the card for the graphed paths (main, cli:
-CUPTI; profile: trace events), the wrapper's count for the eager ones;
+kernel runs counted on the card for the graphed paths (main, mesh, cli:
+CUPTI; profile: trace events; multiprocess: CUPTI inside each process),
+the wrapper's count for the eager ones;
 `wrapper_launches` and `graph_replays_2d`, measured beside the card's
 counts on the graphed paths.  The JV kernel, on phase 3f's recorded
 frames, per bench frame (1 launch): the same keys, with `serial_steps`
@@ -282,8 +310,9 @@ PROFILE_FRAMES = 4
 GRAPH_FRAMES = 12
 CLI_CAM_IDS = (1, 5, 6, 8)
 # the largest |card - CPU| MOTA at any window the main path may show,
-# against the port's CPU run with the LK kernel's plain version
-# (bench_reference.json `plain`; PERF.md section 2)
+# against the port's CPU run with the LK kernel's plain version and the
+# JAX engine's CPU run on its own Pallas LK kernel (bench_reference.json
+# `plain` and `jax_pallas`; PERF.md section 2)
 MOTA_BOUND = 0.01
 NEG_SCORE = -1e30           # models/mwcp.py's NEG: an empty K-best slot
 PLAIN_EVERY = 4             # phase 11 times the plain versions on these
@@ -668,7 +697,9 @@ def phase_main_path(card, timed):
     one) and the wrappers' launches from 0, its CPU LK calls and eager 2D
     steps counted; its MOTA triple held
     against the CPU record (bench_reference.json: `jax`, the JAX engine;
-    `plain`, the port with the LK kernel's plain version); its results
+    `jax_pallas`, the JAX engine on its Pallas LK kernel; `plain`, the
+    port with the LK kernel's plain version), within MOTA_BOUND of the
+    last two; its results
     equal, frame by frame, to `timed`, phase 3d's run of the same route
     with no counter.  The counter slows graph launches (CUPTI records
     their kernels), so the route's times are `timed`'s."""
@@ -703,7 +734,7 @@ def phase_main_path(card, timed):
                lk_kernel.lk_level.serial_launches,
                hungarian.jv_assign.launches)
     runs = kernel_runs(ev)
-    prog2d = run.engine._prog2d
+    prog2d = run.engine._progs2d[0]
     replays2d = prog2d.graph.n_replays
     assoc = run.engine.assoc
     progs = assoc._programs
@@ -754,7 +785,8 @@ def phase_main_path(card, timed):
     log(f"main path: fused 3D program: {replays} graph replays, "
         f"{eager.calls} eager-body calls; capture s per bucket (nr, nb, "
         f"iters) {json.dumps(capture_s)}; graph pool "
-        f"{pool_bytes(assoc._graph_pool) / 2**20:.1f} MiB, static buffers "
+        f"{pool_bytes(assoc._graph_pool(assoc.device)) / 2**20:.1f} MiB, "
+        f"static buffers "
         f"{sum(static_bytes(p) for p in progs.values()) / 2**20:.1f} MiB; "
         f"{replays_per_frame(progs)} replays a frame")
     if replays <= 0 or eager.calls:
@@ -788,7 +820,7 @@ def phase_main_path(card, timed):
     with open(path) as f:
         ref = json.load(f)
     card_mota = [quality[f"mota_w{w}"] for w in WINDOWS]
-    for name in ("jax", "plain"):
+    for name in ("jax", "jax_pallas", "plain"):
         log(f"main path: MOTA w0/w3/w6 card "
             f"{[round(float(m), 4) for m in card_mota]}"
             f" tracks_peak {rec['tracks_peak']} against {name} "
@@ -799,11 +831,13 @@ def phase_main_path(card, timed):
     first = next((t for t in sorted(want) if got.get(t) != want[t]), None)
     log(f"main path: first frame whose 3D ids leave the plain CPU record: "
         f"{first} (of {len(want)})")
-    gap = max(abs(c - p) for c, p in zip(card_mota, ref["plain"]["mota"]))
-    log(f"main path: max |card - plain| MOTA {gap:.4f} (bound {MOTA_BOUND})")
-    if gap > MOTA_BOUND:
-        fail(f"the card's MOTA leaves the plain CPU record by {gap:.4f} "
-             f"(bound {MOTA_BOUND})")
+    for name in ("plain", "jax_pallas"):
+        gap = max(abs(c - p) for c, p in zip(card_mota, ref[name]["mota"]))
+        log(f"main path: max |card - {name}| MOTA {gap:.4f} (bound "
+            f"{MOTA_BOUND})")
+        if gap > MOTA_BOUND:
+            fail(f"the card's MOTA leaves the {name} CPU record by "
+                 f"{gap:.4f} (bound {MOTA_BOUND})")
     counts = {"runs": runs, "wrapper": wrapper, "replays": replays2d,
               "solver_runs": s_runs, "solver_wrapper": s_wrapper}
     return counts, run
@@ -1004,7 +1038,7 @@ def phase_graph2d(cfg, sc, frames, card):
 
     eng = pipeline.TrackingEngine(cfg, sc.cameras, pipelined=True,
                                   device="cuda")
-    prog = eng._prog2d
+    prog = eng._progs2d[0]
     ref = tree_map(torch.clone, prog.state)
     cls = pipeline.Tracker2DProgram
     orig_call, orig_put = cls.__call__, cls.put_gray
@@ -1110,10 +1144,26 @@ def _uploads(host, dev):
 
 
 def _eager_body(assoc, host, key, iters):
-    """The fused 3D program's eager body on the card, from host arrays, as
-    the engine's dispatch would run it without graphs."""
-    t = _uploads(host, assoc.device)
-    return assoc._rescore_and_solve(*t, key, iters, (t[7], t[9], t[10]))
+    """The fused 3D program's eager body on the card from host arrays,
+    uploaded as the JAX package places them (Associator3D._dev: on a mesh
+    the row inputs split where they divide it), the columns whole on the
+    associator's device."""
+    from mcmtt_opticalflow_tpu_torch.models.associator3d import (
+        _GRAPH_ROWS, _SPLIT_ARGS)
+    t = [assoc._dev(x, i in _SPLIT_ARGS) for i, x in enumerate(host)]
+    cols = tuple(assoc._dev(host[i]) for i in _GRAPH_ROWS)
+    return assoc._rescore_and_solve(*t, key, iters, cols)
+
+
+def _timed_ms(fn):
+    """(host ms to return, wall ms to the card's completion) of fn()."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
 
 
 class _EagerRoute:
@@ -1284,18 +1334,11 @@ def phase_graphs(cfg, sc, frames, card):
     if len(buckets) < 2:
         fail(f"graphs: compared {len(buckets)} bucket(s), expected >= 2")
 
-    def timed(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        t1 = time.perf_counter()
-        torch.cuda.synchronize()
-        return 1e3 * (t1 - t0), 1e3 * (time.perf_counter() - t0)
     rows = {"eager": [], "replay": []}
     for bucket, host, key, _ in calls:
-        rows["eager"].append(timed(
+        rows["eager"].append(_timed_ms(
             lambda: _eager_body(assoc, host, key, bucket[2])))
-        rows["replay"].append(timed(
+        rows["replay"].append(_timed_ms(
             lambda: assoc._program(*bucket)(host, key)))
     med = {k: [round(float(np.median([x[i] for x in v])), 3)
                for i in (0, 1)] for k, v in rows.items()}
@@ -2748,98 +2791,338 @@ def _run_engine(eng, sc, frames, n):
         out.append(r)
 
 
-def phase_mesh(cfg, sc, frames):
-    """The bench configuration for MESH_FRAMES frames without a mesh and
-    on make_mesh(devices=[cuda:0] * 4) (cam 4 x block 1: four camera
-    groups of one camera, one after another on the card): equal ids,
-    points within 1 mm.  Then solve_mwcp_sharded at V=1024, R=38, 150
-    iterations over 2 blocks on the card against the two per-block
-    solve_mwcp calls plus the global argmax."""
+def _steady_frame_s(eng, sc, frames):
+    """Median process_frame wall s of a pipelined engine over MEASURED
+    frames after WARMUP frames and precompile(), as the bench measures,
+    and the median ms of each stage over those frames."""
     import numpy as np
     import torch
-    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+    for t in range(WARMUP):
+        eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+    eng.precompile()
+    torch.cuda.synchronize()
+    timer = eng.assoc.timer
+    timer.reset()
+    walls = []
+    for t in range(WARMUP, WARMUP + MEASURED):
+        t0 = time.perf_counter()
+        eng.process_frame(frames[t], sc.detections[t], frame_idx=t)
+        walls.append(time.perf_counter() - t0)
+    stages = {n: 1e3 * float(np.median(timer.samples[n]))
+              for n in timer.totals}
+    while eng.flush() is not None:
+        pass
+    torch.cuda.synchronize()
+    return float(np.median(walls)), stages
+
+
+def phase_mesh(cfg, sc, frames, card, cards=1):
+    """The bench configuration for MESH_FRAMES frames without a mesh and
+    on make_mesh(devices=[cuda:0] * 4) (cam 4 x block 1: four camera
+    groups of one camera, each a 2D program, one after another on the
+    card; the fused 3D program's rows split in 4 chunks, a row part
+    each): equal ids, points within 1 mm.  Along the way, after every
+    frame each group's replayed state buffers and pack equal an eager
+    tracker2d_step on the card on the same inputs, bit for bit; every
+    mesh 3D program call's outputs equal the eager body on the same
+    uploads (Associator3D._rescore_and_solve), bit for bit; every
+    dispatch of a captured program runs under
+    set_sync_debug_mode("error"); each group replays once a frame, each
+    row part once a solve, no eager 2D step or 3D body runs but the
+    captures', and the wrappers count only the captures' calls.  Then,
+    no counter running: the dispatch host ms of the mesh 3D replay set
+    against the eager mesh body's and the one-card program's, and of the
+    four 2D replays against four eager steps, on the same inputs; the
+    median per-frame wall time of the pipelined engine over MEASURED
+    frames after WARMUP frames and precompile(), with the mesh and
+    without, in turns.  Then
+    solve_mwcp_sharded at V=1024, R=38, 150 iterations over 2 blocks on
+    the card against the two per-block solve_mwcp calls plus the global
+    argmax.  With cards=4 the mesh's four entries are four distinct
+    cards (cuda:0-3): the same checks and times, the cross-device copies
+    and one graph pool a card included.  Returns the mesh run's results
+    and 3D replays (the multiprocess phase's references)."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models import pipeline
+    from mcmtt_opticalflow_tpu_torch.models.associator3d import FrameProgram
+    from mcmtt_opticalflow_tpu_torch.models.tracker2d import tracker2d_step
     from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
     from mcmtt_opticalflow_tpu_torch.parallel import make_mesh
     from mcmtt_opticalflow_tpu_torch.parallel.multihost_sim import run_solve
+    from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
+    tag = "mesh" if cards == 1 else f"mesh over {cards} cards"
     card0 = torch.device("cuda", 0)
-    plain = TrackingEngine(cfg, sc.cameras, pipelined=True, device="cuda")
+    plain = pipeline.TrackingEngine(cfg, sc.cameras, pipelined=True,
+                                    device="cuda")
     t0 = time.perf_counter()
     ra = _run_engine(plain, sc, frames, MESH_FRAMES)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    mesh = make_mesh(devices=[card0] * 4)
-    eng = TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
+    mesh = make_mesh(devices=[card0] * 4 if cards == 1 else
+                     [torch.device("cuda", i) for i in range(cards)])
+    eng = pipeline.TrackingEngine(cfg, sc.cameras, pipelined=True, mesh=mesh)
+    progs2d = eng._progs2d
+    if mesh.shape != {"cam": 4, "block": 1} or len(progs2d) != 4:
+        fail(f"{tag}: expected 4 camera groups, got {mesh.shape}")
+    group_cams = eng._split(eng.cams)
+    refs = [tree_map(torch.clone, p.state) for p in progs2d]
+
+    # the captured programs' dispatches under the sync debug mode; the 3D
+    # calls recorded (bucket, host arrays, subkey, outputs)
+    calls, steady = [], {"on": False}
+    cls2d = pipeline.Tracker2DProgram
+    orig = (cls2d.__call__, cls2d.put_gray, FrameProgram.__call__)
+
+    def strict(fn, captured):
+        def wrapped(p, *a):
+            if captured(p):
+                torch.cuda.set_sync_debug_mode("error")
+                steady["on"] = True
+            try:
+                return fn(p, *a)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        return wrapped
+
+    def record(prog, host, key, field_source=None):
+        out = strict(orig[2], lambda p: True)(prog, host, key, field_source)
+        calls.append((prog.bucket, [np.array(x) for x in host],
+                      key.clone(), tuple(o.clone() for o in out)))
+        return out
     lk_kernel.lk_level.launches = hungarian.jv_assign.launches = 0
     reset_solver_launches()
+    steps2d, restore = _count_calls(pipeline, "tracker2d_step")
+    cls2d.__call__ = strict(orig[0], lambda p: p.graph.graph is not None)
+    cls2d.put_gray = strict(orig[1], lambda p: p.graph.graph is not None)
+    FrameProgram.__call__ = record
+    rb, ref_launches = [], [0, 0]       # the eager references' launches
     t0 = time.perf_counter()
-    with EagerCount() as eager:
-        rb = _run_engine(eng, sc, frames, MESH_FRAMES)
-    torch.cuda.synchronize()
+    try:
+        with EagerCount() as eager:
+            for t in range(MESH_FRAMES):
+                r = eng.process_frame(frames[t], sc.detections[t],
+                                      frame_idx=t)
+                rb += [] if r is None else [r]
+                for g, p in enumerate(progs2d):
+                    before = (lk_kernel.lk_level.launches,
+                              hungarian.jv_assign.launches)
+                    refs[g], out = tracker2d_step(
+                        refs[g], p.gray_u8.float() * (1.0 / 255.0), p.boxes,
+                        p.mask, group_cams[g], t, cfg.tracker2d)
+                    ref_launches[0] += lk_kernel.lk_level.launches - before[0]
+                    ref_launches[1] += hungarian.jv_assign.launches - \
+                        before[1]
+                    want = [pipeline._pack2d(out)] + tree_leaves(refs[g])
+                    got = [p.graph.out] + tree_leaves(p.state)
+                    if not all(map(_bits_equal, got, want)):
+                        fail(f"{tag}: frame {t}: camera group {g}'s replayed "
+                             f"pack or state differs from the eager step's")
+            while (r := eng.flush()) is not None:
+                rb.append(r)
+        torch.cuda.synchronize()
+    finally:
+        cls2d.__call__, cls2d.put_gray, FrameProgram.__call__ = orig
+        torch.cuda.set_sync_debug_mode(0)
+        restore()
     wall = time.perf_counter() - t0
-    launches = lk_kernel.lk_level.launches
-    jv_launches = hungarian.jv_assign.launches
+    launches = (lk_kernel.lk_level.launches - ref_launches[0],
+                hungarian.jv_assign.launches - ref_launches[1])
     s_launches = solver_launches()
-    if mesh.shape != {"cam": 4, "block": 1} or len(eng.state2d_groups) != 4:
-        fail(f"mesh: expected 4 camera groups, got {mesh.shape}")
+    assoc = eng.assoc
+    progs = list(assoc._programs.values())
+    replays2d = [p.graph.n_replays for p in progs2d]
+    heads = sum(p.head.n_replays for p in progs)
+    rows = sum(r.n_replays for p in progs for r in p.rows)
+    _, want_s_wrapper = solver_runs_expected([assoc])
     if len(ra) != len(rb) or not ra:
-        fail(f"mesh: {len(ra)} results without the mesh, {len(rb)} with it")
+        fail(f"{tag}: {len(ra)} results without the mesh, {len(rb)} with it")
     d_pts, n_obj = 0.0, 0
     for a, b in zip(ra, rb):
         if a.frame_idx != b.frame_idx or a.ids != b.ids:
-            fail(f"mesh: ids differ at frame {a.frame_idx}: {a.ids} vs "
+            fail(f"{tag}: ids differ at frame {a.frame_idx}: {a.ids} vs "
                  f"{b.ids}")
         if len(a.ids):
             d_pts = max(d_pts, float(np.abs(np.asarray(a.points)
                                             - np.asarray(b.points)).max()))
         n_obj += len(a.ids)
-    log(f"mesh: {mesh} engine == engine without a mesh over {MESH_FRAMES} "
+    log(f"{tag}: {mesh} engine == engine without a mesh over {MESH_FRAMES} "
         f"frames ({n_obj} tracked objects, max |d point| {d_pts:.3e} mm); "
-        f"lk_level launches={launches} (expected {32 * MESH_FRAMES}: 8 per "
-        f"camera group per frame, eager), jv_assign launches={jv_launches} "
-        f"(expected {4 * MESH_FRAMES}); {wall:.2f} s against "
-        f"{wall_plain:.2f} s without the mesh")
+        f"every group's replayed 2D state and pack == the eager step's bit "
+        f"for bit every frame; dispatches under set_sync_debug_mode"
+        f"('error'): {steady['on']}; 2D replays per group {replays2d} "
+        f"(expected {MESH_FRAMES} each), eager tracker2d_step calls "
+        f"{steps2d['n']} (expected 8: each capture's two); 3D head replays "
+        f"{heads}, row-part replays {rows} (expected 4 a solve), eager-body "
+        f"calls {eager.calls}; wrapper launches lk_level={launches[0]} "
+        f"jv_assign={launches[1]} (expected 64 and 8: the captures' calls), "
+        f"solver {s_launches} (expected {want_s_wrapper}); {wall:.2f} s "
+        f"against {wall_plain:.2f} s without the mesh, captures included")
     if d_pts > 1.0:
-        fail(f"mesh: points differ by {d_pts} mm (limit 1.0)")
-    if launches != 32 * MESH_FRAMES or jv_launches != 4 * MESH_FRAMES:
-        fail(f"mesh: {launches} LK and {jv_launches} JV launches, "
-             f"expected {32 * MESH_FRAMES} and {4 * MESH_FRAMES}")
-    log(f"mesh: solver wrapper launches (greedy_start, bls_steps, "
-        f"clique_weights, threefry_fields) {s_launches} (expected one each "
-        f"per eager 3D program call: {eager.calls})")
-    if s_launches != (eager.calls,) * len(solver_kernels()) or \
-            not eager.calls:
-        fail(f"mesh: solver launches {s_launches} for {eager.calls} eager "
-             f"3D program calls")
+        fail(f"{tag}: points differ by {d_pts} mm (limit 1.0)")
+    if replays2d != [MESH_FRAMES] * 4 or steps2d["n"] != 8 or \
+            launches != (64, 8) or not steady["on"]:
+        fail(f"{tag}: 2D replays {replays2d}, eager steps {steps2d['n']}, "
+             f"wrapper launches {launches}, expected {[MESH_FRAMES] * 4}, "
+             f"8 and (64, 8)")
+    if eager.calls or heads != len(calls) or not calls or rows != 4 * heads \
+            or s_launches != want_s_wrapper:
+        fail(f"{tag}: {eager.calls} eager-body calls, {heads} head and "
+             f"{rows} row-part replays for {len(calls)} 3D program calls; "
+             f"solver wrappers {s_launches}, expected {want_s_wrapper}")
+
+    # the 3D replays against the eager body on the same uploads
+    buckets = sorted({c[0] for c in calls})
+    for n, (bucket, host, key, out) in enumerate(calls):
+        want = _eager_body(assoc, host, key, bucket[2])
+        for name, g, w in zip(("pack_a", "pack_b"), out, want):
+            if not _bits_equal(g, w):
+                fail(f"{tag}: the replayed {name} of solve {n} (bucket "
+                     f"{bucket}) differs from the eager mesh body's")
+    log(f"{tag}: {len(calls)} mesh 3D program calls, buckets (nr, nb, iters) "
+        f"{buckets}, replayed pack_a and pack_b == the eager mesh body's on "
+        f"the same uploads bit for bit; capture s per bucket "
+        f"{[round(p.capture_s, 3) for p in progs]}; graph pool "
+        f"{pool_bytes(assoc._graph_pool(card0)) / 2**20:.1f} MiB")
+
+    # dispatch host ms on the same inputs, no counter running
+    for bucket in buckets:                  # captured here, not timed
+        plain.assoc._program(*bucket)
+    rows_ms = {"mesh replay": [], "mesh eager": [], "one-card replay": []}
+    for bucket, host, key, _ in calls:
+        rows_ms["mesh replay"].append(_timed_ms(
+            lambda: assoc._program(*bucket)(host, key)))
+        rows_ms["mesh eager"].append(_timed_ms(
+            lambda: _eager_body(assoc, host, key, bucket[2])))
+        rows_ms["one-card replay"].append(_timed_ms(
+            lambda: plain.assoc._program(*bucket)(host, key)))
+    med3 = {k: [round(float(np.median([x[i] for x in v])), 3)
+                for i in (0, 1)] for k, v in rows_ms.items()}
+    gray = [p.gray_u8.cpu().numpy() for p in progs2d]
+    boxes = [p.boxes.cpu().numpy() for p in progs2d]
+    mask = [p.mask.cpu().numpy() for p in progs2d]
+    whole = [np.concatenate(x) for x in (gray, boxes, mask)]
+    t2 = MESH_FRAMES
+
+    def replays():
+        for p, *x in zip(progs2d, gray, boxes, mask):
+            p.put_gray(x[0])
+            p(x[1], x[2], t2)
+
+    def eager_steps():
+        for g, p in enumerate(progs2d):
+            tracker2d_step(refs[g], p.gray_u8.float() * (1.0 / 255.0),
+                           p.boxes, p.mask, group_cams[g], t2,
+                           cfg.tracker2d)
+
+    def one_card():
+        plain._progs2d[0].put_gray(whole[0])
+        plain._progs2d[0](whole[1], whole[2], t2)
+    med2 = {}
+    for name, fn in (("2D replays", replays), ("eager steps", eager_steps),
+                     ("one-card replay", one_card)):
+        med2[name] = [round(float(np.median([x[i] for x in [
+            _timed_ms(fn) for _ in range(5)]])), 3) for i in (0, 1)]
+    log(f"{tag}: dispatch, median [host ms to return, wall ms to the card's "
+        f"completion] on the same inputs: 3D over the {len(calls)} recorded "
+        f"calls {json.dumps(med3)}; 2D over the four groups (5 times) "
+        f"{json.dumps(med2)} ({card})")
+
+    # the steady state, in turns
+    walls, stages = {"no mesh": [], "mesh": []}, {"no mesh": [], "mesh": []}
+    for name in ("no mesh", "mesh", "mesh", "no mesh"):
+        e = pipeline.TrackingEngine(
+            cfg, sc.cameras, pipelined=True,
+            **({"mesh": mesh} if name == "mesh" else {"device": "cuda"}))
+        wall_s, stage_ms = _steady_frame_s(e, sc, frames)
+        walls[name].append(wall_s)
+        stages[name].append(stage_ms)
+    fps = {k: [round(1.0 / s, 3) for s in v] for k, v in walls.items()}
+    med = {k: {n: float(np.median([st.get(n, 0.0) for st in v]))
+               for n in set().union(*v)} for k, v in stages.items()}
+    apart = sorted(med["mesh"], key=lambda n: -abs(
+        med["mesh"][n] - med["no mesh"].get(n, 0.0)))[:8]
+    far = {n: [round(med["mesh"][n], 3), round(med["no mesh"].get(n, 0.0), 3)]
+           for n in apart}
+    log(f"{tag}: steady state, pipelined, {MEASURED} frames after "
+        f"{WARMUP} of warm-up and precompile(), in turns (no mesh, mesh, "
+        f"mesh, no mesh): median per-frame wall s {json.dumps(walls)}, "
+        f"frames/s {json.dumps(fps)} ({card}); the stage medians ms "
+        f"furthest apart, [mesh, no mesh] (medians of the two runs each) "
+        f"{json.dumps(far)}")
 
     bmesh = make_mesh(num_cam_shards=1, devices=[card0] * 2)
     reset_solver_launches()
     s = run_solve(bmesh, bench=True, reps=1)
     sharded = solver_launches()
-    log(f"mesh: solve_mwcp_sharded V=1024 (700 valid) R=38 150 iterations "
+    log(f"{tag}: solve_mwcp_sharded V=1024 (700 valid) R=38 150 iterations "
         f"over {bmesh}: best {s['best_score']:.4f}, a clique of "
         f"{len(s['best_mask'])}: {s['clique']}; equals the per-block solves "
         f"+ argmax: {s['equals_per_block']}; {s['mesh_s']:.2f} s (one block "
         f"{s['one_s']:.2f} s); solver wrapper launches {sharded}")
     if not (s["equals_per_block"] and s["clique"]):
-        fail("mesh: solve_mwcp_sharded differs from its per-block solves")
-    return (launches, jv_launches, s_launches), rb, wall
+        fail(f"{tag}: solve_mwcp_sharded differs from its per-block solves")
+    return rb, wall, heads
 
 
-def phase_multiprocess(mesh_results, mesh_wall, card):
+def phase_mesh_counted(cfg, sc, frames, mesh_results):
+    """The mesh run of phase_mesh once more, on a fresh engine under the
+    CUPTI counter (after every timed phase): the card runs 8 LK and 1 JV
+    kernels a 2D replay and in each group's capture warm-up, and the
+    solver's kernels as the captured 3D programs' parts prescribe
+    (solver_runs_expected); the ids equal phase_mesh's.  Returns the
+    kernel runs (LK, JV, solver)."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
+    from mcmtt_opticalflow_tpu_torch.parallel import make_mesh
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
+
+    eng = TrackingEngine(cfg, sc.cameras, pipelined=True,
+                         mesh=make_mesh(devices=[torch.device("cuda", 0)]
+                                        * 4))
+    with EagerCount() as eager, KernelEvents() as ev:
+        rb = _run_engine(eng, sc, frames, MESH_FRAMES)
+    runs, s_runs = kernel_runs(ev), solver_kernel_runs(ev)
+    replays2d = [p.graph.n_replays for p in eng._progs2d]
+    want = (8 * sum(r + 1 for r in replays2d), 0,
+            sum(r + 1 for r in replays2d))
+    want_s, _ = solver_runs_expected([eng.assoc])
+    log(f"mesh, counted: kernels run on the card (CUPTI) (lk_level, "
+        f"lk_level_serial, jv_assign) {runs} (expected {want}: 8 and 1 a "
+        f"group's replay, {replays2d}, and its capture's warm-up), solver "
+        f"kernels {s_runs} (expected {want_s}: each captured 3D program's "
+        f"draw, head and iteration parts, warm-ups and replays); "
+        f"{ev.total} kernels in all, {eager.calls} eager-body calls")
+    if runs != want or s_runs != want_s or eager.calls:
+        fail(f"mesh, counted: the card ran {runs} and {s_runs} kernels, "
+             f"expected {want} and {want_s}")
+    if [(r.frame_idx, r.ids) for r in rb] != \
+            [(r.frame_idx, r.ids) for r in mesh_results]:
+        fail("mesh, counted: the ids differ from the mesh phase's run")
+    return runs[0], runs[2], s_runs
+
+
+def phase_multiprocess(mesh_results, mesh_wall, mesh_heads, card):
     """parallel/multihost_sim.py --bench in two processes on the one card,
     each holding two cuda:0 entries of the global cam 4 x block 1 mesh.
     They join by gloo: NCCL refuses two ranks on one GPU, and gloo
-    stages the collectives' data through the host.  Each process steps
-    its two camera groups (16 LK launches a frame, counted in the
-    process), scores its chunks of the fused 3D program's rows, and runs
-    the rest of the 3D stage whole: both must give phase_mesh's mesh-run
-    ids frame by frame, points within 1 mm.  Their solve over a 1 x 4
-    mesh (two blocks each) must equal its per-block solves plus the
-    argmax, the same in both; each launches the solver's kernels, as
-    many times as the other.  Each process is killed at MP_LIMIT_S.
-    Returns the LK, JV, greedy start, BLS, clique weight and field draw
-    launches of both processes."""
+    stages the collectives' data through the host.  Each process replays
+    its two camera groups' 2D programs (one replay each a frame) and the
+    row parts of its two chunks of the fused 3D program, joins the rows
+    by an all-gather, and replays the rest of the 3D program whole: both
+    must give phase_mesh's mesh-run ids frame by frame, points within 1
+    mm, and as many 3D replays as that run and as each other.  The
+    wrappers count only the captures' calls (16 LK and 2 JV a group).
+    Each process counts on the card (CUPTI, around its frames) the
+    kernels the card runs for it: 8 LK and 1 JV a 2D replay and a
+    capture's warm-up, and solver kernels equal to the other process's
+    (main holds them against the one-process mesh run's, counted later).
+    Their solve over a 1 x 4 mesh (two blocks each) must equal its
+    per-block solves plus the argmax, the same in both.  Each process is
+    killed at MP_LIMIT_S.  Returns the LK, JV, greedy start, BLS, clique
+    weight and field draw kernel runs that the card counted for both
+    processes, and those of the solver's kernels in one process."""
     import tempfile
     import numpy as np
     from mcmtt_opticalflow_tpu_torch.parallel import multihost_sim
@@ -2878,16 +3161,30 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
                      for g, w in zip(got, want) if len(w[1])] or [0.0])
         coll = float(np.median(eng["collective_s_per_call"]))
         n_coll = float(np.median(eng["collectives_per_call"]))
+        rep, k_runs = eng["replays"], eng["kernel_runs"]
+        if k_runs is None:
+            fail(f"multiprocess: process {pid} counted no kernels on the "
+                 f"card")
+        runs = tuple(k_runs[k] for k in ("lk_level", "jv_assign",
+                                         *(w for _, w, _ in
+                                           solver_kernels())))
+        steps = sum(rep["2d"]) + len(rep["2d"])
         log(f"multiprocess: process {pid} ({res['mesh']}): camera groups "
             f"{eng['groups_here']}, blocks {solver['blocks_here']}; ids == "
             f"the mesh run over {MESH_FRAMES} frames, max |d point| "
-            f"{d_pts:.3e} mm; lk_level launches={eng['lk_launches']} "
-            f"(expected {16 * MESH_FRAMES}), jv_assign launches="
-            f"{eng['jv_launches']} (expected {2 * MESH_FRAMES}), solver "
-            f"(greedy_start, bls_steps, clique_weights, threefry_fields) "
-            f"{tuple(eng['solver_launches'])} (one each a 3D solve); engine "
-            f"{eng['wall_s']:.2f} s "
-            f"against {mesh_wall:.2f} s for the one-process mesh run; "
+            f"{d_pts:.3e} mm; graph replays {json.dumps(rep)} (2D: "
+            f"{MESH_FRAMES} a group; 3D head: {mesh_heads}, as the "
+            f"one-process mesh run; rows: 2 a solve); kernels run on the "
+            f"card for it (CUPTI) (LK, JV, greedy_start, bls_steps, "
+            f"clique_weights, threefry_fields) {runs} (LK and JV expected "
+            f"{8 * steps} and {steps}: 8 and 1 a 2D replay and a capture's "
+            f"warm-up; serial LK {k_runs['lk_level_serial']}, expected 0); "
+            f"wrapper launches lk_level="
+            f"{eng['lk_launches']} jv_assign={eng['jv_launches']} (expected "
+            f"32 and 4: the captures' calls), solver "
+            f"{tuple(eng['solver_launches'])}; engine {eng['wall_s']:.2f} s "
+            f"under the CUPTI counter against {mesh_wall:.2f} s for the "
+            f"one-process mesh run without it; "
             f"median {1e3 * coll:.3f} ms a frame in {n_coll:g} "
             f"collectives; solve best "
             f"{solver['best_score']:.4f}, equals its per-block solves: "
@@ -2895,12 +3192,26 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
             f"sharded against {solver['one_s']:.3f} s for one block")
         if d_pts > 1.0:
             fail(f"multiprocess: points differ by {d_pts} mm (limit 1.0)")
-        if eng["lk_launches"] != 16 * MESH_FRAMES or \
-                eng["jv_launches"] != 2 * MESH_FRAMES:
-            fail(f"multiprocess: process {pid} launched the LK kernel "
-                 f"{eng['lk_launches']} and the JV kernel "
-                 f"{eng['jv_launches']} times, expected {16 * MESH_FRAMES} "
-                 f"and {2 * MESH_FRAMES}")
+        if rep["2d"] != [MESH_FRAMES] * 2 or rep["head"] != mesh_heads or \
+                rep["rows"] != 2 * rep["head"] or rep != \
+                outs[0][3]["engine"]["replays"]:
+            fail(f"multiprocess: process {pid} replayed {rep}, expected "
+                 f"{MESH_FRAMES} a 2D program, {mesh_heads} 3D heads and "
+                 f"two row parts a head, as process 0")
+        if runs[:2] != (8 * steps, steps) or k_runs["lk_level_serial"]:
+            fail(f"multiprocess: the card ran the LK, serial LK and JV "
+                 f"kernels {runs[0]}, {k_runs['lk_level_serial']} and "
+                 f"{runs[1]} times for process {pid}, expected "
+                 f"{8 * steps}, 0 and {steps}")
+        if runs[2:] != tuple(outs[0][3]["engine"]["kernel_runs"][w]
+                             for _, w, _ in solver_kernels()):
+            fail(f"multiprocess: the card ran the solver kernels "
+                 f"{runs[2:]} times for process {pid}, not as for process "
+                 f"0")
+        if (eng["lk_launches"], eng["jv_launches"]) != (32, 4):
+            fail(f"multiprocess: process {pid}'s wrappers launched the LK "
+                 f"kernel {eng['lk_launches']} and the JV kernel "
+                 f"{eng['jv_launches']} times, expected 32 and 4")
         if not (solver["equals_per_block"] and solver["clique"]
                 and res["fetch_ok"]):
             fail(f"multiprocess: process {pid}'s solve or fetch failed its "
@@ -2911,20 +3222,17 @@ def phase_multiprocess(mesh_results, mesh_wall, card):
         if eng["collectives_per_call"] != \
                 outs[0][3]["engine"]["collectives_per_call"]:
             fail("multiprocess: the processes made different collectives")
-        solver = tuple(eng["solver_launches"])
-        if solver != tuple(outs[0][3]["engine"]["solver_launches"]) or \
-                not solver[0] or solver != (solver[0],) * len(solver_kernels()):
-            fail(f"multiprocess: process {pid} launched the solver kernels "
-                 f"{solver} times (expected > 0, one each a 3D solve, as "
-                 f"many as process 0)")
-        launches[0] += eng["lk_launches"]
-        launches[1] += eng["jv_launches"]
-        for k, n in enumerate(solver):
-            launches[2 + k] += n
+        wrappers = tuple(eng["solver_launches"])
+        if wrappers != tuple(outs[0][3]["engine"]["solver_launches"]) or \
+                not all(wrappers):
+            fail(f"multiprocess: process {pid}'s solver wrappers launched "
+                 f"{wrappers} times (expected > 0, as process 0)")
+        for k, n in enumerate(runs):
+            launches[k] += n
     report.pop("frames")
     log(f"multiprocess: scaling_report {json.dumps(report)} on {card}; both "
         f"processes in {wall:.1f} s")
-    return launches
+    return launches, runs[2:]
 
 
 def phase_profile(cfg, sc, frames):
@@ -3155,8 +3463,8 @@ def phase_cli(card, counted, record_jv=False):
     # each engine's 2D program: its replays, plus one eager run in its
     # capture's warm-up, on the card; the wrappers see the capture's two
     # calls
-    replays = sum(e._prog2d.graph.n_replays for e in engines)
-    captured = sum(e._prog2d.graph.graph is not None for e in engines)
+    replays = sum(e._progs2d[0].graph.n_replays for e in engines)
+    captured = sum(e._progs2d[0].graph.graph is not None for e in engines)
     steps = replays + captured
     want_runs = (lk_per_frame * steps, 0, steps)
     want_wrapper = (2 * lk_per_frame * captured, 0, 2 * captured)
@@ -3297,10 +3605,16 @@ def main():
     s_launches, s_tr, s_call_ms, _ = phase_serial(frames, cfg)
     phase_api(cfg, sc, frames)
     paths["lk_track_pyramid"] = phase_lk_track_pyramid(frames)
-    (paths["mesh"], jv_paths["mesh"], solver_paths["mesh"]), \
-        mesh_results, mesh_wall = phase_mesh(cfg, sc, frames)
+    mesh_results, mesh_wall, mesh_heads = phase_mesh(cfg, sc, frames, card)
+    if torch.cuda.device_count() >= 4:
+        phase_mesh(cfg, sc, frames, card, cards=4)
+    else:
+        log(f"mesh over 4 cards: not run ({torch.cuda.device_count()} "
+            f"card(s) visible)")
+    mp_launches, mp_solver_one = phase_multiprocess(mesh_results, mesh_wall,
+                                                    mesh_heads, card)
     paths["multiprocess"], jv_paths["multiprocess"], *mp_solver = \
-        phase_multiprocess(mesh_results, mesh_wall, card)
+        mp_launches
     solver_paths["multiprocess"] = tuple(mp_solver)
     cli_solves = phase_cli(card, counted=False)["solves"]
     solver_summary = phase_mwcp(bench_solves, cli_solves, card,
@@ -3314,6 +3628,14 @@ def main():
     paths["main"], _, jv_paths["main"] = main_counts["runs"]
     solver_paths["main"] = main_counts["solver_runs"]
     phase_eager_counted(card)
+    paths["mesh"], jv_paths["mesh"], solver_paths["mesh"] = \
+        phase_mesh_counted(cfg, sc, frames, mesh_results)
+    # each process replays the 3D program's home parts whole, as the
+    # one-process mesh run does
+    if mp_solver_one != solver_paths["mesh"]:
+        fail(f"multiprocess: the card ran the solver kernels "
+             f"{mp_solver_one} times for each process, against "
+             f"{solver_paths['mesh']} for the one-process mesh run")
     cli_counts = phase_cli(card, counted=True)
     paths["cli"], _, jv_paths["cli"] = cli_counts["runs"]
     solver_paths["cli"] = cli_counts["solver_runs"]

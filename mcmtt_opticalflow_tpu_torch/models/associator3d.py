@@ -5,8 +5,9 @@ reference's CPSNWhere_Associator3D, psn_where/PSNWhere_Associator3D.cpp).
 The host side (registry, trees, enumeration, hypothesis bookkeeping,
 pruning) is carried over unchanged; the device boundary is PyTorch: the
 fused per-frame rescore + compatibility + BLS solve program (captured
-as CUDA graphs per bucket, `FrameProgram`; eager on a mesh,
-`_rescore_and_solve`), host->device placement (`_dev`), the solve
+as CUDA graphs per bucket, `FrameProgram`, with or without a mesh; its
+eager body `_rescore_and_solve` is the reference the graphs are held
+against), host->device placement (`_dev`), the solve
 download (a non-blocking copy behind a CUDA event, `DeviceFetch`) and the
 solver's random numbers (the JAX package's threefry stream,
 utils/prng.py).
@@ -160,62 +161,131 @@ class Track3DResult:
         default_factory=list)         # per object [C, T, 2] image coords
 
 
+# the fused program's arguments (`Associator3D._rescore_and_solve`'s first
+# 13) that the JAX package uploads split over the mesh when their leading
+# axis divides it (associator3d.py:2549-2559): the rescoring windows'
+# rows, the graph's rows, and the graph's validity
+_WIN_ROWS = (0, 1, 2, 3, 4)              # pts, raws, rmask, merr, lens
+_GRAPH_ROWS = (7, 9, 10)                 # tree_ids, pos_grid, have
+_SPLIT_ARGS = _WIN_ROWS + _GRAPH_ROWS + (11,)
+
+
 class FrameProgram:
     """The fused 3D program of one bucket — `nr` rescoring rows, `nb`
     graph rows, `iters` BLS iterations — on static buffers, as the JAX
     package compiles `rescore_and_solve` once per bucket.
 
     The buffers hold the host's uploads (`inputs`, in the order of
-    `Associator3D._rescore_and_solve`'s first 13 arguments), the
-    solver's subkey (`key`) and its random fields (`fields`).  The
-    program runs in parts, each a `Graphed`: the field draw (the kernel
-    writes `fields` in place), the head
-    (window scores, weights, the compatibility graph, the solver's
-    start), a block of BLOCK iterations replayed iters/BLOCK times, a
-    block of the remaining iterations, and the tail (the last record,
-    the K-best selection and the packing).  On the card `capture()`
-    captures every part into the associator's graph pool; elsewhere the
-    parts run eagerly from the same buffers."""
+    `Associator3D._rescore_and_solve`'s first 13 arguments, placed as
+    `Associator3D._dev` places them: on a mesh a row input whose leading
+    axis divides the mesh is `Shards` of one buffer per chunk of this
+    process, on the chunk's device, and the rest lie on the associator's
+    device), the compatibility columns whole on that device (`cols`:
+    tree_ids, pos_grid, have; the row inputs themselves where those are
+    not split), the solver's subkey (`key`) and its random fields
+    (`fields`).
+
+    The program runs in parts, each a `Graphed`.  With split rows: one
+    row part per chunk of this process, on the chunk's device (its
+    window scores and compatibility rows against that device's copy of
+    the columns, `Associator3D._score_rows`), then, outside any graph,
+    the join of the chunks' rows into static buffers on the associator's
+    device (parallel/mesh.py::join: device copies in one process, an
+    all-gather across processes).  Then, on that device: the field draw
+    (the kernel writes `fields` in place), the head (the row half of the
+    rows not split, the joined half `Associator3D._score_joined` and the
+    solver's start), a block of BLOCK iterations replayed iters/BLOCK
+    times, a block of the remaining iterations, and the tail (the last
+    record, the K-best selection and the packing).  The eager body runs
+    the same two halves, so the program equals it bit for bit.  On the
+    card `capture()` captures every part into its device's graph pool
+    (`pools(device)`); elsewhere the parts run eagerly from the same
+    buffers."""
 
     BLOCK = 50
 
     def __init__(self, assoc: "Associator3D", nr: int, nb: int, iters: int,
-                 pool=None):
+                 pools):
         cfg = assoc._solver_cfg_fused
-        dev = assoc.device
+        home = assoc.device
         vmax, r = cfg.max_vertices, cfg.num_replicas
         w, wg, c = assoc.win_rescore, assoc.win, assoc.num_cams
         self.bucket = (nr, nb, iters)
         ip = iters_padded(cfg, iters)
 
-        def zeros(shape, dtype=torch.float32):
+        def zeros(shape, dtype=torch.float32, dev=home):
             return torch.zeros(shape, dtype=dtype, device=dev)
 
+        def buffer(i, shape, dtype):
+            if i not in _SPLIT_ARGS or not assoc._splits(shape):
+                return zeros(shape, dtype)
+            split = device_sharding(assoc.mesh)
+            chunk = (shape[0] // len(split.devices),) + shape[1:]
+            return Shards(split, [zeros(chunk, dtype, d) if mine else None
+                                  for d, mine in zip(split.devices,
+                                                     split.local)])
+
         f16, b = torch.float16, torch.bool
-        self.inputs = (
-            zeros((nr, w, 3), f16), zeros((nr, w, c, 3), f16),
-            zeros((nr, w, c), b), zeros((nr, w), f16),
-            zeros((nr,), torch.int32), zeros((vmax,), torch.int32),
-            zeros((vmax,)), zeros((nb,), torch.int32),
-            zeros((nb, (nb + 7) // 8), torch.uint8),
-            zeros((nb, wg, 3), f16), zeros((nb, wg), b), zeros((nb,), b),
-            zeros((assoc.acfg.k_best_size, vmax), b))
+        shapes = (((nr, w, 3), f16), ((nr, w, c, 3), f16), ((nr, w, c), b),
+                  ((nr, w), f16), ((nr,), torch.int32),
+                  ((vmax,), torch.int32), ((vmax,), torch.float32),
+                  ((nb,), torch.int32), ((nb, (nb + 7) // 8), torch.uint8),
+                  ((nb, wg, 3), f16), ((nb, wg), b), ((nb,), b),
+                  ((assoc.acfg.k_best_size, vmax), b))
+        self.inputs = tuple(buffer(i, *a) for i, a in enumerate(shapes))
+        self.cols = tuple(zeros(*shapes[i]) if self._split(i)
+                          else self.inputs[i] for i in _GRAPH_ROWS)
         self.key = zeros((2,), torch.int64)
         self.fields = MwcpFields(
             noise=zeros((r, vmax)), u_dir=zeros((ip, r)),
             g_dir=zeros((ip, r, vmax)), u_ten=zeros((ip, r)),
             g_rnd=zeros((ip, r, vmax)))
+        win_split, graph_split = self._split(0), self._split(7)
+
+        # the row parts: one per chunk of this process (None for the
+        # chunks of other processes), each reading only its device's
+        # buffers; the columns go to every other device a chunk runs on
+        self._col_copies = {}
+        self.rows = []
+        self._placement = None
+        if win_split or graph_split:
+            split = self._placement = device_sharding(assoc.mesh)
+            for g, (d, mine) in enumerate(zip(split.devices, split.local)):
+                if not mine:
+                    self.rows.append(None)
+                    continue
+                if graph_split and d != home and d not in self._col_copies:
+                    self._col_copies[d] = tuple(
+                        torch.zeros_like(x, device=d) for x in self.cols)
+                assoc._cams(d)            # made before any capture
+
+                def row(g=g, d=d):
+                    return assoc._score_rows(
+                        d, tuple(self.inputs[i].parts[g] for i in _WIN_ROWS)
+                        if win_split else None,
+                        tuple(self.inputs[i].parts[g] for i in _GRAPH_ROWS)
+                        if graph_split else None,
+                        self._col_copies.get(d, self.cols))
+                self.rows.append(Graphed(row, d, pools(d)))
+        self.joined = None
 
         def draw():
-            return threefry_fields(self.key, r, vmax, ip, dev, self.fields)
+            return threefry_fields(self.key, r, vmax, ip, home, self.fields)
 
         def head():
-            (pts, raws, rmask, merr, lens, row_map, host_base, tree_ids,
-             shared, pos_grid, have, pvalid, init_masks) = self.inputs
-            pack_a, weights, adj, valid = assoc._score_graph(
-                pts, raws, rmask, merr, lens, row_map, host_base, tree_ids,
-                shared, pos_grid, have, pvalid, (tree_ids, pos_grid, have))
-            return pack_a, bls_start(weights, adj, valid, init_masks,
+            ins = self.inputs
+            ws, incompat = assoc._score_rows(
+                home, None if win_split else ins[:5],
+                None if graph_split else self.cols, self.cols)
+            joined = iter(self.joined or ())
+            lens, pvalid = ins[4], ins[11]
+            if win_split:
+                ws, lens = [next(joined) for _ in range(5)], next(joined)
+            if graph_split:
+                incompat, pvalid = next(joined), next(joined)
+            pack_a, weights, adj, valid = assoc._score_joined(
+                ws, incompat, lens, pvalid, ins[5], ins[6], ins[8])
+            return pack_a, bls_start(weights, adj, valid, ins[12],
                                      self.fields, cfg, nb)
 
         def steps(n):
@@ -224,23 +294,58 @@ class FrameProgram:
         def tail():
             return assoc._pack_k_best(bls_result(self.head.out[1]))
 
-        self.draw = Graphed(draw, dev, pool)
-        self.head = Graphed(head, dev, pool)
+        pool = pools(home)
+        self.draw = Graphed(draw, home, pool)
+        self.head = Graphed(head, home, pool)
         self.blocks = ip // self.BLOCK
-        self.block = Graphed(steps(self.BLOCK), dev, pool) \
+        self.block = Graphed(steps(self.BLOCK), home, pool) \
             if self.blocks else None
-        self.rest = Graphed(steps(ip % self.BLOCK), dev, pool) \
+        self.rest = Graphed(steps(ip % self.BLOCK), home, pool) \
             if ip % self.BLOCK else None
-        self.tail = Graphed(tail, dev, pool)
-        self._draw_args = (r, vmax, ip, dev)
+        self.tail = Graphed(tail, home, pool)
+        self._draw_args = (r, vmax, ip, home)
+
+    def _split(self, i: int) -> bool:
+        return isinstance(self.inputs[i], Shards)
 
     def parts(self) -> List[Graphed]:
-        return [p for p in (self.draw, self.head, self.block, self.rest,
-                            self.tail) if p is not None]
+        """Every part, in the order a frame runs them."""
+        return [p for p in (*self.rows, self.draw, self.head, self.block,
+                            self.rest, self.tail) if p is not None]
 
     @property
     def capture_s(self) -> float:
         return sum(p.capture_s for p in self.parts())
+
+    def _joined_rows(self) -> tuple:
+        """What the join brings to the associator's device, each a Shards
+        leaf: the row parts' window scores and the rescoring rows' lengths
+        where those are split, the row parts' compatibility rows and the
+        graph's validity where the graph rows are."""
+        def leaf(pick):
+            return Shards(self._placement, [None if p is None
+                                            else pick(p.out)
+                                            for p in self.rows])
+        tree = ()
+        if self._split(0):
+            tree += tuple(leaf(lambda o, k=k: o[0][k]) for k in range(5))
+            tree += (self.inputs[4],)
+        if self._split(7):
+            tree += (leaf(lambda o: o[1]), self.inputs[11])
+        return tree
+
+    def _make_joined(self) -> None:
+        """The join's static buffers, whole, on the associator's device
+        (zeros: a capture's warm-up reads them)."""
+        if self.joined is not None or not self.rows:
+            return
+        whole = []
+        for x in self._joined_rows():
+            part = next(p for p in x.parts if p is not None)
+            whole.append(torch.zeros(
+                (part.shape[0] * len(x.parts),) + tuple(part.shape[1:]),
+                dtype=part.dtype, device=self.draw.device))
+        self.joined = tuple(whole)
 
     def capture(self) -> None:
         """Capture every part not yet captured, in the order they run;
@@ -248,26 +353,52 @@ class FrameProgram:
         parts before it wrote, so the head runs before each block's
         capture: the solver state its warm-up advances starts at
         iteration 0 (a block run past the last iteration would read its
-        fields out of range)."""
+        fields out of range).  A row part writes only its own outputs."""
         for part in self.parts():
             if not part.on_card or part.graph is not None:
                 continue
+            if part is self.draw:
+                self._make_joined()       # the head's capture reads them
             if part in (self.block, self.rest):
                 self.head.graph.replay()
             part.capture()
 
+    def _put(self, buf, x: np.ndarray) -> None:
+        """Copy a host array into its buffer, a Shards buffer's chunks
+        each into its own."""
+        t = torch.from_numpy(np.ascontiguousarray(x))
+        if isinstance(buf, Shards):
+            n = t.shape[0] // len(buf.parts)
+            for g, _, part in buf.local_parts():
+                part.copy_(t[g * n:(g + 1) * n], non_blocking=True)
+        else:
+            buf.copy_(t, non_blocking=True)
+
     def __call__(self, host: Sequence[np.ndarray], key: torch.Tensor,
                  field_source=None):
-        """Run one frame: copy the host arrays and the subkey into the
-        buffers (or a field source's fields, when one is given, in place
-        of the draw), then every part.  Returns (pack_a, pack_b), the
-        program's own output tensors: the next run overwrites them, so a
-        caller enqueues its download before that (`DeviceFetch` does, on
-        the same stream)."""
+        """Run one frame: copy the host arrays into the buffers (the
+        columns as well, and onto each other device a chunk runs on), the
+        subkey too (or a field source's fields, when one is given, in
+        place of the draw), then every part, joining the row parts'
+        outputs before the head.  Returns (pack_a, pack_b), the program's
+        own output tensors: the next run overwrites them, so a caller
+        enqueues its download before that (`DeviceFetch` does, on the
+        same stream)."""
         self.capture()
         for buf, x in zip(self.inputs, host):
-            buf.copy_(torch.from_numpy(np.ascontiguousarray(x)),
-                      non_blocking=True)
+            self._put(buf, x)
+        for i, buf in zip(_GRAPH_ROWS, self.cols):
+            if buf is not self.inputs[i]:
+                self._put(buf, host[i])
+        for copies in self._col_copies.values():
+            for i, buf in zip(_GRAPH_ROWS, copies):
+                self._put(buf, host[i])
+        for part in self.rows:
+            if part is not None:
+                part()
+        if self.rows:
+            self._make_joined()
+            join(self._joined_rows(), self.draw.device, out=self.joined)
         if field_source is None:
             self.key.copy_(key, non_blocking=True)
             self.draw()
@@ -399,9 +530,9 @@ class Associator3D:
         # (tests/test_solver_quality.py)
         self.graph_dump: Optional[List[dict]] = None
         # the fused program of each bucket met (FrameProgram), and the
-        # memory pool every bucket's graphs share on the card
+        # memory pool every bucket's graphs share on each card
         self._programs: Dict[Tuple[int, int, int], FrameProgram] = {}
-        self._graph_pool = None
+        self._graph_pools: Dict[torch.device, tuple] = {}
         from mcmtt_opticalflow_tpu_torch.utils.timing import StageTimer
         self.timer = StageTimer()
 
@@ -443,9 +574,9 @@ class Associator3D:
         re-smoothing/re-costing of every updated track and branch
         candidate, track weights (host cost prefix + device window cost),
         the compatibility graph, the replica-parallel BLS solve and the
-        K-best selection.  Without a mesh the engine runs the same parts
-        as a `FrameProgram`; this is the mesh's route, and the reference
-        the captured program is held against.
+        K-best selection.  The engine runs the same parts as a
+        `FrameProgram`; this is the reference the captured program is
+        held against.
 
         Position arrays arrive as float16 (as the JAX package ships them,
         so both packages score the same quantised inputs) and widen to
@@ -475,27 +606,54 @@ class Associator3D:
 
     def _score_graph(self, pts, raws, rmask, merr, lens, row_map, host_base,
                      tree_ids, shared, pos_grid, have, pvalid, cols):
-        """The fused program up to the solve (arguments as
-        `_rescore_and_solve`): pack_a, and the solver's graph — weights
-        [vmax], adjacency [vmax, vmax] and validity [vmax]."""
-        acfg = self.acfg
-        solver_cfg = self._solver_cfg_fused
+        """The fused program up to the solve, eagerly (arguments as
+        `_rescore_and_solve`): the row half on each chunk's device, the
+        join, the joined half.  Returns pack_a, and the solver's graph —
+        weights [vmax], adjacency [vmax, vmax] and validity [vmax]."""
         ws = self._on_rows(
-            lambda d, p, r, m, e, n: score_track_windows(
-                p.float(), r.float(), m, e.float(), n, self._cams(d), acfg),
+            lambda d, *win: self._score_rows(d, win, None, None)[0],
             pts, raws, rmask, merr, lens)
-        cols = (cols[0], cols[1].float(), cols[2])
-        if isinstance(tree_ids, Shards):
-            incompat = self._on_rows(
-                lambda d, t, g, h: incompat_rows(
-                    t, g.float(), h, tuple(c.to(d) for c in cols), acfg),
-                tree_ids, pos_grid, have)
-        else:
-            incompat = incompat_rows(*cols, cols, acfg)
-        (smoothed, cost_recon, cost_link, window_cost, wvalid), incompat, \
-            lens, pvalid = join(
-                ((ws.smoothed, ws.cost_recon, ws.cost_link, ws.window_cost,
-                  ws.valid), incompat, lens, pvalid), self.device)
+        incompat = self._on_rows(
+            lambda d, *rows: self._score_rows(
+                d, None, rows, tuple(c.to(d) for c in cols))[1],
+            tree_ids, pos_grid, have)
+        ws, incompat, lens, pvalid = join((ws, incompat, lens, pvalid),
+                                          self.device)
+        return self._score_joined(ws, incompat, lens, pvalid, row_map,
+                                  host_base, shared)
+
+    def _score_rows(self, device, win, rows, cols):
+        """The row half of the fused program's scoring, on `device`:
+        `win` (pts, raws, rmask, merr, lens) of rescoring rows gives their
+        window scores (smoothed, cost_recon, cost_link, window_cost,
+        valid); `rows` (tree_ids, pos_grid, have) of graph rows gives
+        their incompatibility against the columns `cols` (the same three
+        arrays of every track, on `device`).  Either may be None, and so
+        is then its output.  Each row depends only on its own inputs and
+        the columns, so a chunk of rows gives those rows of the whole."""
+        acfg = self.acfg
+        ws = incompat = None
+        if win is not None:
+            p, r, m, e, n = win
+            s = score_track_windows(p.float(), r.float(), m, e.float(), n,
+                                    self._cams(device), acfg)
+            ws = (s.smoothed, s.cost_recon, s.cost_link, s.window_cost,
+                  s.valid)
+        if rows is not None:
+            t, g, h = rows
+            incompat = incompat_rows(t, g.float(), h,
+                                     (cols[0], cols[1].float(), cols[2]),
+                                     acfg)
+        return ws, incompat
+
+    def _score_joined(self, ws, incompat, lens, pvalid, row_map, host_base,
+                      shared):
+        """The joined half, on `self.device`: from the window scores `ws`
+        and the incompatibility of every row, the rows' lengths and the
+        graph's validity, pack_a and the solver's graph (as
+        `_score_graph`)."""
+        acfg = self.acfg
+        smoothed, cost_recon, cost_link, window_cost, wvalid = ws
         # `shared` arrives bit-packed ([nb, ceil(nb/8)] u8, np.packbits
         # big-endian)
         nb = incompat.shape[0]
@@ -503,7 +661,7 @@ class Associator3D:
                               device=shared.device)
         bits = (shared[:, :, None] >> shifts) & 1
         shared = bits.reshape(nb, -1)[:, :nb].bool()
-        vmax = solver_cfg.max_vertices
+        vmax = self._solver_cfg_fused.max_vertices
         rm = torch.clamp(row_map, min=0).long()
         has_row = row_map >= 0
         # tracks below the smoothing-length gate keep their host-side
@@ -558,14 +716,15 @@ class Associator3D:
         runs (a chunk's device takes the columns it reads from there).
         Without a mesh: a tensor on `self.device`."""
         t = torch.from_numpy(np.ascontiguousarray(x))
-        if shard and self._splits(x):
+        if shard and self._splits(np.shape(x)):
             return device_sharding(self.mesh).split(t)
         return t.to(self.device, non_blocking=True)
 
-    def _splits(self, x) -> bool:
-        """Whether `_dev(x, True)` splits `x` over the mesh."""
-        return (self.mesh is not None and np.ndim(x) > 0
-                and np.shape(x)[0] % self.mesh.size == 0)
+    def _splits(self, shape) -> bool:
+        """Whether `_dev(x, True)` splits an array of this shape over the
+        mesh."""
+        return (self.mesh is not None and len(shape) > 0
+                and shape[0] % self.mesh.size == 0)
 
     def _cams(self, device) -> TsaiCamera:
         """The stacked cameras on `device` (made once per device)."""
@@ -2721,23 +2880,8 @@ class Associator3D:
                     merr.astype(np.float16), lens, row_map, host_base,
                     tree_ids, np.packbits(shared, axis=1),
                     pos_grid.astype(np.float16), have, pvalid, init_masks)
-            if self.mesh is None:
-                out = self._program(len(lens), nb, iters)(
-                    host, k, self.field_source)
-            else:
-                # the compatibility columns go up once, replicated, and
-                # are the rows too where _dev does not split them
-                col_in = (host[7], host[9], host[10])
-                cols = tuple(self._dev(x) for x in col_in)
-                rows = [self._dev(x, True) if self._splits(x) else c
-                        for x, c in zip(col_in, cols)]
-                out = self._rescore_and_solve(
-                    *[self._dev(x, True) for x in host[:5]],
-                    self._dev(row_map), self._dev(host_base), rows[0],
-                    self._dev(host[8]), rows[1], rows[2],
-                    self._dev(pvalid, True), self._dev(init_masks),
-                    k if self.field_source is None else self.field_source,
-                    iters, cols)
+            out = self._program(len(lens), nb, iters)(
+                host, k, self.field_source)
         # new_track consumption point (the related-set expansion above was
         # this frame's only reader)
         for t in reg.tracks.values():
@@ -2761,15 +2905,24 @@ class Associator3D:
 
     def _program(self, nr: int, nb: int, iters: int) -> FrameProgram:
         """The bucket's program, made (and on the card captured) when
-        first met, as JAX compiles a bucket at its first call."""
+        first met, as JAX compiles a bucket at its first call (on a mesh
+        its rows split by `_dev`'s rule, which a bucket fixes)."""
         prog = self._programs.get((nr, nb, iters))
         if prog is None:
-            if self._graph_pool is None and self.device.type == "cuda":
-                self._graph_pool = torch.cuda.graph_pool_handle()
             prog = FrameProgram(self, nr, nb, iters, self._graph_pool)
             prog.capture()
             self._programs[(nr, nb, iters)] = prog
         return prog
+
+    def _graph_pool(self, device):
+        """The memory pool that every bucket's graphs on a CUDA `device`
+        share (None elsewhere)."""
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+        if device not in self._graph_pools:
+            self._graph_pools[device] = torch.cuda.graph_pool_handle()
+        return self._graph_pools[device]
 
     def precompile(self, pairs=((256, 1024), (512, 512), (512, 1024))):
         """Capture the fused program ahead of the measured frames at the

@@ -10,17 +10,17 @@ Per frame:
 The whole 8-bit gray frame goes up from pinned memory with a non-blocking
 copy; the 2D result comes down as one packed f32 tensor per camera group
 through parallel/mesh.py's `AsyncFetch` (non-blocking copies behind CUDA
-events).  Without a mesh the 2D step of every camera and the packing of
-its outputs are one program on static buffers (`Tracker2DProgram`): on
-the card one CUDA graph, captured at the first frame, replayed once a
-frame and read by the host only through that download, as the JAX
-package dispatches its jitted step2d.  With a mesh the cameras split into
-one group per 'cam' row, each stepping its own slice of the 2D state on
-that row's first device, eagerly;
-on a mesh over several processes each process steps only the groups it
-owns, and every frame's packed 2D outputs reach every process with one
-all-gather, in camera order, so that the host 3D stage runs alike in
-every process.
+events).  The 2D step of a camera group and the packing of its outputs
+are one program on static buffers (`Tracker2DProgram`): on the card one
+CUDA graph, captured at the first frame, replayed once a frame and read
+by the host only through that download, as the JAX package dispatches
+its jitted step2d.  Without a mesh there is one group, every camera.
+With a mesh the cameras split into one group per 'cam' row, each with
+its own program on that row's first device (one graph pool per device);
+on a mesh over several processes each process builds and replays only
+the groups it owns, and every frame's packed 2D outputs reach every
+process with one all-gather, in camera order, so that the host 3D stage
+runs alike in every process.
 """
 
 from __future__ import annotations
@@ -66,25 +66,27 @@ def _staged(x: np.ndarray, device) -> torch.Tensor:
 
 
 class Tracker2DProgram:
-    """The 2D step of every camera and the packing of its outputs
+    """The 2D step of one camera group and the packing of its outputs
     (`_pack2d`) on static buffers: the counterpart of the JAX package's
     jitted, vmapped step2d (models/tracker2d.py:459-472), built once per
-    engine (the shapes are static, so there are no buckets).
+    group (the shapes are static, so there are no buckets).
 
-    The buffers are the 2D state (`state`), this frame's 8-bit gray
-    frames, detection boxes and mask, and the frame number as a 0-dim
-    int32 tensor.  The program's function reads them, runs
-    `tracker2d_step`, copies the new state into the state buffers and
-    returns the packed [C, T, 6] outputs.  On the card it is one CUDA
-    graph (`Graphed`), captured at the first call or by `capture()`; the
-    capture's eager warm-up would advance the state, so the state is
-    saved around it and put back.  Elsewhere the function runs eagerly
-    from the same buffers."""
+    `cams` are the group's stacked cameras, on `device`; their count is
+    the group's.  The buffers are the group's 2D state (`state`), this
+    frame's 8-bit gray frames, detection boxes and mask, and the frame
+    number as a 0-dim int32 tensor.  The program's function reads them,
+    runs `tracker2d_step`, copies the new state into the state buffers
+    and returns the packed [C, T, 6] outputs.  On the card it is one CUDA
+    graph (`Graphed`, into `pool`, which the device's 2D programs share),
+    captured at the first call or by `capture()`; the capture's eager
+    warm-up would advance the state, so the state is saved around it and
+    put back.  Elsewhere the function runs eagerly from the same
+    buffers."""
 
     def __init__(self, cfg: EngineConfig, cams: TsaiCamera, device,
                  pool=None):
         t2 = cfg.tracker2d
-        c, h, w = cfg.num_cameras, cfg.image_height, cfg.image_width
+        c, h, w = cams.width.shape[0], cfg.image_height, cfg.image_width
         self.device = torch.device(device)
         self.state = init_tracker2d_state(t2, h, w, num_cameras=c,
                                           device=device)
@@ -160,15 +162,15 @@ class TrackingEngine:
         triples (see Associator3D).
 
         mesh: optional ('cam', 'block') Mesh (parallel/mesh.py).  The
-        camera axis of the 2D stage splits into mesh.shape["cam"] groups
-        (`state2d_groups`), each stepped on its 'cam' row's first device;
-        the 3D stage runs on the mesh (see Associator3D), its replicated
-        part on the process's first mesh device, which is also the
-        engine's `device`.  On a mesh over several processes, every
-        process makes the same calls with the same frames: each steps
-        the groups it owns (None in `state2d_groups` for the others) and
-        all return the same results.  Results equal the run without a
-        mesh."""
+        camera axis of the 2D stage splits into mesh.shape["cam"] groups,
+        each with its own 2D program on its 'cam' row's first device
+        (`state2d_groups` are their states); the 3D stage runs on the
+        mesh (see Associator3D), its replicated part on the process's
+        first mesh device, which is also the engine's `device`.  On a
+        mesh over several processes, every process makes the same calls
+        with the same frames: each builds and steps the groups it owns
+        (None in `state2d_groups` for the others) and all return the same
+        results.  Results equal the run without a mesh."""
         assert len(cameras) == cfg.num_cameras
         self.mesh = mesh
         self._cam_split = None
@@ -185,20 +187,18 @@ class TrackingEngine:
         self.cfg = cfg
         self.cameras = list(cameras)
         self.cams = stack_cameras(cameras, self.device)
-        self._prog2d = None
-        if mesh is None:
-            self._prog2d = Tracker2DProgram(
-                cfg, self.cams, self.device,
-                torch.cuda.graph_pool_handle()
-                if self.device.type == "cuda" else None)
-            self.state2d_groups = [self._prog2d.state]
-        else:
-            self.state2d = init_tracker2d_state(
-                cfg.tracker2d, cfg.image_height, cfg.image_width,
-                num_cameras=cfg.num_cameras, device=self.device)
-        self._group_devices = ([self.device] if mesh is None
-                               else self._cam_split.devices)
-        self._group_cams = self._split(self.cams)
+        devices = ([self.device] if mesh is None
+                   else self._cam_split.devices)
+        pools = {}
+        for dev in devices:
+            if dev.type == "cuda" and dev not in pools:
+                pools[dev] = torch.cuda.graph_pool_handle()
+        # one 2D program per camera group of this process (None for the
+        # groups of other processes)
+        self._progs2d = [
+            None if cams is None else Tracker2DProgram(cfg, cams, dev,
+                                                       pools.get(dev))
+            for cams, dev in zip(self._split(self.cams), devices)]
         self.assoc = Associator3D(cfg, cameras, sidemaps=sidemaps,
                                   mesh=mesh, deferred_solve=pipelined,
                                   device=self.device)
@@ -219,58 +219,52 @@ class TrackingEngine:
         return shard_leaves(tree, self._cam_split)
 
     @property
+    def state2d_groups(self) -> list:
+        """Each camera group's 2D state: its program's state buffers (None
+        for the groups of other processes)."""
+        return [None if p is None else p.state for p in self._progs2d]
+
+    @property
     def state2d(self) -> Tracker2DState:
-        """The 2D state of every camera: without a mesh a copy of the 2D
-        program's state buffers (the next frame overwrites them); with a
-        mesh, the groups' slices joined on the engine's device (the
-        groups keep stepping theirs).  Raises on a mesh over several
+        """The 2D state of every camera: a copy of the programs' state
+        buffers, the groups' joined on the engine's device (the next
+        frame overwrites the buffers).  Raises on a mesh over several
         processes, where no process holds every group."""
-        if self._prog2d is not None:
-            return tree_map(torch.clone, self._prog2d.state)
-        if any(g is None for g in self.state2d_groups):
+        if any(p is None for p in self._progs2d):
             raise RuntimeError("the 2D state of a mesh over several "
                                "processes is split between them")
-        if len(self.state2d_groups) == 1:
-            return self.state2d_groups[0]
         return tree_map(lambda *xs: torch.cat([x.to(self.device)
                                                for x in xs]),
                         *self.state2d_groups)
 
     @state2d.setter
     def state2d(self, state: Tracker2DState):
-        if self._prog2d is not None:
-            self._prog2d.load(state)     # into the program's buffers
-        else:
-            self.state2d_groups = self._split(state)
+        """Copy a 2D state of every camera into the programs' buffers,
+        each group's slice into its own."""
+        for prog, part in zip(self._progs2d, self._split(state)):
+            if prog is not None:
+                prog.load(part)
 
     def precompile(self) -> None:
-        """Capture the 2D program and the fused 3D program's usual buckets
-        ahead of the measured frames (Associator3D.precompile); call
-        after the engine's own warm-up frames.  Off the card it makes the
-        3D programs' buffers."""
-        if self._prog2d is not None:
-            self._prog2d.capture()
+        """Capture the 2D programs and the fused 3D program's usual
+        buckets ahead of the measured frames (Associator3D.precompile);
+        call after the engine's own warm-up frames.  Off the card it
+        makes the 3D programs' buffers."""
+        for prog in self._progs2d:
+            if prog is not None:
+                prog.capture()
         self.assoc.precompile()
-
-    def _upload(self, x: np.ndarray, device) -> torch.Tensor:
-        return _staged(x, device).to(device, non_blocking=True)
 
     def _group_slices(self, x: np.ndarray) -> List[np.ndarray]:
         """A [C, ...] host array cut into the camera groups' slices."""
-        return np.split(x, len(self._group_devices))
+        return np.split(x, len(self._progs2d))
 
-    def _upload_gray(self, gray_u8: np.ndarray):
-        """[C, H, W] u8 gray -> per camera group, f32 in [0, 1] on the
-        group's device (None for the groups of other processes).  Without
-        a mesh it goes into the 2D program's buffer instead (None)."""
-        if self._prog2d is not None:
-            self._prog2d.put_gray(gray_u8)
-            return None
-        return [None if state is None
-                else self._upload(g, dev).float() * (1.0 / 255.0)
-                for g, dev, state in zip(self._group_slices(gray_u8),
-                                         self._group_devices,
-                                         self.state2d_groups)]
+    def _upload_gray(self, gray_u8: np.ndarray) -> None:
+        """[C, H, W] u8 gray -> each camera group's slice into its
+        program's buffer (nothing for the groups of other processes)."""
+        for prog, g in zip(self._progs2d, self._group_slices(gray_u8)):
+            if prog is not None:
+                prog.put_gray(g)
 
     def _pad_detections(self, detections):
         c = self.cfg.num_cameras
@@ -284,25 +278,15 @@ class TrackingEngine:
             mask[ci, :n] = True
         return boxes, mask
 
-    def _step2d(self, grays, boxes, mask):
-        """The 2D step of every camera group this process holds; returns
-        the packed outputs, [C, T, 6] (as Shards over the camera groups
-        with a mesh).  Without a mesh: one run of the 2D program, on the
-        gray `_upload_gray` put in its buffer (`grays` is None)."""
-        if self._prog2d is not None:
-            return self._prog2d(boxes, mask, self.frame_idx)
-        packs = []
-        for g, (dev, cams, gray, box, msk) in enumerate(zip(
-                self._group_devices, self._group_cams, grays,
-                self._group_slices(boxes), self._group_slices(mask))):
-            if gray is None:                  # another process's group
-                packs.append(None)
-                continue
-            self.state2d_groups[g], out2d = tracker2d_step(
-                self.state2d_groups[g], gray, self._upload(box, dev),
-                self._upload(msk, dev), cams, self.frame_idx,
-                self.cfg.tracker2d)
-            packs.append(_pack2d(out2d))
+    def _step2d(self, boxes, mask):
+        """One run of each camera group's 2D program this process holds,
+        on the gray `_upload_gray` put in its buffer; returns the packed
+        outputs, [C, T, 6] (as Shards over the camera groups with a
+        mesh)."""
+        packs = [None if prog is None else prog(box, msk, self.frame_idx)
+                 for prog, box, msk in zip(self._progs2d,
+                                           self._group_slices(boxes),
+                                           self._group_slices(mask))]
         return packs[0] if self.mesh is None else Shards(self._cam_split,
                                                          packs)
 
@@ -329,7 +313,7 @@ class TrackingEngine:
                 gray_u8 = ((f[..., 0].astype(np.uint16) + f[..., 1]
                             + f[..., 2]) // 3).astype(np.uint8)
         with self.assoc.timer.stage("upload"):
-            grays = self._upload_gray(gray_u8)
+            self._upload_gray(gray_u8)
 
         if self.pipelined:
             # the associator's phase 1 for frame t-2 runs first, so this
@@ -344,13 +328,13 @@ class TrackingEngine:
                                                mask_np, prev_rgb)
                 self.assoc.step_finish(prev_idx)
             with self.assoc.timer.stage("tracker2d"):
-                packs = self._step2d(grays, boxes, mask)
+                packs = self._step2d(boxes, mask)
             self._pending.append((self.frame_idx, AsyncFetch(packs), f))
             if result is None:       # pipeline still filling
                 return None
         else:
             with self.assoc.timer.stage("tracker2d"):
-                packs = self._step2d(grays, boxes, mask)
+                packs = self._step2d(boxes, mask)
             result = self._associate(self.frame_idx, packs, f)
         result.processing_time = time.perf_counter() - t0
         self.timing.append(result.processing_time)

@@ -98,6 +98,7 @@ namespace {
 constexpr int kWarps = 8;            // warps per block = slots per block
 constexpr int kMinBlocks = 3;        // blocks per SM the registers allow
 constexpr int kMaxWin = 16;
+constexpr int kMaxDevices = 64;      // per-device launch records
 constexpr int kMargin = 6;           // staged next region margin, px
 constexpr int kNextPitch = 48;       // floats: 16 mod 32, room for the shift
 constexpr int kPerLane = (kMaxWin * kMaxWin + 31) / 32;  // 8
@@ -457,16 +458,21 @@ int launch_w(const float* prev, const float* next, const int* cam,
              const float* pts, const float* guess, const uint8_t* active,
              float* tracked, uint8_t* valid, float* resid, int H, int W, int N,
              int window, int iters, int ph, int pw, void* stream) {
-  // above 48 KB a block's dynamic shared memory must be allowed first
-  static int allowed = 0;
+  // above 48 KB a block's dynamic shared memory must be allowed first,
+  // on each device the kernel runs on (the attribute is per device)
+  static int allowed[kMaxDevices] = {};
   const int smem = kWarps * warp_floats(window) * (int)sizeof(float);
-  if (smem > allowed) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > allowed[dev]) {
     const int max_smem = kWarps * warp_floats(kMaxWin) * (int)sizeof(float);
-    const cudaError_t err = cudaFuncSetAttribute(
-        lk_level_kernel<kSerial, kW>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, max_smem);
+    err = cudaFuncSetAttribute(lk_level_kernel<kSerial, kW>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               max_smem);
     if (err != cudaSuccess) return (int)err;
-    allowed = max_smem;
+    allowed[dev] = max_smem;
   }
   const int blocks = (N + kWarps - 1) / kWarps;
   lk_level_kernel<kSerial, kW>

@@ -286,12 +286,25 @@ class AsyncFetch:
         return tree_map(lambda _: next(leaves), self._tree)
 
 
-def join(tree, device):
+def join(tree, device, out=None):
     """Every leaf whole on `device`: a Shards leaf's slices concatenated
     there (one all-gather for the tree when some live in other
-    processes), a tensor moved there."""
+    processes), a tensor moved there.  With `out`, a tree of tensors of
+    the whole shapes on `device`, each leaf is written into its own and
+    `out` is returned."""
     if any(isinstance(x, Shards) and x.remote for x in tree_leaves(tree)):
-        return tree_map(lambda a: torch.from_numpy(a).to(device),
-                        fetch(tree))
-    return tree_map(lambda x: torch.cat([p.to(device) for p in x.parts])
-                    if isinstance(x, Shards) else x.to(device), tree)
+        whole = fetch(tree)
+        if out is None:
+            return tree_map(lambda a: torch.from_numpy(a).to(device), whole)
+        for dst, a in zip(tree_leaves(out), tree_leaves(whole)):
+            dst.copy_(torch.from_numpy(a))
+        return out
+
+    def local(x, dst=None):
+        parts = x.parts if isinstance(x, Shards) else [x]
+        if dst is None and not isinstance(x, Shards):
+            return x.to(device)
+        return torch.cat([p.to(device) for p in parts], out=dst)
+    if out is None:
+        return tree_map(local, tree)
+    return tree_map(local, tree, out)

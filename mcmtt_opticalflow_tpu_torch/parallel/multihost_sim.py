@@ -12,7 +12,10 @@ Each process:
      solve_mwcp calls plus the argmax, made here in one process,
   4. fetches a value split over every mesh device and checks it whole,
   5. steps TrackingEngine(pipelined=True) on the global mesh for
-     --engine-frames frames,
+     --engine-frames frames: each camera group's 2D step and each chunk
+     of the fused 3D program's rows run as graph replays in the process
+     that owns them, which counts them and, on the card, the kernels the
+     card runs for it (CUPTI),
   6. process 0 writes parallel/launch.py::scaling_report (the solve's
      rates) plus processes, local_devices, solver_best_score,
      engine_track_results and each frame's ids and points to --out;
@@ -32,15 +35,15 @@ Without --bench: the small CPU scene of scripts/multihost_sim.py (one
 camera per 'cam' row, 128x96, 3 people) and its solve (V=64, R=2, 80
 iterations) on the global mesh.  --bench: the bench configuration and
 the first frames of the bench scene (mcmtt_opticalflow_tpu_torch/
-bench.py, 37 frames) with the solver's fields
-drawn on the host from seed 1, as chip_smoke.py's mesh phase runs them,
-and the solve of that phase (V=1024, 700 valid, R=38, 150 iterations)
-over a mesh of one 'cam' row.
+bench.py, 37 frames), the solver's fields drawn from the associator's
+key as in chip_smoke.py's mesh phase, and the solve of that phase
+(V=1024, 700 valid, R=38, 150 iterations) over a mesh of one 'cam' row.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import hashlib
 import json
 import os
@@ -53,6 +56,14 @@ import numpy as np
 import torch
 
 REPS = 3
+# the port's kernels by wrapper, each with the part of its CUDA name that
+# a KernelEvents session counts it by
+KERNELS = {"lk_level": "lk_level_kernel<false", "lk_level_serial":
+           "lk_level_kernel<true", "jv_assign": "jv_assign_kernel",
+           "greedy_start": "greedy_start_kernel",
+           "bls_steps": "bls_steps_kernel",
+           "clique_weights": "clique_weight_kernel",
+           "threefry_fields": "threefry_fields_kernel"}
 _MODULE = "mcmtt_opticalflow_tpu_torch.parallel.multihost_sim"
 _ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
@@ -229,10 +240,19 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
     """TrackingEngine(pipelined=True) on `mesh` for `frames_n` frames:
     each frame's ids and points, the wall time, the time spent in
     cross-process collectives and their count per process_frame / flush
-    call, and the LK, JV and solver kernel launches this process made.  The
-    solver draws from the associator's key, which every process derives
-    alike from the seed; `make_fields(cfg)`, when given, makes a field
-    source to draw from instead."""
+    call, the LK, JV and solver kernel wrappers' launches in this process
+    (the calls of its captures; a replay passes through no wrapper), the
+    graph replays of its programs (`replays`, counted on the card only):
+    of each 2D program it owns ("2d", one a frame each), and of each part
+    of its fused 3D programs summed over the buckets ("rows": the row
+    parts of its chunks; "draw", "head", "block", "rest", "tail": the
+    parts on its home device), and, on the card, the runs of each of the
+    port's kernels that the card made for this process over the frames
+    (`kernel_runs`, counted by CUPTI: replays' kernels and captures'
+    warm-ups alike; None off the card).  The solver draws from the
+    associator's key, which every process derives alike from the seed;
+    `make_fields(cfg)`, when given, makes a field source to draw from
+    instead."""
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
     from mcmtt_opticalflow_tpu_torch.ops import (hungarian, lk_kernel,
                                                  mwcp_kernel, threefry_kernel)
@@ -286,24 +306,30 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
               mwcp_kernel.clique_weights, threefry_kernel.threefry_fields)
     for fn in solver:
         fn.launches = 0
+    counter = None
+    if torch.device(eng.device).type == "cuda":
+        from mcmtt_opticalflow_tpu_torch.utils.kernel_events import (
+            KernelEvents)
+        counter = KernelEvents()
     t0 = time.perf_counter()
     try:
-        t = 0
-        while True:               # the frames, then flush() until None
-            spent[:] = [0.0, 0]
-            if t < frames_n:
-                r = eng.process_frame(frames[t], sc.detections[t],
-                                      frame_idx=t)
-            else:
-                r = eng.flush()
-                if r is None:
-                    break
-            per_call.append(spent[0])
-            count_per_call.append(spent[1])
-            t += 1
-            if r is not None:
-                results.append(r)
-        _sync(eng.device)
+        with counter or contextlib.nullcontext():
+            t = 0
+            while True:           # the frames, then flush() until None
+                spent[:] = [0.0, 0]
+                if t < frames_n:
+                    r = eng.process_frame(frames[t], sc.detections[t],
+                                          frame_idx=t)
+                else:
+                    r = eng.flush()
+                    if r is None:
+                        break
+                per_call.append(spent[0])
+                count_per_call.append(spent[1])
+                t += 1
+                if r is not None:
+                    results.append(r)
+            _sync(eng.device)
     finally:
         mesh_mod.all_gather_host = gather
     wall = time.perf_counter() - t0
@@ -313,10 +339,25 @@ def run_engine(mesh, bench: bool, frames_n: int, make_fields=None) -> dict:
             "wall_s": wall, "lk_launches": lk_kernel.lk_level.launches,
             "jv_launches": hungarian.jv_assign.launches,
             "solver_launches": [fn.launches for fn in solver],
+            "replays": _replays(eng),
+            "kernel_runs": None if counter is None else {
+                k: counter.count(part) for k, part in KERNELS.items()},
             "collective_s_per_call": per_call,
             "collectives_per_call": count_per_call,
             "groups_here": [g for g, s in enumerate(eng.state2d_groups)
                             if s is not None]}
+
+
+def _replays(eng) -> dict:
+    """The graph replays of the engine's programs in this process."""
+    progs = list(eng.assoc._programs.values())
+    out = {"2d": [p.graph.n_replays for p in eng._progs2d if p is not None],
+           "rows": sum(r.n_replays for p in progs for r in p.rows
+                       if r is not None)}
+    for name in ("draw", "head", "block", "rest", "tail"):
+        out[name] = sum(getattr(p, name).n_replays for p in progs
+                        if getattr(p, name) is not None)
+    return out
 
 
 def main(argv=None) -> None:

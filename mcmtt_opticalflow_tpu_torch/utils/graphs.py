@@ -25,6 +25,20 @@ from typing import Callable
 
 import torch
 
+# One capture stream per card, every graph of the process captured on its
+# card's: a graph pool reuses the blocks that earlier captures freed only
+# on the stream they were captured on, and torch.cuda.graph's own default
+# stream belongs to the card of the process's first capture.
+_capture_streams = {}
+
+
+def _capture_stream() -> torch.cuda.Stream:
+    """The current card's capture stream."""
+    index = torch.cuda.current_device()
+    if index not in _capture_streams:
+        _capture_streams[index] = torch.cuda.Stream()
+    return _capture_streams[index]
+
 
 class Graphed:
     """`fn` captured as a CUDA graph on a CUDA `device` (into `pool`, a
@@ -47,21 +61,22 @@ class Graphed:
         return self.device.type == "cuda"
 
     def capture(self) -> None:
-        """Warm up and capture.  Capturing runs nothing: `out` holds the
-        graph's output tensors, whose values the first replay writes.
-        Nothing to do off the card or when already captured."""
+        """Warm up and capture, both on the capture stream of the graph's
+        card.  Capturing runs nothing: `out` holds the graph's output
+        tensors, whose values the first replay writes.  Nothing to do off
+        the card or when already captured."""
         if not self.on_card or self.graph is not None:
             return
         t0 = time.perf_counter()
         with torch.cuda.device(self.device):
             current = torch.cuda.current_stream()
-            side = torch.cuda.Stream()
+            side = _capture_stream()
             side.wait_stream(current)
             with torch.cuda.stream(side):
                 self.fn()
             current.wait_stream(side)
             graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph, pool=self.pool):
+            with torch.cuda.graph(graph, pool=self.pool, stream=side):
                 self.out = self.fn()
         self.graph = graph
         self.capture_s = time.perf_counter() - t0

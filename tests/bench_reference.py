@@ -1,11 +1,18 @@
 """Build mcmtt_opticalflow_tpu_torch/bench_reference.json: bench.py's scene
 and protocol (37 frames, 7 of warm-up, MOTA at deferred windows 0/3/6)
-run on the CPU three ways, with every frame's 3D ids and points.
+run on the CPU four ways, with every frame's 3D ids and points.
 
-    JAX_PLATFORMS=cpu python tests/bench_reference.py {jax,xla,plain,all}
+    JAX_PLATFORMS=cpu python tests/bench_reference.py \
+        {jax,jax_pallas,xla,plain,all}
 
   jax    the JAX engine (bench.py's loop; on the CPU its LK is the gather
          path, `xla_impl`);
+  jax_pallas
+         the JAX engine on its own kernel route, the one it takes on a
+         TPU: MCMTT_LK_BACKEND=pallas with `lk_level_pallas` in interpret
+         mode (tests/torch_parity.py::pallas_interpret's patch; nothing
+         in the JAX package changes; ~7 min).  The reference of the
+         card's MOTA gate, beside `plain`;
   xla    the port with MCMTT_LK_BACKEND=xla (the same gather LK) on its
          default solver stream: equal to `jax` on every frame;
   plain  the port with the LK kernel's plain PyTorch version, the
@@ -17,6 +24,7 @@ tests/test_torch_bench_parity.py holds the file against fresh runs."""
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import os
 import sys
@@ -30,6 +38,9 @@ OUT = os.path.join(ROOT, "mcmtt_opticalflow_tpu_torch",
                    "bench_reference.json")
 COMMANDS = {
     "jax": "JAX_PLATFORMS=cpu python tests/bench_reference.py jax",
+    "jax_pallas": "MCMTT_LK_BACKEND=pallas, lk_level_pallas(interpret=True)"
+                  ": JAX_PLATFORMS=cpu python tests/bench_reference.py "
+                  "jax_pallas",
     "xla": "MCMTT_LK_BACKEND=xla: run_bench(30, 'cpu') "
            "(python tests/bench_reference.py xla)",
     "plain": "MCMTT_LK_BACKEND unset: run_bench(30, 'cpu') "
@@ -44,11 +55,26 @@ def _frames_json(results):
             for r in results]
 
 
-def run_jax(frames: int = 30) -> dict:
+def run_jax(frames: int = 30, pallas: bool = False) -> dict:
     """bench.py's main loop on the JAX engine (no override hook), keeping
-    each frame's deferred result."""
+    each frame's deferred result; with `pallas`, on its Pallas LK kernel
+    in interpret mode (the backend and the wrapper are put back after)."""
     import jax
     jax.config.update("jax_platforms", "cpu")
+    if pallas:
+        from mcmtt_opticalflow_tpu.ops import lk_pallas
+        saved = os.environ.get("MCMTT_LK_BACKEND"), lk_pallas.lk_level_pallas
+        os.environ["MCMTT_LK_BACKEND"] = "pallas"
+        lk_pallas.lk_level_pallas = functools.partial(saved[1],
+                                                      interpret=True)
+        try:
+            return run_jax(frames)
+        finally:
+            if saved[0] is None:
+                os.environ.pop("MCMTT_LK_BACKEND", None)
+            else:
+                os.environ["MCMTT_LK_BACKEND"] = saved[0]
+            lk_pallas.lk_level_pallas = saved[1]
     from mcmtt_opticalflow_tpu.config import (Associator3DConfig,
                                               EngineConfig, SolverConfig,
                                               Tracker2DConfig)
@@ -126,7 +152,8 @@ def run_port(route: str, frames: int = 30) -> dict:
 
 def build(name: str) -> dict:
     t0 = time.perf_counter()
-    out = run_jax() if name == "jax" else run_port(name)
+    out = (run_jax(pallas=name == "jax_pallas") if name.startswith("jax")
+           else run_port(name))
     out = {"command": COMMANDS[name], **out}
     print(f"{name}: MOTA {out['mota']} tracks_peak {out['tracks_peak']} "
           f"pool_dropped {out['pool_dropped']} "
@@ -136,15 +163,14 @@ def build(name: str) -> dict:
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("run", choices=("jax", "xla", "plain", "all"))
+    ap.add_argument("run", choices=(*COMMANDS, "all"))
     ap.add_argument("--out", default=OUT)
     args = ap.parse_args()
     data = {}
     if os.path.exists(args.out):
         with open(args.out) as f:
             data = json.load(f)
-    for name in (("jax", "xla", "plain") if args.run == "all"
-                 else (args.run,)):
+    for name in (tuple(COMMANDS) if args.run == "all" else (args.run,)):
         data[name] = build(name)
         with open(args.out, "w") as f:
             json.dump(data, f, separators=(",", ":"))

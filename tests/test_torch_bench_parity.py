@@ -246,12 +246,13 @@ def _by_id(frame):
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["jax", "xla", "plain"])
+@pytest.mark.parametrize("name", ["jax", "jax_pallas", "xla", "plain"])
 def test_bench_reference_rebuilds(name):
-    """Rebuild one run of the record (~3 min, ~3.5 min and ~15 min on the
-    CPU) and hold it against the file: triple, tracks_peak, pool_dropped
-    equal; every frame's ids equal, points within 0.1 mm of the rounded
-    ones.  The `xla` run also equals the `jax` record frame by frame."""
+    """Rebuild one run of the record (~3 min, ~7-9 min, ~3.5 min and ~15
+    min on the CPU) and hold it against the file: triple, tracks_peak,
+    pool_dropped equal; every frame's ids equal, points within 0.1 mm of
+    the rounded ones.  The `xla` run also equals the `jax` record frame
+    by frame, and the `plain` and `jax_pallas` runs each other's."""
     import bench_reference
     with open(bench_reference.OUT) as f:
         ref = json.load(f)
@@ -259,8 +260,9 @@ def test_bench_reference_rebuilds(name):
     want = ref[name]
     for k in ("mota", "tracks_peak", "pool_dropped"):
         assert got[k] == want[k], k
-    for runs in ((got, want),) + (((got, ref["jax"]),) if name == "xla"
-                                  else ()):
+    also = {"xla": "jax", "plain": "jax_pallas", "jax_pallas": "plain"}
+    for runs in ((got, want),) + (((got, ref[also[name]]),)
+                                  if name in also else ()):
         for g, w in zip(*[r["frames"] for r in runs]):
             gd, wd = _by_id(g), _by_id(w)
             assert sorted(gd) == sorted(wd), f"frame {g['frame']}"

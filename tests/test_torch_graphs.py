@@ -489,7 +489,7 @@ def recorded2d():
     sc = make_scenario(num_cameras=2, num_frames=NUM_FRAMES, num_people=3,
                        image_size=(256, 192), arena=5000.0, seed=11)
     eng = TrackingEngine(_cfg(tcfg), sc.cameras, device="cpu")
-    prog = eng._prog2d
+    prog = eng._progs2d[0]
     frames = []
     for t in range(NUM_FRAMES):
         eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
@@ -622,7 +622,7 @@ def test_2d_capture_does_not_advance_the_state(recorded2d, monkeypatch):
     for t in range(3):
         eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
                           frame_idx=t)
-    prog = eng._prog2d
+    prog = eng._progs2d[0]
     before = [x.clone() for x in tree_leaves(prog.state)]
     monkeypatch.setattr(Graphed, "on_card", property(lambda g: True))
     monkeypatch.setattr(Graphed, "capture", _stand_in_capture)
@@ -650,16 +650,16 @@ def test_2d_checkpoint_round_trip_restores_the_program_buffers(
     path = str(tmp_path / "snap.pkl")
     save_snapshot(a, path)
     b = TrackingEngine(_cfg(tcfg), sc.cameras, device="cpu")
-    buffers = tree_leaves(b._prog2d.state)
+    buffers = tree_leaves(b._progs2d[0].state)
     assert load_snapshot(b, path) == 3
-    assert b.state2d_groups[0] is b._prog2d.state
-    assert all(x is y for x, y in zip(tree_leaves(b._prog2d.state),
+    assert b.state2d_groups[0] is b._progs2d[0].state
+    assert all(x is y for x, y in zip(tree_leaves(b._progs2d[0].state),
                                       buffers))
-    _same_bits(tree_leaves(b._prog2d.state), frames[3]["state"])
+    _same_bits(tree_leaves(b._progs2d[0].state), frames[3]["state"])
     for eng in (a, b):
         eng.process_frame(np.stack(sc.frames(4)), sc.detections[4],
                           frame_idx=4)
-    _same_bits([b._prog2d.graph.out] + tree_leaves(b._prog2d.state),
+    _same_bits([b._progs2d[0].graph.out] + tree_leaves(b._progs2d[0].state),
                [frames[4]["pack"]] + frames[4]["state"])
     # the getter hands out a copy: the next frame leaves it as it was
     held = b.state2d

@@ -24,7 +24,8 @@ from mcmtt_opticalflow_tpu_torch.parallel import (block_sharding,
                                                   cam_sharding, make_mesh,
                                                   replicated,
                                                   solve_mwcp_sharded)
-from mcmtt_opticalflow_tpu_torch.models.associator3d import Associator3D
+from mcmtt_opticalflow_tpu_torch.models.associator3d import (Associator3D,
+                                                             FrameProgram)
 from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
                                                        device_sharding, fetch,
                                                        join, shard_leaves)
@@ -255,25 +256,55 @@ def _whole(x):
     return torch.cat(x.parts) if isinstance(x, Shards) else x
 
 
+def _clone(x):
+    if isinstance(x, Shards):
+        return Shards(x.placement, [None if p is None else p.clone()
+                                    for p in x.parts])
+    return x.clone()
+
+
+def record_program_calls(eng, sc, n, after_frame=None):
+    """Run the engine over the scene's first n frames (after_frame(eng),
+    when given, after each) and record each call of its fused 3D program
+    (FrameProgram): its bucket, the host arrays, its arguments as the
+    eager body takes them (the 13 uploads as the program's buffers hold
+    them, Shards where they are split, the subkey, the iterations and
+    the compatibility columns) and its outputs, all copied (the buffers
+    are the next call's)."""
+    calls, orig = [], FrameProgram.__call__
+
+    def record(prog, host, key, field_source=None):
+        out = orig(prog, host, key, field_source)
+        calls.append(dict(
+            bucket=prog.bucket, host=[np.array(x) for x in host],
+            args=(*map(_clone, prog.inputs), key.clone(), prog.bucket[2],
+                  tuple(map(_clone, prog.cols))),
+            out=tuple(o.clone() for o in out)))
+        return out
+    FrameProgram.__call__ = record
+    try:
+        for t in range(n):
+            eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
+                              frame_idx=t)
+            if after_frame is not None:
+                after_frame(eng)
+    finally:
+        FrameProgram.__call__ = orig
+    return calls
+
+
 @pytest.fixture(scope="module")
 def fused_calls():
     """The engine on an 8-device and a 3-device CPU mesh for 6 frames:
-    the arguments of every fused-program call."""
+    the arguments of every fused-program call (its uploads, subkey,
+    iterations and columns, as `record_program_calls` records them)."""
     sc = make_scenario(num_cameras=4, num_frames=6, num_people=4,
                        image_size=(128, 96), arena=3000.0, seed=5)
     out = {}
     for n in (8, 3):
         eng = TrackingEngine(_engine_cfg(), sc.cameras,
                              mesh=make_mesh(devices=["cpu"] * n))
-        calls, orig = [], eng.assoc._rescore_and_solve
-
-        def record(*args, calls=calls, orig=orig):
-            calls.append(args)
-            return orig(*args)
-        eng.assoc._rescore_and_solve = record
-        for t in range(6):
-            eng.process_frame(np.stack(sc.frames(t)), sc.detections[t],
-                              frame_idx=t)
+        calls = [c["args"] for c in record_program_calls(eng, sc, 6)]
         assert calls, "no fused-program call: the test is vacuous"
         out[n] = (eng, calls)
     return sc, out

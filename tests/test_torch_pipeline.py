@@ -98,7 +98,7 @@ def test_2d_outputs_come_from_the_2d_program(runs):
     buffers on the CPU): its buffers hold the last frame, and the
     engine's 2D state is those buffers."""
     teng = runs[4]
-    prog = teng._prog2d
+    prog = teng._progs2d[0]
     assert prog is not None and teng.state2d_groups == [prog.state]
     assert int(prog.frame_idx) == NUM_FRAMES - 1
     assert prog.graph.out.shape == (2, 32, 6)
