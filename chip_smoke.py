@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero), run in
-the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 12, 9, 3,
-3g, 8 counted, 10 counted:
+the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 12, 13, 9, 3,
+3g, 8 counted, 10 counted, 13 counted:
 every timed phase comes before the first CUPTI session (phase 3's kernel
 count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
@@ -17,8 +17,11 @@ count), which slows graph launches for the rest of the process:
   2. the LK kernel against its plain PyTorch version at synthetic bench
      shapes (4 cameras, 576x768 and 288x384 levels, 6912 and 9216
      feature slots, points uniform over the image, ~25% active at
-     random), and once with images cut to 766 columns (rows not 16-byte
-     aligned: the kernel's 4-byte staging): valid agrees on >= 99.9% of
+     random), once with images cut to 766 columns (rows not 16-byte
+     aligned: the kernel's 4-byte staging), and the backward call of each
+     level at window 12 (GENERIC_WINDOW: the sparse quality scene's, not a
+     divisor of 32, so the generic kernel's non-constant offsets and its
+     shared-memory layout for w=12): valid agrees on >= 99.9% of
      slots; on slots valid in both, |d tracked| <= 1e-3 px and |d resid|
      <= 1e-4; times per call are
      CUDA-event medians of 20 `lk_level` calls, wrapper host work
@@ -256,7 +259,39 @@ count), which slows graph launches for the rest of the process:
      buffers off 16-byte alignment; then a bench and a CLI draw: the
      kernel's device-only µs (timed as phase 3b), the wrapper's host µs,
      the plain version's ms, the bound (threefry_kernel.field_work) and
-     its binding term, the roofline share.
+     its binding term, the roofline share;
+  13. quality: the JAX package's quality gates and its stability soak on
+     the card (after every timed phase, before any CUPTI session).  The
+     soak (mcmtt_opticalflow_tpu_torch/soak.py, scripts/soak.py's
+     scenario and config: 3 cameras at 320x240, LK window 8, 512 solver
+     vertices) at SOAK_FRAMES frames and SOAK_PEOPLE people: its seven
+     checks (fps_stable, registry_flat, buffers_flat, vis_ids_bounded,
+     device_memory_flat, captures_settle, pinned_memory_flat) must pass;
+     the summary, the
+     buckets met and the frame and capture s of each, allocated,
+     reserved and pinned host MiB at the second and the last quarter,
+     RSS, the graph
+     pools' MiB, steady frames/s and the phase's seconds.  Then the two
+     fixtures of tests/test_quality_regression.py
+     (mcmtt_opticalflow_tpu_torch/quality.py) on the card beside the
+     port's CPU record (quality_reference.json): the sparse scene (full
+     pipeline, 3 cameras at 384x288, LK window 12, 128 solver vertices):
+     every gate of that file at its threshold; the density scene
+     (associator only, 512 solver vertices, K=30): the MOTA floor and
+     containment at their thresholds and each window's MOTA within
+     MOTA_BOUND of the CPU record's, the window-step gates printed with
+     their margins (and, where one does not hold, the first frame whose
+     ids leave the CPU record).  Every kernel against its plain version
+     on these paths' own inputs, at the limits of phases 2, 3f, 11 and
+     12: the fixtures' solves (greedy start, clique weights, BLS, field
+     draw), the sparse scene's LK calls (window 12) and assignments from
+     a second run on the eager 2D route (ids and points equal to the
+     graph route's), and a short soak's LK calls (window 8, 6
+     iterations), assignments and solves.  13 counted runs the soak and
+     both fixtures again under the CUPTI counter at the end: the card's
+     runs equal those derived from the wrappers and the replays
+     (_derived_runs) in that run and in phase 13's, and the ids (the
+     soak's population numbers) equal phase 13's.
 
 The whole script takes about 5 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
@@ -271,7 +306,10 @@ kernel runs counted on the card for the graphed paths (main, mesh, cli:
 CUPTI; profile: trace events; multiprocess: CUPTI inside each process),
 the wrapper's count for the eager ones;
 `wrapper_launches` and `graph_replays_2d`, measured beside the card's
-counts on the graphed paths.  The JV kernel, on phase 3f's recorded
+counts on the graphed paths; `soak`, `quality_sparse` and
+`quality_density` are phase 13's paths, counted by CUPTI in 13 counted.
+Every kernel's `max_abs_err` also covers phase 13's checks on those
+paths' inputs.  The JV kernel, on phase 3f's recorded
 frames, per bench frame (1 launch): the same keys, with `serial_steps`
 and `device_ns_per_step` (`_cli` on the CLI's frames,
 `_past_old_limit` by shape).
@@ -316,6 +354,17 @@ CLI_CAM_IDS = (1, 5, 6, 8)
 MOTA_BOUND = 0.01
 NEG_SCORE = -1e30           # models/mwcp.py's NEG: an empty K-best slot
 PLAIN_EVERY = 4             # phase 11 times the plain versions on these
+SOAK_FRAMES = 300           # phase 13's soak: tests/test_soak.py's size
+SOAK_PEOPLE = 15
+# phase 13 holds the kernels against their plain versions on a short soak
+# on the eager 2D route: its last SOAK_RECORDED of SOAK_RECORD_FRAMES
+# frames' LK calls and assignments, and every SOLVE_EVERY-th solve
+SOAK_RECORD_FRAMES = 40
+SOAK_RECORDED = 8
+SOLVE_EVERY = 4
+# phase 2's LK window past the bench's 16: the sparse quality scene's, not
+# a divisor of 32 (the generic kernel's non-constant offsets)
+GENERIC_WINDOW = 12
 
 
 def log(msg):
@@ -411,12 +460,14 @@ def prepared_launch(args, kw, variant):
 
 class LkCapture:
     """Records (cloned) the arguments of every `lk_level` call the
-    tracker makes while `frame` equals `capture_frame`; install() wraps
-    ops/lk.py's name for it, remove() restores it."""
+    tracker makes while `frame` equals `capture_frame` (any frame when
+    None) and whose index, counted from install(), lies in `calls` (any
+    when None); install() wraps ops/lk.py's name for it, remove()
+    restores it."""
 
-    def __init__(self, capture_frame):
-        self.capture_frame = capture_frame
-        self.frame = -1
+    def __init__(self, capture_frame=None, calls=None):
+        self.capture_frame, self.keep = capture_frame, calls
+        self.frame, self.n = -1, 0
         self.calls = []
 
     def install(self):
@@ -424,8 +475,10 @@ class LkCapture:
         self._orig = lk.lk_level
 
         def capturing(*a, **k):
-            if self.frame == self.capture_frame:
+            if self.capture_frame in (None, self.frame) and \
+                    (self.keep is None or self.n in self.keep):
                 self.calls.append(([x.clone() for x in a], dict(k)))
+            self.n += 1
             return self._orig(*a, **k)
         lk.lk_level = capturing
 
@@ -508,6 +561,16 @@ def unaligned_call(frames, cfg):
     args = (args[0][..., :766].contiguous(), args[1][..., :766].contiguous(),
             *args[2:])
     return args, kw, label.replace(",768]", ",766]") + " (rows unaligned)"
+
+
+def window_calls(frames, cfg):
+    """The bench's backward call at each pyramid level with the LK window
+    at GENERIC_WINDOW."""
+    calls = list(bench_level_calls(frames, cfg))[:cfg.tracker2d
+                                                 .lk_pyramid_levels]
+    return [(args, dict(kw, window=GENERIC_WINDOW),
+             f"{label} window={GENERIC_WINDOW}")
+            for _, args, kw, label in calls]
 
 
 def check_kernel(frames, cfg, variant, extra=()):
@@ -598,11 +661,10 @@ class EagerCount:
         self.cls._rescore_and_solve = self.orig
 
 
-def pool_bytes(pool):
-    """Bytes the CUDA caching allocator holds in a graph pool."""
-    import torch
-    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
-               if pool is not None and seg["segment_pool_id"] == tuple(pool))
+def pool_mib(*pools):
+    """MiB the CUDA caching allocator holds in the graph pools."""
+    from mcmtt_opticalflow_tpu_torch.soak import graph_pool_bytes
+    return graph_pool_bytes(pools) / 2**20
 
 
 def static_bytes(prog):
@@ -742,14 +804,14 @@ def phase_main_path(card, timed):
     rec = run.record
     # the card runs 8 LK and 1 JV kernels a replay and in the capture's
     # warm-up; the wrappers see the capture's two eager calls only
-    want_runs = (8 * (replays2d + 1), 0, replays2d + 1)
+    want_runs = expected_2d([run.engine])[0]
     want_wrapper = (8 * steps2d["n"], 0, steps2d["n"])
     log(f"main path: run_bench({MEASURED}, 'cuda'), {total} frames: 2D "
         f"program {replays2d} graph replays (expected {total}), "
         f"{steps2d['n']} eager tracker2d_step calls (expected 2: the "
         f"capture's warm-up and recording), capture "
         f"{prog2d.graph.capture_s:.3f} s, graph pool "
-        f"{pool_bytes(prog2d.graph.pool) / 2**20:.1f} MiB; kernels run on "
+        f"{pool_mib(prog2d.graph.pool):.1f} MiB; kernels run on "
         f"the card (CUPTI): lk_level={runs[0]} (expected {want_runs[0]}: 8 "
         f"a replay and 8 in the warm-up), lk_level_serial={runs[1]}, "
         f"jv_assign={runs[2]} (expected {want_runs[2]}), "
@@ -785,7 +847,7 @@ def phase_main_path(card, timed):
     log(f"main path: fused 3D program: {replays} graph replays, "
         f"{eager.calls} eager-body calls; capture s per bucket (nr, nb, "
         f"iters) {json.dumps(capture_s)}; graph pool "
-        f"{pool_bytes(assoc._graph_pool(assoc.device)) / 2**20:.1f} MiB, "
+        f"{pool_mib(assoc._graph_pool(assoc.device)):.1f} MiB, "
         f"static buffers "
         f"{sum(static_bytes(p) for p in progs.values()) / 2**20:.1f} MiB; "
         f"{replays_per_frame(progs)} replays a frame")
@@ -1125,7 +1187,7 @@ def phase_graph2d(cfg, sc, frames, card):
         f"dispatches under set_sync_debug_mode('error'); "
         f"{steps2d['n']} eager steps (the capture's); capture "
         f"{prog.graph.capture_s:.3f} s, graph pool "
-        f"{pool_bytes(prog.graph.pool) / 2**20:.1f} MiB ({card})")
+        f"{pool_mib(prog.graph.pool):.1f} MiB ({card})")
     log(f"2D graph: dispatch host ms, medians: in the pipeline under the "
         f"debug mode, gray upload {med(host_ms['put_gray'])} and boxes + "
         f"mask + frame number + replay {med(host_ms['call'])}; alone on an "
@@ -2210,6 +2272,30 @@ def _draw_times(r, v, ip, card, label):
             "numbers": work["numbers"]}
 
 
+def _threefry_check(solves, name, shapes):
+    """The field draw from the subkey of every recorded solve against its
+    plain version and the fields the captured program drew, bit for bit
+    on every element of the five fields, or fail; counts the solves by
+    shape [r, v, iters_pad] into `shapes`.  Returns the largest
+    |kernel - plain version|."""
+    from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
+    err = 0.0
+    for n, s in enumerate(solves):
+        ip, r, v = s["fields"].g_dir.shape
+        got = tk.threefry_fields(s["key"], r, v, ip)
+        plain = tk.threefry_fields_reference(s["key"], r, v, ip)
+        bad = [f for f, g, p, rec in zip(tk.FIELDS, got, plain, s["fields"])
+               if not (_bits_equal(g, p) and _bits_equal(g, rec))]
+        if bad:
+            fail(f"threefry: {name} solve {n} [{r}, {v}, {ip}]: the "
+                 f"kernel's {bad} differ from the plain version's or the "
+                 f"program's")
+        err = max(err, _max_abs_err(zip(got, plain)))
+        shape = str([r, v, ip])
+        shapes[shape] = shapes.get(shape, 0) + 1
+    return err
+
+
 def phase_threefry(bench_solves, cli_solves, card):
     """The solver's field draw (ops/threefry_kernel.py) against its plain
     version on the card, bit for bit on every element of all five fields:
@@ -2223,22 +2309,10 @@ def phase_threefry(bench_solves, cli_solves, card):
     import torch
     from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
     from mcmtt_opticalflow_tpu_torch.utils import prng
-    shapes, err = {}, 0.0
-    for name, solves in (("bench", bench_solves), ("cli", cli_solves)):
-        for n, s in enumerate(solves):
-            ip, r, v = s["fields"].g_dir.shape
-            got = tk.threefry_fields(s["key"], r, v, ip)
-            plain = tk.threefry_fields_reference(s["key"], r, v, ip)
-            bad = [f for f, g, p, rec in zip(tk.FIELDS, got, plain,
-                                             s["fields"])
-                   if not (_bits_equal(g, p) and _bits_equal(g, rec))]
-            if bad:
-                fail(f"threefry: {name} solve {n} [{r}, {v}, {ip}]: the "
-                     f"kernel's {bad} differ from the plain version's or "
-                     f"the program's")
-            err = max(err, _max_abs_err(zip(got, plain)))
-            shape = str([r, v, ip])
-            shapes[shape] = shapes.get(shape, 0) + 1
+    shapes = {}
+    err = max(_threefry_check(solves, name, shapes)
+              for name, solves in (("bench", bench_solves),
+                                   ("cli", cli_solves)))
     r, v, ip = DRAW_ODD
     key = prng.split(prng.prng_key(13))[1].cuda()
     bufs = [torch.full((math.prod(x) + 1,), 7.0, device="cuda")
@@ -2984,7 +3058,7 @@ def phase_mesh(cfg, sc, frames, card, cards=1):
         f"{buckets}, replayed pack_a and pack_b == the eager mesh body's on "
         f"the same uploads bit for bit; capture s per bucket "
         f"{[round(p.capture_s, 3) for p in progs]}; graph pool "
-        f"{pool_bytes(assoc._graph_pool(card0)) / 2**20:.1f} MiB")
+        f"{pool_mib(assoc._graph_pool(card0)):.1f} MiB")
 
     # dispatch host ms on the same inputs, no counter running
     for bucket in buckets:                  # captured here, not timed
@@ -3235,6 +3309,367 @@ def phase_multiprocess(mesh_results, mesh_wall, mesh_heads, card):
     return launches, runs[2:]
 
 
+def expected_2d(engines):
+    """The kernel runs on the card that the engines' 2D programs made, and
+    their wrappers' launches, as (LK, serial LK, JV): a capture passes
+    the step through the wrappers twice (the warm-up, which runs, and
+    the recording, which does not; levels x backtrack_interval LK calls
+    and one JV a step) and each replay runs the step's kernels once.
+    Phase 3, the CLI counted and 13 counted hold the runs against
+    CUPTI."""
+    runs, wrapper = [0, 0, 0], [0, 0, 0]
+    for eng in engines:
+        t2 = eng.cfg.tracker2d
+        lk_step = t2.lk_pyramid_levels * t2.backtrack_interval
+        graph = eng._progs2d[0].graph
+        captured = graph.graph is not None
+        steps = graph.n_replays + captured
+        runs[0] += lk_step * steps
+        runs[2] += steps
+        wrapper[0] += 2 * lk_step * captured
+        wrapper[2] += 2 * captured
+    return tuple(runs), tuple(wrapper)
+
+
+def _derived_runs(eng, label):
+    """The kernel runs on the card that `eng`'s graphs made since the
+    wrappers were counted from 0 before it was built, derived from the
+    wrappers' counts and the replays (expected_2d; the solver's kernels
+    as solver_runs_expected); fails unless the wrappers saw exactly the
+    captures' calls.  Returns ((LK, serial LK, JV), solver runs)."""
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+    runs, want = expected_2d([eng])
+    wrapper = (lk_kernel.lk_level.launches,
+               lk_kernel.lk_level.serial_launches,
+               hungarian.jv_assign.launches)
+    s_runs, s_wrapper = solver_runs_expected([eng.assoc])
+    if wrapper != want or solver_launches() != s_wrapper:
+        fail(f"{label}: the wrappers launched {wrapper} (LK, serial, JV) "
+             f"and {solver_launches()} solver kernels, expected {want} and "
+             f"{s_wrapper}: the captures' calls")
+    return runs, s_runs
+
+
+def reset_launches():
+    from mcmtt_opticalflow_tpu_torch.ops import hungarian, lk_kernel
+    lk_kernel.lk_level.launches = lk_kernel.lk_level.serial_launches = 0
+    hungarian.jv_assign.launches = 0
+    reset_solver_launches()
+
+
+def _finite_results(run, label):
+    import numpy as np
+    for t, (ids, pts) in enumerate(run.results):
+        if len(ids) != len(pts) or not np.isfinite(pts).all():
+            fail(f"{label}: malformed result at frame {t}")
+
+
+def _first_ids_parting(run, ref_ids):
+    """The first frame whose 3D ids after the run differ from the CPU
+    record's (quality_reference.json), or None."""
+    return next((t for t, (ids, _) in enumerate(run.results)
+                 if sorted(ids) != sorted(ref_ids[t])), None)
+
+
+QUALITY_KEYS = ("mota", "recall", "precision", "most_tracked", "most_lost",
+                "id_switches")
+
+
+def _quality_lines(label, run, ref, card):
+    """The card's CLEAR-MOT numbers per window beside the CPU record's."""
+    for w, e in sorted(run.evals.items()):
+        cpu = ref["evals"][str(w)]
+        log(f"{label}: w{w} card " + " ".join(
+            f"{k}={getattr(e, k):.4f}" if isinstance(getattr(e, k), float)
+            else f"{k}={getattr(e, k)}" for k in QUALITY_KEYS)
+            + " | CPU " + " ".join(
+            f"{k}={cpu[k]:.4f}" if isinstance(cpu[k], float)
+            else f"{k}={cpu[k]}" for k in QUALITY_KEYS) + f" ({card})")
+    log(f"{label}: tracks_peak={run.tracks_peak} (CPU {ref['tracks_peak']}) "
+        f"pool_dropped={run.pool_dropped} (CPU {ref['pool_dropped']}); "
+        f"first frame whose 3D ids leave the CPU record: "
+        f"{_first_ids_parting(run, ref['ids'])} (of {len(ref['ids'])})")
+
+
+def _gate_lines(label, gates, held):
+    """Logs every gate with its margin; fails on a gate in `held` that
+    does not hold.  Returns the names of the printed-only gates that do
+    not hold."""
+    loose = []
+    for name, (ok, value, threshold, margin) in gates.items():
+        kind = "held" if name in held else "printed, not held"
+        log(f"{label}: gate {name}: {value} against {threshold}, margin "
+            f"{margin:+.4f} -> {'pass' if ok else 'FAIL'} ({kind})")
+        if not ok:
+            if name in held:
+                fail(f"{label}: the gate {name} fails on the card "
+                     f"({value} against {threshold})")
+            loose.append(name)
+    return loose
+
+
+# the density gates chip_smoke fails on: the MOTA floor and containment;
+# the window steps are printed (their CPU margin, 0.0009 MOTA, is less
+# than one event, and the card's rounding parts ids from the CPU's)
+DENSITY_HELD = ("mota_w6 > 0.6", "tracks_peak <= 2000",
+                "pool_dropped <= 100")
+
+
+def _record_route(run, solver_cfg, lk_calls=None):
+    """`run()` on the eager 2D route (_Eager2DRoute: the same kernels
+    eagerly, the assignment's inputs recorded), its LK calls whose index
+    lies in `lk_calls` (all when None) and its solves (SolveCapture, at
+    `solver_cfg`) recorded.  Returns (run()'s result, the LK calls, the
+    assignment inputs, the solves)."""
+    capture = LkCapture(calls=lk_calls)
+    capture.install()
+    try:
+        with _Eager2DRoute() as route, SolveCapture(solver_cfg) as solves:
+            out = run()
+    finally:
+        capture.remove()
+    return out, capture.calls, route.inputs, solves.solves
+
+
+def _recorded_kernels(label, card, lk_calls=None, jv_inputs=None,
+                      solves=None):
+    """Every kernel of a path against its plain version on the path's own
+    recorded inputs, at the limits phases 2, 3f, 11 and 12 hold: each LK
+    call with an active slot (compare), each assignment bit for bit
+    (jv_compare), each solve's greedy start, start clique weights and BLS
+    (_mwcp_check) and its field draw (_threefry_check); None where the
+    run recorded none of a kind, and a failure where it was to record
+    some and has none.  Returns the largest |kernel - plain version| by
+    kernel name."""
+    for kind, x in (("LK calls", lk_calls), ("assignments", jv_inputs),
+                    ("solves", solves)):
+        if x is not None and not len(x):
+            fail(f"{label}: no {kind} recorded")
+    err = {}
+    if lk_calls is not None:
+        active = [(a, k) for a, k in lk_calls if bool(a[5].any())]
+        if not active:
+            fail(f"{label}: no recorded LK call has an active slot")
+        d = [compare(a, k, "batched", f"{label} lk_level call {n}")[0]
+             for n, (a, k) in enumerate(active)]
+        shapes = sorted({(tuple(a[0].shape), a[3].shape[0], k["window"],
+                          k["iters"]) for a, k in active})
+        err["lk_level"] = max(d)
+        log(f"{label}: lk_level kernel == plain version on the "
+            f"{len(active)} of {len(lk_calls)} recorded calls with an active "
+            f"slot ([C, H, W], N, window, iterations: {shapes}); max "
+            f"|d tracked| {err['lk_level']:.3e} px ({card})")
+    if jv_inputs is not None:
+        err["jv_assign"] = max(jv_compare(*x, f"{label} assignment {n}")[1]
+                               for n, x in enumerate(jv_inputs))
+        log(f"{label}: jv_assign kernel == plain version (col_of_row equal, "
+            f"match_cost bit for bit) on all {len(jv_inputs)} recorded "
+            f"{list(jv_inputs[0][0].shape)} assignments ({card})")
+    if solves is not None:
+        (err["bls_steps"], err["clique_weights"],
+         err["greedy_start"]) = _mwcp_check(solves, label)
+        shapes = {}
+        err["threefry_fields"] = _threefry_check(solves, label, shapes)
+        log(f"{label}: threefry_fields kernel == plain version and == the "
+            f"captured program's fields bit for bit on the recorded "
+            f"solves (shape: solves) {shapes} ({card})")
+    return err
+
+
+def same_fixture_results(a, b, label):
+    """Fail unless two quality runs gave the same ids and points on every
+    frame."""
+    import numpy as np
+    if len(a.results) != len(b.results) or any(
+            x[0] != y[0] or not np.array_equal(x[1], y[1])
+            for x, y in zip(a.results, b.results)):
+        fail(f"{label}: the ids or points differ from the graph route's")
+
+
+def phase_quality(card):
+    """13. quality: the JAX package's quality gates and its soak on the
+    card, after every timed phase and before any CUPTI session.  The soak
+    (soak.soak_run, SOAK_FRAMES frames, SOAK_PEOPLE people: its seven
+    checks, buckets, memory, RSS, graph pool, steady frames/s), then the
+    sparse fixture (every gate of tests/test_quality_regression.py) and
+    the density fixture (the MOTA floor, containment, each window's MOTA
+    within MOTA_BOUND of the CPU record; the window steps printed), each
+    beside the port's CPU record (quality_reference.json).  Every kernel
+    against its plain version on these paths' own inputs
+    (_recorded_kernels): the fixtures' solves, recorded in the gated
+    runs; the sparse fixture's LK calls and assignments, recorded in a
+    second run on the eager 2D route, whose ids and points must equal
+    the gated run's; a short soak's (SOAK_RECORD_FRAMES frames on the
+    eager route) last SOAK_RECORDED frames' LK calls and assignments and
+    every SOLVE_EVERY-th solve.  Returns each path's kernel runs, derived
+    (_derived_runs), the fixtures' ids and the soak's population
+    numbers, and the largest |kernel - plain version| by kernel."""
+    import gc
+    import torch
+    from mcmtt_opticalflow_tpu_torch import config, quality, soak
+
+    t_phase = time.perf_counter()
+    with open(quality.REFERENCE) as f:
+        ref = json.load(f)
+    runs, ids, errs = {}, {}, []
+    gc.collect()
+    torch.cuda.empty_cache()
+    reset_launches()
+    out, eng = soak.soak_run(SOAK_FRAMES, SOAK_PEOPLE, verbose=False,
+                             device="cuda")
+    runs["soak"] = _derived_runs(eng, "quality soak")
+    del eng
+    summary = {k: v for k, v in out.items()
+               if k not in ("device_samples", "buckets", "checks")}
+    ids["soak"] = {k: out[k] for k in SOAK_POPULATION}
+    log(f"quality soak: {SOAK_FRAMES} frames, {SOAK_PEOPLE} people on "
+        f"{card}: {json.dumps(summary)}")
+    log(f"quality soak: device samples {json.dumps(out['device_samples'])}")
+    log(f"quality soak: buckets (nr, nb, iters) first met at frame, "
+        f"capture s: {json.dumps(out['buckets'])}")
+    log(f"quality soak: allocated MiB q2/q4 medians "
+        f"{out['allocated_mib_q2_med']} / {out['allocated_mib_q4_med']} "
+        f"(at start {out['allocated_mib_at_start']}), reserved "
+        f"{out['reserved_mib_q2_med']} / {out['reserved_mib_q4_med']}, "
+        f"pinned host {out['pinned_mib_q2_med']} / "
+        f"{out['pinned_mib_q4_med']}, RSS {out['rss_mib_q2_med']} / "
+        f"{out['rss_mib_q4_med']}; graph "
+        f"pools {out['graph_pool_mib']} MiB; steady {out['steady_fps']} "
+        f"frames/s (frame ms first/mid/last 50 "
+        f"{out['frame_ms_first50_med']} / {out['frame_ms_mid50_med']} / "
+        f"{out['frame_ms_last50_med']}); wall {out['wall_s']} s ({card})")
+    log(f"quality soak: kernel runs (derived; 13 counted holds them against "
+        f"CUPTI) LK/serial/JV {runs['soak'][0]}, solver {runs['soak'][1]}")
+    log(f"quality soak: checks {json.dumps(out['checks'])}")
+    failed = [k for k, ok in out["checks"].items() if not ok]
+    if failed or len(out["checks"]) != 7:
+        fail(f"quality soak: checks {failed} fail on the card "
+             f"({json.dumps(out['checks'])})")
+    t2 = soak.soak_config().tracker2d
+    per_frame = t2.lk_pyramid_levels * t2.backtrack_interval
+    _, lk_calls, jv_in, solves = _record_route(
+        lambda: soak.soak_run(SOAK_RECORD_FRAMES, SOAK_PEOPLE,
+                              verbose=False, device="cuda"),
+        soak.soak_config().solver,
+        range(per_frame * (SOAK_RECORD_FRAMES - SOAK_RECORDED),
+              per_frame * SOAK_RECORD_FRAMES))
+    errs.append(_recorded_kernels(
+        f"quality soak recorded ({SOAK_RECORD_FRAMES} frames, eager 2D "
+        f"route)", card, lk_calls, jv_in[-SOAK_RECORDED:],
+        solves[::SOLVE_EVERY]))
+    del lk_calls, jv_in, solves
+
+    for name, fixture, fixture_cfg in (
+            ("sparse", quality.sparse_fixture, quality.sparse_config),
+            ("density", quality.density_fixture, quality.density_config)):
+        label = f"quality {name}"
+        solver_cfg = fixture_cfg(config).solver
+        reset_launches()
+        t0 = time.perf_counter()
+        with SolveCapture(solver_cfg) as solves:
+            run = fixture(device="cuda")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[f"quality_{name}"] = _derived_runs(run.engine, label)
+        ids[name] = [ids_ for ids_, _ in run.results]
+        _finite_results(run, label)
+        _quality_lines(label, run, ref[name], card)
+        lk_jv, solver = runs[f"quality_{name}"]
+        log(f"{label}: {wall:.1f} s (every solve recorded); buckets (nr, "
+            f"nb, iters) {sorted(run.engine.assoc._programs)}; kernel runs "
+            f"(derived) LK/serial/JV {lk_jv}, solver {solver}")
+        if name == "sparse":
+            gates = quality.sparse_gates(run)
+            _gate_lines(label, gates, held=gates)
+            eager, lk_calls, jv_in, _ = _record_route(
+                lambda: fixture(device="cuda"), solver_cfg)
+            same_fixture_results(run, eager, f"{label} (eager 2D route)")
+            errs.append(_recorded_kernels(
+                f"{label} recorded (eager 2D route, ids and points equal "
+                f"to the graph route's)", card, lk_calls, jv_in))
+            del eager, lk_calls, jv_in
+        else:
+            loose = _gate_lines(label, quality.density_gates(run),
+                                DENSITY_HELD)
+            if loose:
+                log(f"{label}: window-step gates {loose} do not hold on "
+                    f"the card; its 3D ids first leave the CPU record at "
+                    f"frame {_first_ids_parting(run, ref[name]['ids'])}")
+            gap = max(abs(run.evals[w].mota
+                          - ref[name]["evals"][str(w)]["mota"])
+                      for w in run.evals)
+            log(f"{label}: max |card - CPU| MOTA {gap:.4f} (bound "
+                f"{MOTA_BOUND})")
+            if gap > MOTA_BOUND:
+                fail(f"{label}: the card's MOTA leaves the CPU record by "
+                     f"{gap:.4f} (bound {MOTA_BOUND})")
+        errs.append(_recorded_kernels(f"{label} recorded (graph route)",
+                                      card, solves=solves.solves))
+        del run, solves
+    worst = {}
+    for e in errs:
+        for k, v in e.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    log(f"quality: phase {time.perf_counter() - t_phase:.1f} s, every "
+        f"kernel == its plain version on the paths' inputs (largest "
+        f"|kernel - plain| {json.dumps(worst)}) ({card})")
+    return runs, ids, worst
+
+
+# the soak's summary numbers that 13 counted holds equal to phase 13's
+SOAK_POPULATION = ("registry_q2_med", "registry_q4_med", "buf_mb_q2_med",
+                   "buf_mb_q4_med", "vis_map_max", "live_peak")
+
+
+def phase_quality_counted(card, derived, ids):
+    """13 counted: the soak and both quality fixtures again under the
+    CUPTI counter, after every timed phase: the kernels the card ran
+    equal the runs derived from this run's wrappers and replays
+    (_derived_runs) and phase 13's, and the fixtures' ids (the soak's
+    population numbers) equal phase 13's run.  Returns the counted runs
+    per path: the kernels line's launches."""
+    from mcmtt_opticalflow_tpu_torch import quality, soak
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
+
+    def soak_run():
+        out, eng = soak.soak_run(SOAK_FRAMES, SOAK_PEOPLE, verbose=False,
+                                 device="cuda")
+        return out, eng, {k: out[k] for k in SOAK_POPULATION}
+
+    def fixture_run(fixture):
+        run = fixture(device="cuda")
+        return run, run.engine, [ids_ for ids_, _ in run.results]
+
+    counted = {}
+    for path, go in (("soak", soak_run),
+                     ("quality_sparse",
+                      lambda: fixture_run(quality.sparse_fixture)),
+                     ("quality_density",
+                      lambda: fixture_run(quality.density_fixture))):
+        label = f"{path.replace('_', ' ')} counted"
+        reset_launches()
+        t0 = time.perf_counter()
+        with KernelEvents() as ev:
+            _, eng, same = go()
+        wall = time.perf_counter() - t0
+        got = (kernel_runs(ev), solver_kernel_runs(ev))
+        want = _derived_runs(eng, label)
+        log(f"{label}: kernels run on the card (CUPTI) LK/serial/JV "
+            f"{got[0]}, solver {got[1]} (expected {want}; phase 13's "
+            f"derived {derived[path]}); {wall:.1f} s under the counter "
+            f"({card})")
+        if got != want or got != derived[path]:
+            fail(f"{label}: the card ran {got}, expected {want}")
+        name = path.split("_")[-1]
+        if same != ids[name]:
+            fail(f"{label}: the results differ from phase 13's run "
+                 f"({same} against {ids[name]})" if name == "soak" else
+                 f"{label}: the ids differ from phase 13's run")
+        counted[path] = got
+        del eng
+    return counted
+
+
 def phase_profile(cfg, sc, frames):
     """profile_trace around PROFILE_FRAMES steady frames of the bench main
     path (a fresh pipelined engine, warmed up for WARMUP frames, then its
@@ -3458,16 +3893,10 @@ def phase_cli(card, counted, record_jv=False):
     table = out.getvalue()
     for line in table.splitlines():
         log(f"{name}| {line}")
-    levels = EngineConfig().tracker2d.lk_pyramid_levels
-    lk_per_frame = 4 * levels      # backtrack_interval - 1 backward + 1
-    # each engine's 2D program: its replays, plus one eager run in its
-    # capture's warm-up, on the card; the wrappers see the capture's two
-    # calls
+    t2 = EngineConfig().tracker2d
+    lk_per_frame = t2.lk_pyramid_levels * t2.backtrack_interval
     replays = sum(e._progs2d[0].graph.n_replays for e in engines)
-    captured = sum(e._progs2d[0].graph.graph is not None for e in engines)
-    steps = replays + captured
-    want_runs = (lk_per_frame * steps, 0, steps)
-    want_wrapper = (2 * lk_per_frame * captured, 0, 2 * captured)
+    want_runs, want_wrapper = expected_2d(engines)
     on_card = (f"kernels run on the card (CUPTI) lk_level={runs[0]} "
                f"(expected {want_runs[0]}: {lk_per_frame} a replay and in "
                f"each capture's warm-up), lk_level_serial={runs[1]}, "
@@ -3579,7 +4008,8 @@ def main():
     cfg = bench_config()
     sc, frames = bench_scene(WARMUP + MEASURED)
     d_tr, _ = check_kernel(frames, cfg, "batched",
-                           extra=[unaligned_call(frames, cfg)])
+                           extra=[unaligned_call(frames, cfg),
+                                  *window_calls(frames, cfg)])
     call_ms, _ = time_kernel(frames, cfg, "batched")
     paths, jv_paths, solver_paths = {}, {}, {}
     # every timed phase runs before the first CUPTI session (the main
@@ -3622,6 +4052,12 @@ def main():
     solver_summary["threefry_fields"] = phase_threefry(bench_solves,
                                                        cli_solves, card)
     del bench_solves, cli_solves
+    quality_runs, quality_ids, quality_errs = phase_quality(card)
+    d_tr = max(d_tr, quality_errs["lk_level"])
+    jv["max_abs_err"] = max(jv["max_abs_err"], quality_errs["jv_assign"])
+    for kname, summary in solver_summary.items():
+        summary["max_abs_err"] = max(summary["max_abs_err"],
+                                     quality_errs[kname])
     paths["profile"], jv_paths["profile"], solver_paths["profile"] = \
         phase_profile(cfg, sc, frames)
     main_counts, _ = phase_main_path(card, graph_run)
@@ -3639,6 +4075,10 @@ def main():
     cli_counts = phase_cli(card, counted=True)
     paths["cli"], _, jv_paths["cli"] = cli_counts["runs"]
     solver_paths["cli"] = cli_counts["solver_runs"]
+    for path, ((lk_runs, _, jv_runs), s_runs) in phase_quality_counted(
+            card, quality_runs, quality_ids).items():
+        paths[path], jv_paths[path], solver_paths[path] = (lk_runs,
+                                                           jv_runs, s_runs)
     torch.cuda.synchronize()
     log(f"total {time.perf_counter() - t_start:.1f} s")
     src = "mcmtt_opticalflow_tpu_torch/ops/csrc/lk_level.cu"

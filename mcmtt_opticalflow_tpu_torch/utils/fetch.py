@@ -33,7 +33,11 @@ class DeviceFetch:
                 self._events[-1].record()
 
     def get(self) -> Tuple[np.ndarray, ...]:
-        """Wait for the copies and return them as numpy arrays."""
+        """Wait for the copies and return them as numpy arrays that own
+        their memory.  A view would keep its pinned block (or, for a CPU
+        tensor, the tensor) alive for as long as the host code keeps any
+        slice of it: the associator keeps row views of the 2D boxes in
+        its tracklets for the engine's life, one pinned block a frame."""
         for event in self._events:
             event.synchronize()
-        return tuple(h.numpy() for h in self._host)
+        return tuple(h.numpy().copy() for h in self._host)
