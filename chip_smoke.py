@@ -175,15 +175,23 @@ count), which slows graph launches for the rest of the process:
      same inputs; the median per-frame wall time of the pipelined engine
      over MEASURED frames after WARMUP frames and precompile() (the
      bench's protocol), with the mesh and without, in turns.
-     solve_mwcp_sharded at V=1024, R=38, 150 iterations over 2 blocks
-     equals its per-block solves plus the global argmax.  With four or
+     solve_mwcp_sharded at V=1024 (700 valid), R=38, 150 iterations
+     over 2 blocks on [cuda:0] * 2, as captured block programs
+     (parallel/solver_parallel.py: per block a draw, a head, three
+     50-iteration block replays and a tail), equals its per-block
+     solve_mwcp calls plus the global argmax and the eager per-block
+     form, bit for bit; capture s, the graph pools' MiB, dispatch host
+     ms captured against eager, a replay's device ms.  With four or
      more cards visible, all of it again on a mesh over four distinct
      cards (cuda:0-3: cross-device copies and joins, a graph pool a
-     card); with one card that part is not run.  8 counted:
+     card; the sharded solve over cuda:0 and cuda:1); with one card that
+     part is not run.  8 counted:
      the mesh run again under the CUPTI counter, after every timed
      phase: 8 LK and 1 JV kernels a group's replay and its capture's
      warm-up, the solver's kernels as the captured 3D parts prescribe,
-     ids equal;
+     ids equal; then one sharded solve call on the programs made in
+     phase 8: per block a draw, a greedy start, a clique weight and 3
+     BLS kernels (`launches_by_path` sharded_solve);
   8b. multiprocess: parallel/multihost_sim.py --bench in two processes on
      the one card, joined by gloo, each with two cuda:0 entries of the
      global cam 4 x block 1 mesh: each replays its two groups' 2D
@@ -196,7 +204,8 @@ count), which slows graph launches for the rest of the process:
      its frames (8 LK and 1 JV a 2D replay and a capture's warm-up; the
      solver's as the other process's and phase 8's counted run's), go to
      the kernels line; the solve of phase 8 over a 1 x 4 mesh with two blocks
-     in each process equals its per-block solves plus the argmax; wall
+     in each process, each a captured block program, equals its per-block
+     solves plus the argmax; wall
      time against phase 8's, the median time per frame in collectives,
      and scaling_report;
   9. profile: utils/timing.py::profile_trace (torch.profiler) around
@@ -258,8 +267,11 @@ count), which slows graph launches for the rest of the process:
      fields the captured program drew, and at DRAW_ODD [5, 1000, 7] into
      buffers off 16-byte alignment; then a bench and a CLI draw: the
      kernel's device-only µs (timed as phase 3b), the wrapper's host µs,
-     the plain version's ms, the bound (threefry_kernel.field_work) and
-     its binding term, the roofline share;
+     the plain version's ms, the bound (threefry_kernel.field_work: the
+     larger of the bytes' time and the instruction issue's, from the
+     built kernel's SASS, which the phase recounts with cuobjdump and
+     holds the module's constants to, with the card's SM count and
+     maximum SM clock) and its binding term, the share of the bound;
   13. quality: the JAX package's quality gates and its stability soak on
      the card (after every timed phase, before any CUPTI session).  The
      soak (mcmtt_opticalflow_tpu_torch/soak.py, scripts/soak.py's
@@ -726,19 +738,26 @@ def solver_runs_expected(assocs):
     per iteration part its warm-up and its replays run the BLS; the draw
     part's warm-up and its replays run the field draw.  A wrapper counts
     each part's warm-up and recording."""
+    return program_runs([p for assoc in assocs
+                         for p in assoc._programs.values()])
+
+
+def program_runs(progs):
+    """solver_runs_expected of captured programs with a draw, a head and
+    iteration parts: the associator's FrameProgram or the sharded solve's
+    BlockProgram (parallel/solver_parallel.py)."""
     runs, wrapper = [0, 0, 0], [0, 0, 0]
-    for assoc in assocs:
-        for p in assoc._programs.values():
-            if p.head.graph is None:
-                continue
-            loops = [x for x in (p.block, p.rest) if x is not None]
-            runs[0] += 1 + len(loops) + p.head.n_replays
-            runs[1] += sum(1 + x.n_replays for x in loops)
-            wrapper[0] += 2
-            wrapper[1] += 2 * len(loops)
-            if p.draw.graph is not None:
-                runs[2] += 1 + p.draw.n_replays
-                wrapper[2] += 2
+    for p in progs:
+        if p.head.graph is None:
+            continue
+        loops = [x for x in (p.block, p.rest) if x is not None]
+        runs[0] += 1 + len(loops) + p.head.n_replays
+        runs[1] += sum(1 + x.n_replays for x in loops)
+        wrapper[0] += 2
+        wrapper[1] += 2 * len(loops)
+        if p.draw.graph is not None:
+            runs[2] += 1 + p.draw.n_replays
+            wrapper[2] += 2
     return ((runs[0], runs[1], runs[0], runs[2]),
             (wrapper[0], wrapper[1], wrapper[0], wrapper[2]))
 
@@ -2243,6 +2262,83 @@ def _clique_checks(card):
 
 # the field draw's odd shape (r, v, iters_pad): nothing a multiple of 4
 DRAW_ODD = (5, 1000, 7)
+# the opcodes of the draw loops that issue to the integer ALU pipe (IMAD
+# issues to the FMA pipe)
+ALU_OPCODES = ("IADD3", "LOP3", "SHF", "ISETP", "LEA", "VIADD", "I2FP")
+
+
+def threefry_sass_counts():
+    """The draw kernel's instructions a number, counted in the SASS of the
+    built library (`cuobjdump -sass`): its five draw loops (each a
+    backward branch; in the fields' order g_dir, g_rnd, noise, u_dir,
+    u_ten), each body on its 16-byte-store path (the element-by-element
+    stores after the vector store's branch left out) over the 4 numbers
+    it draws, the mean of the two loops of a kind.  Returns {"gumbel",
+    "gumbel_alu", "uniform", "uniform_alu", "loops": [instructions a loop
+    body], "loops_alu": [those of the integer ALU pipe]}."""
+    import re
+    import subprocess
+    from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
+    from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import nvcc
+    tool = os.path.join(os.path.dirname(nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", tk.build()._name],
+                          capture_output=True, text=True, check=True).stdout
+    ins = [(int(a, 16), t.split()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", sass)]
+
+    def opcode(words):
+        return words[1 if words[0].startswith("@") else 0].split(".")[0]
+
+    def target(words):
+        return int(words[-1], 16) if opcode(words) == "BRA" else None
+    loops = [(target(w), a) for a, w in ins
+             if target(w) is not None and target(w) < a]
+    if len(loops) != 5:
+        fail(f"threefry: {len(loops)} loops in the draw kernel's SASS, "
+             f"expected 5 (one a field)")
+    bodies = []
+    for lo, hi in loops:
+        body = [(a, w) for a, w in ins if lo <= a <= hi]
+        vec = next(i for i, (_, w) in enumerate(body)
+                   if any(x.startswith("STG.E.128") for x in w))
+        skip = next(((a + 16, target(w)) for a, w in body[vec:]
+                     if target(w) is not None and target(w) > a), (0, 0))
+        bodies.append([w for a, w in body if not skip[0] <= a < skip[1]])
+    n = [len(b) for b in bodies]
+    alu = [sum(opcode(w) in ALU_OPCODES for w in b) for b in bodies]
+    # the two loops of a kind differ by a few instructions of scheduling:
+    # their mean, a number being one of the 4 a body draws
+    return {"gumbel": (n[0] + n[1]) / 8, "gumbel_alu": (alu[0] + alu[1]) / 8,
+            "uniform": (n[3] + n[4]) / 8,
+            "uniform_alu": (alu[3] + alu[4]) / 8, "loops": n,
+            "loops_alu": alu}
+
+
+def _threefry_bound_inputs(card):
+    """The draw's bound constants (threefry_kernel.py) against the built
+    kernel's SASS (threefry_sass_counts), the card's SM count and its
+    maximum SM clock (nvidia-smi); fails when one differs."""
+    import subprocess
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import threefry_kernel as tk
+    counts = threefry_sass_counts()
+    module = {"gumbel": tk.GUMBEL_INSTRUCTIONS,
+              "gumbel_alu": tk.GUMBEL_ALU_INSTRUCTIONS,
+              "uniform": tk.UNIFORM_INSTRUCTIONS,
+              "uniform_alu": tk.UNIFORM_ALU_INSTRUCTIONS}
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm",
+         "--format=csv,noheader,nounits"], capture_output=True, text=True,
+        check=True).stdout.split()[0])
+    log(f"threefry: SASS (cuobjdump -sass) instructions a number: "
+        f"{json.dumps(counts)} (threefry_kernel.py: {json.dumps(module)}); "
+        f"{sms} SMs (module {tk.SMS}), max SM clock {mhz:g} MHz (module "
+        f"{tk.SM_CLOCK_HZ / 1e6:g}) ({card})")
+    if any(counts[k] != v for k, v in module.items()) or sms != tk.SMS or \
+            mhz * 1e6 != tk.SM_CLOCK_HZ:
+        fail("threefry: the draw's bound constants in threefry_kernel.py "
+             "differ from the built kernel's SASS or the card")
 
 
 def _draw_times(r, v, ip, card, label):
@@ -2263,10 +2359,14 @@ def _draw_times(r, v, ip, card, label):
     work = tk.field_work(r, v, ip)
     bound = 1e6 * work["bound_s"]
     log(f"threefry: {label} draw [{r}, {v}, {ip}] ({work['numbers']} "
-        f"numbers, {work['bytes']} B, {work['ops']} ops): device-only "
-        f"{dev:.3f} us, plain version {plain:.3f} ms ({1e3 * plain / dev:.0f}"
-        f"x), wrapper host {host:.3f} us/call; bound {bound:.3f} us "
-        f"({work['bound_by']}), roofline share {bound / dev:.4f} ({card})")
+        f"numbers, {work['bytes']} B, {work['instructions']:.0f} "
+        f"instructions, {work['alu_instructions']:.0f} of them integer "
+        f"ALU): device-only {dev:.3f} us, plain version {plain:.3f} ms "
+        f"({1e3 * plain / dev:.0f}x), wrapper host {host:.3f} us/call; "
+        f"bound {bound:.3f} us ({work['bound_by']}: issue "
+        f"{1e6 * work['issue_s']:.3f} us, integer ALU "
+        f"{1e6 * work['alu_s']:.3f} us, bytes {1e6 * work['bytes_s']:.3f} "
+        f"us), share of the bound {bound / dev:.4f} ({card})")
     return {"device_us": dev, "host_us": host, "plain_ms": plain,
             "bound_us": bound, "bound_by": work["bound_by"],
             "numbers": work["numbers"]}
@@ -2328,6 +2428,7 @@ def phase_threefry(bench_solves, cli_solves, card):
         f"of the five fields, and == the captured program's fields, for "
         f"the recorded solves' subkeys (shape: solves) {shapes}; and at "
         f"{list(DRAW_ODD)} into unaligned buffers ({card})")
+    _threefry_bound_inputs(card)
     bench = _draw_times(38, 1024, 150, card, "bench")
     cli = _draw_times(18, 256, 2000, card, "cli")
     return {"ms": bench["device_us"] / 1e3, "plain_ms": bench["plain_ms"],
@@ -2909,12 +3010,11 @@ def phase_mesh(cfg, sc, frames, card, cards=1):
     four 2D replays against four eager steps, on the same inputs; the
     median per-frame wall time of the pipelined engine over MEASURED
     frames after WARMUP frames and precompile(), with the mesh and
-    without, in turns.  Then
-    solve_mwcp_sharded at V=1024, R=38, 150 iterations over 2 blocks on
-    the card against the two per-block solve_mwcp calls plus the global
-    argmax.  With cards=4 the mesh's four entries are four distinct
+    without, in turns.  Then the sharded solve (phase_sharded) on
+    [cuda:0] * 2.  With cards=4 the mesh's four entries are four distinct
     cards (cuda:0-3): the same checks and times, the cross-device copies
-    and one graph pool a card included.  Returns the mesh run's results
+    and one graph pool a card included, and the sharded solve over
+    cuda:0 and cuda:1.  Returns the mesh run's results
     and 3D replays (the multiprocess phase's references)."""
     import numpy as np
     import torch
@@ -3126,18 +3226,104 @@ def phase_mesh(cfg, sc, frames, card, cards=1):
         f"furthest apart, [mesh, no mesh] (medians of the two runs each) "
         f"{json.dumps(far)}")
 
-    bmesh = make_mesh(num_cam_shards=1, devices=[card0] * 2)
-    reset_solver_launches()
-    s = run_solve(bmesh, bench=True, reps=1)
-    sharded = solver_launches()
-    log(f"{tag}: solve_mwcp_sharded V=1024 (700 valid) R=38 150 iterations "
-        f"over {bmesh}: best {s['best_score']:.4f}, a clique of "
-        f"{len(s['best_mask'])}: {s['clique']}; equals the per-block solves "
-        f"+ argmax: {s['equals_per_block']}; {s['mesh_s']:.2f} s (one block "
-        f"{s['one_s']:.2f} s); solver wrapper launches {sharded}")
-    if not (s["equals_per_block"] and s["clique"]):
-        fail(f"{tag}: solve_mwcp_sharded differs from its per-block solves")
+    phase_sharded(tag, [card0] * 2 if cards == 1 else
+                  [torch.device("cuda", i) for i in range(2)], card)
     return rb, wall, heads
+
+
+def sharded_instance(devices):
+    """The sharded solve's bench instance (multihost_sim's: V=1024, 700
+    valid, R=38, 150 iterations) on a 1 x len(devices) mesh: (mesh, the
+    four inputs on its home device, config, iterations, key)."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.parallel import make_mesh
+    from mcmtt_opticalflow_tpu_torch.parallel.multihost_sim import \
+        _solve_instance
+    from mcmtt_opticalflow_tpu_torch.utils import prng
+    mesh = make_mesh(num_cam_shards=1, devices=devices)
+    *ins, scfg, iters = _solve_instance(True)
+    return (mesh, [torch.tensor(x, device=mesh.home) for x in ins], scfg,
+            iters, prng.prng_key(3))
+
+
+def sharded_programs(mesh, ins, scfg, iters):
+    """The block programs (parallel/solver_parallel.py) of that instance
+    on the mesh's blocks."""
+    from mcmtt_opticalflow_tpu_torch.models.mwcp import iters_padded
+    from mcmtt_opticalflow_tpu_torch.parallel import (block_sharding,
+                                                      solver_parallel)
+    devices = block_sharding(mesh).devices
+    shape = (ins[0].shape[0], scfg.num_replicas, tuple(ins[3].shape),
+             iters_padded(scfg, iters), scfg)
+    return [solver_parallel.programs[(b, str(d), *shape)]
+            for b, d in enumerate(devices)]
+
+
+def phase_sharded(tag, devices, card):
+    """solve_mwcp_sharded at V=1024 (700 valid), R=38, 150 iterations
+    over 2 blocks on `devices`: the captured per-block programs
+    (parallel/solver_parallel.py::BlockProgram, made at the first call)
+    against the per-block solve_mwcp calls plus the global argmax
+    (multihost_sim.run_solve) and against the eager per-block form
+    (_solve_mwcp_sharded_eager), bit for bit: the best mask and score and
+    every replica's mask and score.  Then, no counter running: the
+    programs' capture s, the graph pools' MiB, the dispatch [host ms to
+    return, wall ms to completion] of a captured and an eager call
+    (medians of 5) and the device ms of one replay of every block's
+    parts (behind a sleep kernel, as device_us)."""
+    import numpy as np
+    import torch
+    from mcmtt_opticalflow_tpu_torch.parallel import solver_parallel
+    from mcmtt_opticalflow_tpu_torch.parallel.multihost_sim import run_solve
+    from mcmtt_opticalflow_tpu_torch.parallel.solver_parallel import (
+        _solve_mwcp_sharded_eager, solve_mwcp_sharded)
+    mesh, ins, scfg, iters, key = sharded_instance(devices)
+    reset_solver_launches()
+    s = run_solve(mesh, bench=True, reps=1)
+    launches = solver_launches()
+    got = solve_mwcp_sharded(*ins, key, mesh, scfg, iters)
+    want = _solve_mwcp_sharded_eager(*ins, key, mesh, scfg, iters)
+    same = all(map(_bits_equal, got, want))
+    progs = sharded_programs(mesh, ins, scfg, iters)
+
+    def captured():
+        solve_mwcp_sharded(*ins, key, mesh, scfg, iters)
+
+    def eager():
+        _solve_mwcp_sharded_eager(*ins, key, mesh, scfg, iters)
+
+    def replay():
+        for p in progs:
+            p.draw()
+            p.head()
+            for _ in range(p.blocks):
+                p.block()
+            if p.rest is not None:
+                p.rest()
+            p.tail()
+    ms = {name: [round(float(np.median([x[i] for x in [
+        _timed_ms(fn) for _ in range(5)]])), 3) for i in (0, 1)]
+        for name, fn in (("captured", captured), ("eager", eager))}
+    replay_ms = device_us(replay, reps=5) / 1e3
+    log(f"{tag}: solve_mwcp_sharded V=1024 (700 valid) R=38 {iters} "
+        f"iterations over {mesh}, as captured block programs (parts "
+        f"{[len(p.parts()) for p in progs]}, {progs[0].blocks} "
+        f"{solver_parallel.BLOCK}-iteration block replays each): best "
+        f"{s['best_score']:.4f}, a clique of {len(s['best_mask'])}: "
+        f"{s['clique']}; == the per-block solve_mwcp calls + argmax: "
+        f"{s['equals_per_block']}; == the eager per-block form bit for "
+        f"bit (best mask and score, every replica's mask and score): "
+        f"{same}; capture s {[round(p.capture_s, 3) for p in progs]}; "
+        f"graph pools {pool_mib(*solver_parallel.graph_pools()):.1f} MiB; "
+        f"dispatch [host ms, wall ms] {json.dumps(ms)}; one replay of "
+        f"every block's parts {replay_ms:.4f} device ms; solver wrapper "
+        f"launches {launches} (the captures' calls and run_solve's eager "
+        f"references) ({card})")
+    if not (s["equals_per_block"] and s["clique"] and same):
+        fail(f"{tag}: solve_mwcp_sharded differs from its per-block "
+             f"solves")
+    return {"dispatch_ms": ms, "replay_device_ms": replay_ms,
+            "capture_s": [p.capture_s for p in progs]}
 
 
 def phase_mesh_counted(cfg, sc, frames, mesh_results):
@@ -3145,8 +3331,11 @@ def phase_mesh_counted(cfg, sc, frames, mesh_results):
     CUPTI counter (after every timed phase): the card runs 8 LK and 1 JV
     kernels a 2D replay and in each group's capture warm-up, and the
     solver's kernels as the captured 3D programs' parts prescribe
-    (solver_runs_expected); the ids equal phase_mesh's.  Returns the
-    kernel runs (LK, JV, solver)."""
+    (solver_runs_expected); the ids equal phase_mesh's.  Then one call of
+    the sharded solve's block programs that phase_mesh made, counted the
+    same way: per block a draw, a greedy start, a clique weight and 3 BLS
+    kernels at 150 iterations (program_runs).  Returns the kernel runs
+    (LK, JV, solver, the sharded solve's solver)."""
     import torch
     from mcmtt_opticalflow_tpu_torch.models.pipeline import TrackingEngine
     from mcmtt_opticalflow_tpu_torch.parallel import make_mesh
@@ -3174,7 +3363,40 @@ def phase_mesh_counted(cfg, sc, frames, mesh_results):
     if [(r.frame_idx, r.ids) for r in rb] != \
             [(r.frame_idx, r.ids) for r in mesh_results]:
         fail("mesh, counted: the ids differ from the mesh phase's run")
-    return runs[0], runs[2], s_runs
+    return runs[0], runs[2], s_runs, phase_sharded_counted()
+
+
+def phase_sharded_counted():
+    """One call of the sharded solve's block programs that phase_sharded
+    made on [cuda:0] * 2, under the CUPTI counter: the solver's kernels
+    the card runs equal those the programs' replays prescribe
+    (program_runs), per block a draw, a greedy start, a clique weight and
+    one BLS kernel a block of iterations.  Returns the runs (greedy
+    start, BLS, clique weight, field draw)."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.parallel.solver_parallel import \
+        solve_mwcp_sharded
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
+    mesh, ins, scfg, iters, key = sharded_instance(
+        [torch.device("cuda", 0)] * 2)
+    progs = sharded_programs(mesh, ins, scfg, iters)
+    before, _ = program_runs(progs)
+    with KernelEvents() as ev:
+        solve_mwcp_sharded(*ins, key, mesh, scfg, iters)
+        torch.cuda.synchronize()
+    sharded = solver_kernel_runs(ev)
+    after, _ = program_runs(progs)
+    want = tuple(a - b for a, b in zip(after, before))
+    per_block = (1, progs[0].blocks + (progs[0].rest is not None), 1, 1)
+    log(f"mesh, counted: solve_mwcp_sharded's captured block programs, "
+        f"one call: solver kernels on the card (CUPTI) (greedy start, BLS, "
+        f"clique weights, field draw) {sharded} (expected {want} from the "
+        f"programs' replays: per block {per_block}, {len(progs)} blocks); "
+        f"{ev.total} kernels in all")
+    if sharded != want or want != tuple(len(progs) * n for n in per_block):
+        fail(f"mesh, counted: the sharded solve ran the solver kernels "
+             f"{sharded} times, expected {want}")
+    return sharded
 
 
 def phase_multiprocess(mesh_results, mesh_wall, mesh_heads, card):
@@ -3262,8 +3484,10 @@ def phase_multiprocess(mesh_results, mesh_wall, mesh_heads, card):
             f"median {1e3 * coll:.3f} ms a frame in {n_coll:g} "
             f"collectives; solve best "
             f"{solver['best_score']:.4f}, equals its per-block solves: "
-            f"{solver['equals_per_block']}, {solver['mesh_s']:.3f} s "
-            f"sharded against {solver['one_s']:.3f} s for one block")
+            f"{solver['equals_per_block']} (captured: "
+            f"{solver['block_programs']} block programs), "
+            f"{solver['mesh_s']:.3f} s sharded against "
+            f"{solver['one_s']:.3f} s for one block")
         if d_pts > 1.0:
             fail(f"multiprocess: points differ by {d_pts} mm (limit 1.0)")
         if rep["2d"] != [MESH_FRAMES] * 2 or rep["head"] != mesh_heads or \
@@ -3286,6 +3510,10 @@ def phase_multiprocess(mesh_results, mesh_wall, mesh_heads, card):
             fail(f"multiprocess: process {pid}'s wrappers launched the LK "
                  f"kernel {eng['lk_launches']} and the JV kernel "
                  f"{eng['jv_launches']} times, expected 32 and 4")
+        if solver["block_programs"] != len(solver["blocks_here"]):
+            fail(f"multiprocess: process {pid} made "
+                 f"{solver['block_programs']} block programs for its "
+                 f"blocks {solver['blocks_here']}")
         if not (solver["equals_per_block"] and solver["clique"]
                 and res["fetch_ok"]):
             fail(f"multiprocess: process {pid}'s solve or fetch failed its "
@@ -4064,8 +4292,9 @@ def main():
     paths["main"], _, jv_paths["main"] = main_counts["runs"]
     solver_paths["main"] = main_counts["solver_runs"]
     phase_eager_counted(card)
-    paths["mesh"], jv_paths["mesh"], solver_paths["mesh"] = \
-        phase_mesh_counted(cfg, sc, frames, mesh_results)
+    paths["mesh"], jv_paths["mesh"], solver_paths["mesh"], \
+        solver_paths["sharded_solve"] = phase_mesh_counted(
+            cfg, sc, frames, mesh_results)
     # each process replays the 3D program's home parts whole, as the
     # one-process mesh run does
     if mp_solver_one != solver_paths["mesh"]:

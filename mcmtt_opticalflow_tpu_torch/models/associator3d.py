@@ -57,7 +57,7 @@ from mcmtt_opticalflow_tpu_torch.parallel.mesh import (Shards,
                                                        join)
 from mcmtt_opticalflow_tpu_torch.utils import prng
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
-from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed, device_pool
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 from mcmtt_opticalflow_tpu_torch.utils.fetch import DeviceFetch
 
@@ -2917,12 +2917,7 @@ class Associator3D:
     def _graph_pool(self, device):
         """The memory pool that every bucket's graphs on a CUDA `device`
         share (None elsewhere)."""
-        device = torch.device(device)
-        if device.type != "cuda":
-            return None
-        if device not in self._graph_pools:
-            self._graph_pools[device] = torch.cuda.graph_pool_handle()
-        return self._graph_pools[device]
+        return device_pool(self._graph_pools, device)
 
     def precompile(self, pairs=((256, 1024), (512, 512), (512, 1024))):
         """Capture the fused program ahead of the measured frames at the

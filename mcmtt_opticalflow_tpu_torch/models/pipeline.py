@@ -41,7 +41,7 @@ from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
                                                        cam_sharding,
                                                        shard_leaves)
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
-from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed
+from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed, device_pool
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
 
@@ -189,15 +189,12 @@ class TrackingEngine:
         self.cams = stack_cameras(cameras, self.device)
         devices = ([self.device] if mesh is None
                    else self._cam_split.devices)
-        pools = {}
-        for dev in devices:
-            if dev.type == "cuda" and dev not in pools:
-                pools[dev] = torch.cuda.graph_pool_handle()
         # one 2D program per camera group of this process (None for the
-        # groups of other processes)
+        # groups of other processes), one graph pool a card
+        pools = {}
         self._progs2d = [
-            None if cams is None else Tracker2DProgram(cfg, cams, dev,
-                                                       pools.get(dev))
+            None if cams is None else Tracker2DProgram(
+                cfg, cams, dev, device_pool(pools, dev))
             for cams, dev in zip(self._split(self.cams), devices)]
         self.assoc = Associator3D(cfg, cameras, sidemaps=sidemaps,
                                   mesh=mesh, deferred_solve=pipelined,

@@ -11,8 +11,8 @@ launches the kernel, on the current stream with no host read (the key is
 read on the device, so a CUDA graph captures the draw), or raises.  With
 `out`, five float32 tensors of those shapes on the key's device, the
 fields are written into them in place.  `threefry_fields.launches` counts
-kernel launches; `field_work` gives the bytes and operations behind the
-kernel's bound.  models/mwcp.py::threefry_fields is the solver's entry.
+kernel launches; `field_work` gives the bytes and instructions behind
+the kernel's bound.  models/mwcp.py::threefry_fields is the solver's entry.
 """
 
 from __future__ import annotations
@@ -22,20 +22,33 @@ import math
 
 import torch
 
-from mcmtt_opticalflow_tpu_torch.ops.mwcp_kernel import _bound
+from mcmtt_opticalflow_tpu_torch.ops.mwcp_kernel import HBM_BYTES_PER_S
 from mcmtt_opticalflow_tpu_torch.ops.nvcc_build import build_library
 from mcmtt_opticalflow_tpu_torch.utils import prng
 
 FIELDS = ("noise", "u_dir", "g_dir", "u_ten", "g_rnd")
-# operations a number (csrc/threefry_fields.cu): a threefry2x32 hash is
-# 2 + 20 x 3 (add, rotate, xor) + 5 x 2 key injections; a uniform adds the
-# words' xor, the float's shift, or and subtraction, and its multiply, add
-# and max; a gumbel two logs (~15 operations each: libdevice's logf) and
-# two negations
-HASH_OPS = 72
-UNIFORM_OPS = HASH_OPS + 7
-LOG_OPS = 15
-GUMBEL_OPS = UNIFORM_OPS + 2 * LOG_OPS + 2
+# Instructions a number of the built kernel (sm_90a, nvcc 12.8, the
+# repo's NVCC_FLAGS), counted in its SASS (`cuobjdump -sass` on the
+# library in _build/) by chip_smoke.py's threefry phase, which recounts
+# them on the card and fails when they differ: a draw loop's body on its
+# 16-byte-store path over the 4 numbers it draws, the mean of the two
+# loops of a kind.  A threefry2x32 hash is ~60 of them (20 rounds of add,
+# rotate, xor); libdevice's logf is a polynomial with no MUFU.  *_ALU:
+# those that issue to the integer ALU pipe (IADD3, LOP3, SHF, ISETP, LEA,
+# VIADD, I2FP; IMAD issues to the FMA pipe).  The noise rows are counted
+# as uniforms.
+GUMBEL_INSTRUCTIONS = 130.375
+GUMBEL_ALU_INSTRUCTIONS = 63.25
+UNIFORM_INSTRUCTIONS = 79.125
+UNIFORM_ALU_INSTRUCTIONS = 49.25
+# The card: an H100 SXM's SMs and maximum SM clock (nvidia-smi
+# --query-gpu=clocks.max.sm: 1980 MHz); an SM issues at most 4
+# warp-instructions a clock (one per scheduler), and 32-bit integer ALU
+# ones at half that (16 lanes a scheduler).
+SMS = 132
+SM_CLOCK_HZ = 1.98e9
+WARP_INSTRUCTIONS_PER_CLOCK = 4
+ALU_PER_CLOCK = 2
 
 
 def field_shapes(r: int, v: int, iters_pad: int):
@@ -59,17 +72,31 @@ def threefry_fields_reference(key: torch.Tensor, r: int, v: int,
 
 
 def field_work(r: int, v: int, iters_pad: int) -> dict:
-    """The bytes and operations one draw needs: every number written once
-    (4 B), no input but the key (16 B); a hash for each of the r + 5
-    keys, UNIFORM_OPS a uniform and GUMBEL_OPS a gumbel.  Returns
-    {"numbers", "bytes", "ops", "bound_s", "bound_by"}."""
+    """The bytes and instructions one draw needs, and the least time they
+    take on the card.  Bytes: every number written once (4 B), no input
+    but the key (16 B).  Instructions: the built kernel's a number
+    (GUMBEL_* and UNIFORM_* above), issued by a warp for 32 numbers at a
+    time: at most WARP_INSTRUCTIONS_PER_CLOCK a clock on each of SMS SMs
+    at SM_CLOCK_HZ, the integer ALU ones at ALU_PER_CLOCK.  The
+    bound is the largest of the three times.  Returns {"numbers",
+    "bytes", "instructions", "alu_instructions", "bytes_s", "issue_s",
+    "alu_s", "bound_s", "bound_by"}."""
     uniforms = r * v + 2 * iters_pad * r
     gumbels = 2 * iters_pad * r * v
     numbers = uniforms + gumbels
     nbytes = 4 * numbers + 16
-    ops = HASH_OPS * (r + 5) + UNIFORM_OPS * uniforms + GUMBEL_OPS * gumbels
-    return {"numbers": numbers, "bytes": nbytes, "ops": ops,
-            **_bound(nbytes, ops)}
+    instr = GUMBEL_INSTRUCTIONS * gumbels + UNIFORM_INSTRUCTIONS * uniforms
+    alu = (GUMBEL_ALU_INSTRUCTIONS * gumbels
+           + UNIFORM_ALU_INSTRUCTIONS * uniforms)
+    warp_clocks = SMS * SM_CLOCK_HZ * 32
+    times = {"bytes_s": nbytes / HBM_BYTES_PER_S,
+             "issue_s": instr / (WARP_INSTRUCTIONS_PER_CLOCK * warp_clocks),
+             "alu_s": alu / (ALU_PER_CLOCK * warp_clocks)}
+    bound = max(times.values())
+    return {"numbers": numbers, "bytes": nbytes, "instructions": instr,
+            "alu_instructions": alu, **times, "bound_s": bound,
+            "bound_by": "bytes" if bound == times["bytes_s"]
+            else "operations"}
 
 
 def build() -> ctypes.CDLL:

@@ -168,12 +168,15 @@ def _digest(t: torch.Tensor) -> str:
 
 
 def run_solve(mesh, bench: bool, reps: int = REPS) -> dict:
-    """The sharded solve on `mesh`, checked against the per-block solves
-    made here, and its time against one solve_mwcp call (means over
-    `reps` calls after the first)."""
+    """The sharded solve on `mesh` (its captured per-block programs,
+    made at the first call), checked against the per-block solves made
+    here, and its time against one solve_mwcp call (means over `reps`
+    calls after the first).  `block_programs` counts the programs of
+    this instance that ran here: one a block of this process."""
     from mcmtt_opticalflow_tpu_torch.models.mwcp import solve_mwcp
     from mcmtt_opticalflow_tpu_torch.parallel import (block_sharding,
-                                                      solve_mwcp_sharded)
+                                                      solve_mwcp_sharded,
+                                                      solver_parallel)
     from mcmtt_opticalflow_tpu_torch.utils import prng
     weights, adj, valid, init, scfg, iters = _solve_instance(bench)
     home = mesh.home
@@ -187,7 +190,9 @@ def run_solve(mesh, bench: bool, reps: int = REPS) -> dict:
         _sync(home)
         return out
 
+    made = set(solver_parallel.programs)
     got = sharded()
+    made = len(set(solver_parallel.programs) - made)
     blocks = [solve_mwcp(*ins, k, scfg, iters)
               for k in prng.split(key, nblock)]
     best = torch.stack([r.best_score.max() for r in blocks])
@@ -213,7 +218,7 @@ def run_solve(mesh, bench: bool, reps: int = REPS) -> dict:
             "best_mask": members.tolist(),
             "all_masks_sha256": _digest(got[2]),
             "all_scores_sha256": _digest(got[3]), "clique": clique,
-            "equals_per_block": same,
+            "equals_per_block": same, "block_programs": made,
             "blocks_here": [b for b, ok in
                             enumerate(block_sharding(mesh).local) if ok],
             "mesh_s": mesh_s, "one_s": one_s}

@@ -40,6 +40,18 @@ def _capture_stream() -> torch.cuda.Stream:
     return _capture_streams[index]
 
 
+def device_pool(pools: dict, device):
+    """The graph pool of a CUDA `device` in `pools` (a dict by device,
+    the pools of one owner's programs), made when first asked for; None
+    for any other device."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return None
+    if device not in pools:
+        pools[device] = torch.cuda.graph_pool_handle()
+    return pools[device]
+
+
 class Graphed:
     """`fn` captured as a CUDA graph on a CUDA `device` (into `pool`, a
     `torch.cuda.graph_pool_handle()` that the graphs of one program

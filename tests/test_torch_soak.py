@@ -7,7 +7,10 @@ on the port: mcmtt_opticalflow_tpu_torch/soak.py.
   8 people on the CPU, give the same population numbers and checks (at
   this length buffers are sampled once, at frame 0, so buf_mb_q2_med is
   NaN in both and buffers_flat False: what the script does at 40
-  frames);
+  frames), both on one scripted clock (`ScriptedClock`, patched in for
+  each soak module's `time`) that gives every frame the same time, so
+  that fps_stable, a wall-clock rule, is True in both runs whatever the
+  host's load;
 - fast: off the card the summary has the JAX script's keys and checks
   and no device keys;
 - fast: the card's three checks (device_state) on made-up samples: flat
@@ -54,13 +57,40 @@ def _port_soak(num_frames, num_people):
                         verbose=False, device="cpu")
 
 
+class ScriptedClock:
+    """A stand-in for the soak modules' `time`: every perf_counter call
+    advances by STEP_S, so each frame the soak times (one call before
+    process_frame, one after) takes exactly STEP_S in either run, however
+    loaded the host is.  fps_stable then compares equal medians and is
+    True in both runs."""
+
+    STEP_S = 0.025
+
+    def __init__(self):
+        self.calls = 0
+
+    def perf_counter(self):
+        self.calls += 1
+        return self.calls * self.STEP_S
+
+
 @pytest.fixture(scope="module")
 def short_soaks():
+    """Both 40-frame soaks on the scripted clock.  fps_stable is a
+    wall-clock rule (last 50 frames' median within 1.2x the middle 50's);
+    at 40 frames it compares medians of ~13-24 frame times, which on a
+    shared host differ at random from run to run."""
     from soak import run_soak
+    import soak as jax_soak
+    from mcmtt_opticalflow_tpu_torch import soak as port_soak
     with pytest.MonkeyPatch.context() as mp:
         mp.delenv("MCMTT_LK_BACKEND", raising=False)
+        mp.setattr(jax_soak, "time", ScriptedClock())
         jax_out = run_soak(num_frames=40, num_people=8, verbose=False)
-    return jax_out, _port_soak(40, 8)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(port_soak, "time", ScriptedClock())
+        port_out = _port_soak(40, 8)
+    return jax_out, port_out
 
 
 def _same(a, b):
@@ -74,6 +104,12 @@ def test_short_soak_equals_the_jax_script(short_soaks):
         assert _same(port_out[key], jax_out[key]), (key, port_out[key],
                                                     jax_out[key])
     assert port_out["checks"] == jax_out["checks"]
+    # the scripted clock gives every frame the same time in both runs
+    assert jax_out["checks"]["fps_stable"] is True
+    assert port_out["checks"]["fps_stable"] is True
+    ms = 1e3 * ScriptedClock.STEP_S
+    for out in (jax_out, port_out):
+        assert out["frame_ms_mid50_med"] == out["frame_ms_last50_med"] == ms
     assert math.isnan(port_out["buf_mb_q2_med"])
     assert port_out["live_peak"] > 0
 

@@ -164,12 +164,28 @@ def test_empty_draws():
 
 def test_field_work_hand_count():
     work = tk.field_work(2, 3, 4)
-    # uniforms: noise 2 x 3, u_dir and u_ten 4 x 2 each; gumbels 2 x 4x2x3
+    # uniforms: noise 2 x 3, u_dir and u_ten 4 x 2 each; gumbels 2 x 4x2x3;
+    # the built kernel's SASS: 130.375 (63.25 ALU) instructions a gumbel,
+    # 79.125 (49.25) a uniform
     assert work["numbers"] == 22 + 48
     assert work["bytes"] == 4 * 70 + 16
-    assert work["ops"] == 72 * (2 + 5) + 79 * 22 + 111 * 48
+    assert work["instructions"] == 130.375 * 48 + 79.125 * 22
+    assert work["alu_instructions"] == 63.25 * 48 + 49.25 * 22
+    warp_clocks = 132 * 1.98e9 * 32
+    assert work["issue_s"] == pytest.approx(
+        (130.375 * 48 + 79.125 * 22) / (4 * warp_clocks))
+    assert work["alu_s"] == pytest.approx(
+        (63.25 * 48 + 49.25 * 22) / (2 * warp_clocks))
+    assert work["bytes_s"] == pytest.approx(296 / 3.35e12)
+    # mostly uniforms: the integer ALU pipe bounds it
     assert work["bound_by"] == "operations"
-    assert work["bound_s"] == pytest.approx(work["ops"] / 67e12)
+    assert work["bound_s"] == work["alu_s"] > work["issue_s"]
+    # the bench's draw [38, 1024, 150] is issue-bound: 45.61 us
+    bench = tk.field_work(38, 1024, 150)
+    assert bench["bound_by"] == "operations"
+    assert bench["bound_s"] == bench["issue_s"] > bench["alu_s"] > \
+        bench["bytes_s"]
+    assert bench["bound_s"] == pytest.approx(45.61e-6, rel=1e-3)
 
 
 @pytest.mark.cuda
