@@ -4,8 +4,8 @@
     python3 chip_smoke.py
 
 Phases (each prints its own lines; any failure exits non-zero), run in
-the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 12, 13, 9, 3,
-3g, 8 counted, 10 counted, 13 counted:
+the order 1, 2, 3d, 3e, 10 eager, 3f, 3c, 3b, 4-8b, 10, 11, 12, 13, 14, 9,
+3, 3g, 8 counted, 10 counted, 13 counted, 14 counted:
 every timed phase comes before the first CUPTI session (phase 3's kernel
 count), which slows graph launches for the rest of the process:
   1. device: the card's name and power limit (nvidia-smi), then the LK
@@ -304,8 +304,36 @@ count), which slows graph launches for the rest of the process:
      runs equal those derived from the wrappers and the replays
      (_derived_runs) in that run and in phase 13's, and the ids (the
      soak's population numbers) equal phase 13's.
+  14. lab: the JAX package's lab tools (scripts/density_lab.py,
+     tracklet_audit.py, microbench2d.py) through the port's modules on
+     the card at their defaults, after phase 13, before any CUPTI
+     session.  The density lab's full pipeline (35 frames, 22 people,
+     V=512, 8 + 30 replicas, 64 features a box: LK at N = 12288 and
+     16384, the 2D step and the 3D buckets as captured graphs): each
+     window's MOTA within MOTA_BOUND of the CPU record's `plain` and
+     `jax_pallas` runs (lab_reference.json), tracks_peak and
+     pool_dropped beside it, frames/s, stage medians; again under
+     cProfile (the top 10 cumulative entries, the record equal) and on
+     the eager 2D route (the record equal, every kernel against its
+     plain version on the run's own inputs: the last two frames' LK
+     calls, every assignment, every fourth solve; the LK kernel's
+     device-only µs a launch per N beside its bound).  --assoc-only:
+     each window's MOTA within MOTA_BOUND of the record's `jax` run, its
+     solves checked.  The tracklet audit: gt_person_frames and
+     det_coverage equal to `plain`, the tracklet numbers within
+     AUDIT_LIMITS.  microbench2d's times (kernel and gather routes,
+     grid features, assignment), its kernel route's LK calls (N = 8192,
+     16384, on uniform noise) against the plain version at phase 2's
+     limits, but for freeze flips: a slot beyond them passes when, run
+     in lockstep, the versions part at an iteration where one takes no
+     step after a step of 0.03 px (the freeze threshold) within 1e-4 in
+     both, and fails otherwise (the flips' count and size printed and
+     kept in `microbench2d_freeze_flips`).  14 counted runs the three tools
+     again under the CUPTI counter at the end: kernel runs equal those
+     derived, records equal phase 14's (`launches_by_path` lab_full,
+     lab_assoc_only, tracklet_audit).
 
-The whole script takes about 5 minutes on the card.  The line before the
+The whole script takes about 6 minutes on the card.  The line before the
 last is a JSON summary of the kernels.  The LK kernels, on the inputs of
 phase 3b: per bench frame (8 launches) `ms` (device-only), `plain_ms`,
 `bound_ms`;
@@ -319,9 +347,13 @@ CUPTI; profile: trace events; multiprocess: CUPTI inside each process),
 the wrapper's count for the eager ones;
 `wrapper_launches` and `graph_replays_2d`, measured beside the card's
 counts on the graphed paths; `soak`, `quality_sparse` and
-`quality_density` are phase 13's paths, counted by CUPTI in 13 counted.
-Every kernel's `max_abs_err` also covers phase 13's checks on those
-paths' inputs.  The JV kernel, on phase 3f's recorded
+`quality_density` are phase 13's paths, counted by CUPTI in 13 counted,
+and `lab_full`, `lab_assoc_only` and `tracklet_audit` phase 14's, counted
+in 14 counted; the LK line's `lab_by_n` holds its device-only µs a launch
+and bound per N on the lab's inputs, `microbench2d_ms` that tool's
+(median, min) ms per line.
+Every kernel's `max_abs_err` also covers phase 13's and 14's checks on
+those paths' inputs.  The JV kernel, on phase 3f's recorded
 frames, per bench frame (1 launch): the same keys, with `serial_steps`
 and `device_ns_per_step` (`_cli` on the CLI's frames,
 `_past_old_limit` by shape).
@@ -3898,6 +3930,409 @@ def phase_quality_counted(card, derived, ids):
     return counted
 
 
+# phase 14: the live lab tools (density_lab.py, tracklet_audit.py,
+# microbench2d.py) at their defaults
+LAB_RECORDED = 2            # the lab's last frames whose LK calls it records
+LAB_PROFILE_TOP = 10
+# the tracklet audit's numbers against the CPU record's `plain` run: the
+# host numbers exactly; the tracklets' within these limits ("abs": an
+# absolute difference, "rel": relative to the record).  The first card
+# runs equal `plain` on every number.  The limits leave room for the LK
+# kernel's float32 sums, which part from the plain version's by ~2e-4 px
+# and can flip a feature's freeze test or a gate, and so a tracklet: the
+# JAX script on its gather LK, another LK arithmetic altogether, moves
+# num_tracklets by 5 of 1317 (0.4%) and tracklet_len_mean by 0.01 (0.5%)
+# from `plain`, coverage and purity not at all; each limit is about
+# twice that
+AUDIT_EXACT = ("gt_person_frames", "det_coverage")
+AUDIT_LIMITS = {"tracklet_coverage": ("abs", 0.003),
+                "tracklet_purity_mean": ("abs", 0.003),
+                "tracklet_len_mean": ("rel", 0.01),
+                "num_tracklets": ("rel", 0.01)}
+LAB_PATHS = ("lab_full", "lab_assoc_only", "tracklet_audit")
+
+
+def _lab_record(run):
+    """A lab run's JSON line without its wall time."""
+    return {k: v for k, v in run.record.items() if k != "elapsed_s"}
+
+
+def _lab_mota(label, rec, ref, held, card):
+    """The card's MOTA, ids and recall per window and its population
+    counters beside each CPU record entry; fails when a window's MOTA
+    leaves an entry in `held` by more than MOTA_BOUND."""
+    from mcmtt_opticalflow_tpu_torch.density_lab import WINDOWS
+    for name, r in ref.items():
+        log(f"{label}: card " + " ".join(
+            f"w{w} MOTA {rec[f'mota_w{w}']} ids {rec[f'ids_w{w}']} recall "
+            f"{rec[f'recall_w{w}']}" for w in WINDOWS)
+            + f" | {name} " + " ".join(
+            f"w{w} MOTA {r[f'mota_w{w}']} ids {r[f'ids_w{w}']} recall "
+            f"{r[f'recall_w{w}']}" for w in WINDOWS)
+            + f"; tracks_peak {rec['tracks_peak']} ({name} "
+            f"{r['tracks_peak']}), pool_dropped {rec['pool_dropped']} "
+            f"({name} {r['pool_dropped']}) ({card})")
+    for name in held:
+        gap = max(abs(rec[f"mota_w{w}"] - ref[name][f"mota_w{w}"])
+                  for w in WINDOWS)
+        log(f"{label}: max |card - {name}| MOTA {gap:.4f} (bound "
+            f"{MOTA_BOUND})")
+        if gap > MOTA_BOUND:
+            fail(f"{label}: the card's MOTA leaves the CPU record's "
+                 f"{name} run by {gap:.4f} (bound {MOTA_BOUND})")
+
+
+def _lab_speed(label, run, card):
+    """Frames/s and stage medians of a lab run."""
+    import numpy as np
+    from mcmtt_opticalflow_tpu_torch.bench import stage_medians
+    steady = run.frame_s[len(run.frame_s) // 2:]
+    log(f"{label}: {len(run.frame_s)} frames, loop {run.elapsed_s:.2f} s "
+        f"(frames rendered or synthesized in it, as the JAX script's); "
+        f"{len(run.frame_s) / sum(run.frame_s):.3f} frames/s over every "
+        f"frame's step, {1.0 / float(np.median(steady)):.3f} frames/s "
+        f"from the median step of the second half; per-frame s "
+        f"{[round(x, 4) for x in run.frame_s]} ({card})")
+    log(f"{label}: stage medians ms "
+        f"{json.dumps(stage_medians(run.engine.assoc.timer))}")
+
+
+def _lk_lab_times(calls, label, card):
+    """The LK kernel's device-only µs a launch (as phase 3b times it) on
+    recorded calls, beside the bound of lk_level_work at each call's
+    shape, per N.  Returns {N: {"device_us", "bound_us", "bound_by",
+    "launches"}} averaged over the calls of that N."""
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    by_n = {}
+    for args, kw in calls:
+        if not bool(args[5].any()):
+            continue
+        dev = device_us(prepared_launch(args, kw, "batched"))
+        work = lk_kernel.lk_level_work(*args, **kw)
+        t_bytes = 1e6 * work["bytes"] / HBM_BYTES_PER_S
+        t_ops = 1e6 * work["flops"] / FP32_FLOPS_PER_S
+        e = by_n.setdefault(args[3].shape[0], dict(
+            device_us=0.0, bound_us=0.0, t_bytes=0.0, t_ops=0.0,
+            launches=0, active=0, shape=list(args[0].shape)))
+        for k, v in (("device_us", dev), ("bound_us", max(t_bytes, t_ops)),
+                     ("t_bytes", t_bytes), ("t_ops", t_ops),
+                     ("active", int(args[5].sum()))):
+            e[k] += v
+        e["launches"] += 1
+    out = {}
+    for n, e in sorted(by_n.items()):
+        k = e["launches"]
+        out[n] = {"device_us": e["device_us"] / k,
+                  "bound_us": e["bound_us"] / k,
+                  "bound_by": ("bytes" if e["t_bytes"] >= e["t_ops"]
+                               else "operations"), "launches": k}
+        log(f"{label}: lk_level kernel N={n} (level [C, H, W] "
+            f"{e['shape']}..., {e['active'] / k:.0f} active on average) "
+            f"over {k} recorded launches: device-only "
+            f"{out[n]['device_us']:.3f} us/launch, bound "
+            f"{out[n]['bound_us']:.4f} us ({out[n]['bound_by']}), roofline "
+            f"share {out[n]['bound_us'] / out[n]['device_us']:.4f} ({card})")
+    return out
+
+
+def _audit_check(rec, ref, card):
+    """The tracklet audit's numbers against the CPU record: AUDIT_EXACT
+    equal to `plain`, AUDIT_LIMITS within their limits."""
+    for name, r in ref.items():
+        log(f"lab audit: card {json.dumps(rec)} | {name} "
+            f"{json.dumps({k: r[k] for k in rec})} ({card})")
+    plain = ref["plain"]
+    for k in AUDIT_EXACT:
+        if rec[k] != plain[k]:
+            fail(f"lab audit: {k} {rec[k]} on the card, {plain[k]} in the "
+                 f"CPU record (a host number: must be equal)")
+    for k, (kind, limit) in AUDIT_LIMITS.items():
+        d = abs(rec[k] - plain[k])
+        if kind == "rel":
+            d /= abs(plain[k])
+        log(f"lab audit: {k} card {rec[k]} plain {plain[k]}: {kind} "
+            f"difference {d:.4f} (limit {limit})")
+        if d > limit:
+            fail(f"lab audit: {k} leaves the CPU record by {d:.4f} {kind} "
+                 f"(limit {limit})")
+
+
+# a feature freezes once its Newton step |ux| + |uy| <= LK_FREEZE
+# (ops/lk_kernel.py); a step whose size lies within FREEZE_TOL px of it
+# may freeze in one version and not in the other (their sums' rounding)
+LK_FREEZE = 0.03
+FREEZE_TOL = 1e-4
+
+
+def _lk_lockstep(args, kw, slots):
+    """Both versions on one call stopped after 0..iters iterations: the
+    [iters + 1, len(slots), 2] estimates of `slots` of each (kernel,
+    plain); row 0 is the guess."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    tk, tp = [args[4][slots]], [args[4][slots]]
+    for k in range(1, kw["iters"] + 1):
+        kk = dict(kw, iters=k)
+        tk.append(lk_kernel.lk_level(*args, **kk)[0][slots])
+        tp.append(lk_kernel.lk_level_reference(*args, **kk)[0][slots])
+    return torch.stack(tk), torch.stack(tp)
+
+
+def compare_or_freeze_flips(args, kw, label):
+    """compare()'s check, but a slot valid in both and beyond its limits
+    passes when it is a freeze flip: run in lockstep (_lk_lockstep), the
+    two estimates agree within 1e-3 px until an iteration k at which one
+    version takes no step and the other does, and the step before it was
+    LK_FREEZE within FREEZE_TOL in both (the freeze test's operand at
+    its threshold).  Any other parting fails.  Returns (the largest
+    |d tracked| over the slots within the limits, the flips' count and
+    their largest |d tracked|)."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch.ops import lk_kernel
+    tr_k, ok_k, res_k = lk_kernel.lk_level(*args, **kw)
+    tr_r, ok_r, res_r = lk_kernel.lk_level_reference(*args, **kw)
+    agree = (ok_k == ok_r).float().mean().item()
+    both = ok_k & ok_r
+    d = (tr_k - tr_r).abs().amax(-1)
+    out = both & ((d > 1e-3) | ((res_k - res_r).abs() > 1e-4))
+    within = both & ~out
+    if agree < 0.999 or not within.any():
+        fail(f"{label}: valid-agree={agree:.6f}, {int(within.sum())} slots "
+             f"within the limits")
+    slots = out.nonzero().flatten()
+    if len(slots):
+        tk, tp = _lk_lockstep(args, kw, slots)
+        parted = (tk - tp).abs().amax(-1) > 1e-3           # [iters + 1, s]
+        for j, s in enumerate(slots.tolist()):
+            if not parted[:, j].any():
+                fail(f"{label}: slot {s} parts from the plain version in "
+                     f"its residual only (|d resid| "
+                     f"{(res_k[s] - res_r[s]).abs().item():.3e})")
+            k = int(parted[:, j].nonzero()[0])
+            steps = [(t[k - 1, j] - t[k - 2, j]).abs().sum().item()
+                     if k >= 2 else 0.0 for t in (tk, tp)]
+            now = [(t[k, j] - t[k - 1, j]).abs().sum().item()
+                   for t in (tk, tp)]
+            if k < 2 or (now[0] == 0.0) == (now[1] == 0.0) or any(
+                    abs(x - LK_FREEZE) > FREEZE_TOL for x in steps):
+                fail(f"{label}: slot {s} parts from the plain version at "
+                     f"iteration {k} without a freeze flip (steps before "
+                     f"{steps}, at it {now} (kernel, plain))")
+    flips = d[slots].max().item() if len(slots) else 0.0
+    d_in = d[within].max().item()
+    log(f"{label}: valid-agree={agree:.6f} valid={int(ok_k.sum())} "
+        f"max|dtracked|={d_in:.3e} px max|dresid|="
+        f"{(res_k - res_r)[within].abs().max().item():.3e} on the slots "
+        f"within the limits; {len(slots)} freeze flips (a step of "
+        f"{LK_FREEZE} +- {FREEZE_TOL} px froze one version only), "
+        f"|d tracked| up to {flips:.3e} px")
+    return d_in, len(slots), flips
+
+
+def _microbench(card):
+    """microbench2d on the card (its lines printed), then each LK level
+    call of its kernel route, recorded, against the plain version
+    (compare_or_freeze_flips: its frames are uniform noise, on which
+    many Newton steps end near the freeze threshold).  Returns the
+    largest |d tracked| outside the flips, the flips' count and largest
+    |d tracked|, and the times."""
+    import torch
+    from mcmtt_opticalflow_tpu_torch import microbench2d as mb
+    times = mb.run("cuda", out=lambda s: log(f"microbench2d: {s} ({card})"))
+    x = mb.inputs("cuda")
+    capture = LkCapture()
+    capture.install()
+    try:
+        for npts, tag in mb.LK_SHAPES:
+            mb.kernel_track(x["prev"], x["next"], x[tag],
+                            torch.ones((4, npts), dtype=torch.bool,
+                                       device="cuda"))
+    finally:
+        capture.remove()
+    if len(capture.calls) != len(mb.LK_SHAPES) * mb.LEVELS:
+        fail(f"microbench2d: {len(capture.calls)} lk_level calls recorded, "
+             f"expected {len(mb.LK_SHAPES) * mb.LEVELS}")
+    err, n_flips, flip_err = 0.0, 0, 0.0
+    for n, (a, k) in enumerate(capture.calls):
+        d, nf, df = compare_or_freeze_flips(
+            a, k, f"microbench2d lk_level call {n} N={a[3].shape[0]} "
+            f"[C, H, W] {list(a[0].shape)} ({card})")
+        err, n_flips, flip_err = max(err, d), n_flips + nf, max(flip_err, df)
+    return err, {"count": n_flips, "max_abs_err": flip_err}, times
+
+
+def phase_lab(card):
+    """14. lab: the JAX package's lab tools on the card at their
+    defaults, after phase 13 and before any CUPTI session.  The density
+    lab's full pipeline (35 frames, 22 people, V=512, 64 features a box;
+    the 2D step and the 3D buckets as captured graphs): each window's
+    MOTA within MOTA_BOUND of the CPU record's `plain` and `jax_pallas`
+    runs (lab_reference.json), tracks_peak and pool_dropped beside it,
+    frames/s, stage medians; again under cProfile (its top
+    LAB_PROFILE_TOP cumulative entries; the record equal) and on the
+    eager 2D route (_record_route: the record equal; the last
+    LAB_RECORDED frames' LK calls, every assignment, every SOLVE_EVERY-th
+    solve), every kernel against its plain version on those inputs
+    (_recorded_kernels) and the LK kernel's device-only µs per N beside
+    its bound.  --assoc-only: each window's MOTA within MOTA_BOUND of the
+    record's `jax` run, its solves recorded and checked.  The tracklet
+    audit: AUDIT_EXACT equal to `plain`, AUDIT_LIMITS held.
+    microbench2d: its times, and its kernel route's LK calls against
+    the plain version (compare_or_freeze_flips).  Returns each path's derived kernel runs, its
+    record (14 counted holds both), the largest |kernel - plain| by
+    kernel and the LK times per N."""
+    import gc
+    import io
+    import pstats
+    import tempfile
+    import torch
+    from mcmtt_opticalflow_tpu_torch import density_lab, tracklet_audit
+
+    t_phase = time.perf_counter()
+    with open(density_lab.REFERENCE) as f:
+        ref = json.load(f)
+    cfg = density_lab.lab_config()
+    runs, same, errs = {}, {}, []
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    def lab(**kw):
+        return density_lab.run_lab(device="cuda", out=io.StringIO(), **kw)
+
+    reset_launches()
+    run = lab()
+    torch.cuda.synchronize()
+    runs["lab_full"] = _derived_runs(run.engine, "lab full")
+    same["lab_full"] = _lab_record(run)
+    _lab_speed("lab full", run, card)
+    _lab_mota("lab full", run.record, ref["density_lab"],
+              ("plain", "jax_pallas"), card)
+    log(f"lab full: buckets (nr, nb, iters) "
+        f"{sorted(run.engine.assoc._programs)}; kernel runs (derived) "
+        f"LK/serial/JV {runs['lab_full'][0]}, solver {runs['lab_full'][1]}")
+    del run
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "lab.prof")
+        run = lab(profile=path)
+        buf = io.StringIO()
+        pstats.Stats(path, stream=buf).sort_stats("cumulative").print_stats(
+            LAB_PROFILE_TOP)
+    if _lab_record(run) != same["lab_full"]:
+        fail("lab full under cProfile: the record differs from the run's")
+    log(f"lab full under cProfile: {len(run.frame_s)} frames in "
+        f"{sum(run.frame_s):.2f} s; top {LAB_PROFILE_TOP} cumulative:")
+    for line in buf.getvalue().splitlines():
+        if line.strip():
+            log(f"lab profile: {line}")
+    del run
+    t2 = cfg.tracker2d
+    per_frame = t2.lk_pyramid_levels * t2.backtrack_interval
+    frames = same["lab_full"]["frames"]
+    eager, lk_calls, jv_in, solves = _record_route(
+        lab, cfg.solver, range(per_frame * (frames - LAB_RECORDED),
+                               per_frame * frames))
+    if _lab_record(eager) != same["lab_full"]:
+        fail("lab full on the eager 2D route: the record differs from the "
+             "graph route's")
+    del eager
+    errs.append(_recorded_kernels(
+        "lab full recorded (eager 2D route, record equal to the graph "
+        "route's)", card, lk_calls, jv_in, solves[::SOLVE_EVERY]))
+    lk_times = _lk_lab_times(lk_calls, "lab full", card)
+    del lk_calls, jv_in, solves
+
+    reset_launches()
+    with SolveCapture(cfg.solver) as solves:
+        run = lab(assoc_only=True)
+    torch.cuda.synchronize()
+    runs["lab_assoc_only"] = _derived_runs(run.engine, "lab assoc-only")
+    same["lab_assoc_only"] = _lab_record(run)
+    _lab_speed("lab assoc-only", run, card)
+    _lab_mota("lab assoc-only", run.record, ref["density_lab_assoc_only"],
+              ("jax",), card)
+    log(f"lab assoc-only: kernel runs (derived) solver "
+        f"{runs['lab_assoc_only'][1]}")
+    del run
+    errs.append(_recorded_kernels("lab assoc-only recorded (graph route)",
+                                  card, solves=solves.solves[::SOLVE_EVERY]))
+    del solves
+
+    reset_launches()
+    t0 = time.perf_counter()
+    rec, eng = tracklet_audit.run_audit(device="cuda")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    runs["tracklet_audit"] = _derived_runs(eng, "lab audit")
+    same["tracklet_audit"] = rec
+    del eng
+    log(f"lab audit: {wall:.2f} s (frames rendered in it); kernel runs "
+        f"(derived) LK/serial/JV {runs['tracklet_audit'][0]}")
+    _audit_check(rec, ref["tracklet_audit"], card)
+
+    mb_err, mb_flips, mb_times = _microbench(card)
+    errs.append({"lk_level": mb_err})
+    for path, (lk_jv, solver) in runs.items():
+        want_lk = path != "lab_assoc_only"
+        want_solver = path != "tracklet_audit"
+        if bool(lk_jv[0] and lk_jv[2]) != want_lk or \
+                bool(all(solver)) != want_solver:
+            fail(f"lab {path}: kernel runs LK/serial/JV {lk_jv}, solver "
+                 f"{solver}: the path did not run its kernels")
+    worst = {}
+    for e in errs:
+        for k, v in e.items():
+            worst[k] = max(worst.get(k, 0.0), v)
+    log(f"lab: phase {time.perf_counter() - t_phase:.1f} s, every kernel "
+        f"== its plain version on the lab's inputs (largest |kernel - "
+        f"plain| {json.dumps(worst)}) ({card})")
+    return runs, same, worst, {"lk": lk_times, "microbench2d": mb_times,
+                               "freeze_flips": mb_flips}
+
+
+def phase_lab_counted(card, derived, same):
+    """14 counted: the density lab (full and --assoc-only) and the
+    tracklet audit again under the CUPTI counter, after every timed
+    phase: the kernels the card ran equal the runs derived from this
+    run's wrappers and replays and phase 14's, and each record equals
+    phase 14's.  Returns the counted runs per path."""
+    import io
+    from mcmtt_opticalflow_tpu_torch import density_lab, tracklet_audit
+    from mcmtt_opticalflow_tpu_torch.utils.kernel_events import KernelEvents
+
+    def lab(**kw):
+        run = density_lab.run_lab(device="cuda", out=io.StringIO(), **kw)
+        return run.engine, _lab_record(run)
+
+    def audit():
+        rec, eng = tracklet_audit.run_audit(device="cuda")
+        return eng, rec
+
+    counted = {}
+    for path, go in (("lab_full", lab),
+                     ("lab_assoc_only", lambda: lab(assoc_only=True)),
+                     ("tracklet_audit", audit)):
+        label = f"{path.replace('_', ' ')} counted"
+        reset_launches()
+        t0 = time.perf_counter()
+        with KernelEvents() as ev:
+            eng, rec = go()
+        wall = time.perf_counter() - t0
+        got = (kernel_runs(ev), solver_kernel_runs(ev))
+        want = _derived_runs(eng, label)
+        log(f"{label}: kernels run on the card (CUPTI) LK/serial/JV "
+            f"{got[0]}, solver {got[1]} (expected {want}; phase 14's "
+            f"derived {derived[path]}); {wall:.1f} s under the counter "
+            f"({card})")
+        if got != want or got != derived[path]:
+            fail(f"{label}: the card ran {got}, expected {want}")
+        if rec != same[path]:
+            fail(f"{label}: the record differs from phase 14's ({rec} "
+                 f"against {same[path]})")
+        counted[path] = got
+        del eng
+    return counted
+
+
 def phase_profile(cfg, sc, frames):
     """profile_trace around PROFILE_FRAMES steady frames of the bench main
     path (a fresh pipelined engine, warmed up for WARMUP frames, then its
@@ -4286,6 +4721,12 @@ def main():
     for kname, summary in solver_summary.items():
         summary["max_abs_err"] = max(summary["max_abs_err"],
                                      quality_errs[kname])
+    lab_runs, lab_same, lab_errs, lab_times = phase_lab(card)
+    d_tr = max(d_tr, lab_errs["lk_level"])
+    jv["max_abs_err"] = max(jv["max_abs_err"], lab_errs["jv_assign"])
+    for kname, summary in solver_summary.items():
+        summary["max_abs_err"] = max(summary["max_abs_err"],
+                                     lab_errs[kname])
     paths["profile"], jv_paths["profile"], solver_paths["profile"] = \
         phase_profile(cfg, sc, frames)
     main_counts, _ = phase_main_path(card, graph_run)
@@ -4306,6 +4747,10 @@ def main():
     solver_paths["cli"] = cli_counts["solver_runs"]
     for path, ((lk_runs, _, jv_runs), s_runs) in phase_quality_counted(
             card, quality_runs, quality_ids).items():
+        paths[path], jv_paths[path], solver_paths[path] = (lk_runs,
+                                                           jv_runs, s_runs)
+    for path, ((lk_runs, _, jv_runs), s_runs) in phase_lab_counted(
+            card, lab_runs, lab_same).items():
         paths[path], jv_paths[path], solver_paths[path] = (lk_runs,
                                                            jv_runs, s_runs)
     torch.cuda.synchronize()
@@ -4335,7 +4780,11 @@ def main():
             "device_us_per_launch": r["device_us_per_launch"],
             "host_us_per_call": r["host_us_per_call"],
             "bound_us": r["bound_us"], "call_ms_synthetic": call,
-            "launches_by_path": by_path, **graphed.get(kname, {})})
+            "launches_by_path": by_path, **graphed.get(kname, {}),
+            **({"lab_by_n": lab_times["lk"],
+                "microbench2d_ms": lab_times["microbench2d"],
+                "microbench2d_freeze_flips": lab_times["freeze_flips"]}
+               if kname == "lk_level" else {})})
     kernels.append({
         "name": "jv_assign", "route": "cuda",
         "source": "mcmtt_opticalflow_tpu_torch/ops/csrc/jv_assign.cu",

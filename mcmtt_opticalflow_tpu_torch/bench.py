@@ -92,6 +92,14 @@ def lk_route(device) -> str:
     return "plain" if use_kernel() else "gather"
 
 
+def stage_medians(timer) -> dict:
+    """Each stage's median ms in a StageTimer, the costliest first."""
+    return {name: round(1e3 * sorted(timer.samples[name])
+                        [timer.counts[name] // 2], 2)
+            for name in sorted(timer.totals, key=lambda n: -timer.totals[n])
+            if not name.startswith("_")}
+
+
 def run_bench(frames: int = MEASURED, device=None,
               on_frame: Optional[Callable[[int], None]] = None) -> BenchRun:
     """bench.py's protocol on the port (see the module docstring).
@@ -148,12 +156,7 @@ def run_bench(frames: int = MEASURED, device=None,
                                     zip(r.ids, r.points)])
     evals = {w: accs[w].evaluate() for w in WINDOWS}
     fps = 1.0 / float(np.median(per_frame))
-    timer = eng.assoc.timer
-    stage_ms = {
-        name: round(1e3 * sorted(timer.samples[name])
-                    [timer.counts[name] // 2], 2)
-        for name in sorted(timer.totals, key=lambda n: -timer.totals[n])
-        if not name.startswith("_")}
+    stage_ms = stage_medians(eng.assoc.timer)
     record = {
         "metric": "end_to_end_frames_per_sec_4cam_768x576_22ppl_k30",
         "value": round(fps, 3),
@@ -185,13 +188,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the CUDA card (default) or the CPU")
     args = ap.parse_args(argv)
-    if args.device == "cuda":
-        from mcmtt_opticalflow_tpu_torch.utils.device import default_device
-        try:
-            args.device = default_device()
-        except RuntimeError as e:
-            raise SystemExit(f"error: {e}")
-    run = run_bench(args.frames, args.device)
+    from mcmtt_opticalflow_tpu_torch.utils.device import card_or_exit
+    run = run_bench(args.frames, card_or_exit(args.device))
     for w in WINDOWS:
         print(f"w{w}: {run.evals[w].summary()}", file=sys.stderr)
     timer = run.engine.assoc.timer

@@ -284,14 +284,9 @@ def main(argv=None) -> None:
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="run on the CUDA card (default) or the CPU")
     args = ap.parse_args(argv)
-    if args.device == "cuda":
-        from mcmtt_opticalflow_tpu_torch.utils.device import default_device
-        try:
-            args.device = default_device()
-        except RuntimeError as e:
-            raise SystemExit(f"error: {e}")
+    from mcmtt_opticalflow_tpu_torch.utils.device import card_or_exit
     out = run_soak(args.frames, args.people, verbose=not args.json,
-                   device=args.device)
+                   device=card_or_exit(args.device))
     print(json.dumps(out))
     sys.exit(0 if all(out["checks"].values()) else 1)
 

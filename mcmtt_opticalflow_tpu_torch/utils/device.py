@@ -18,3 +18,14 @@ def default_device() -> torch.device:
 def resolve_device(device=None) -> torch.device:
     """`device` as a torch.device, or the default device for None."""
     return default_device() if device is None else torch.device(device)
+
+
+def card_or_exit(device: str):
+    """A command line's `--device` choice as a device: "cuda" is the first
+    card, and without one the program exits with the error."""
+    if device != "cuda":
+        return torch.device(device)
+    try:
+        return default_device()
+    except RuntimeError as e:
+        raise SystemExit(f"error: {e}")
