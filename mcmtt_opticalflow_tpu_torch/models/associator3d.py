@@ -55,7 +55,7 @@ from mcmtt_opticalflow_tpu_torch.ops.sgsmooth import smoothing_matrix_np
 from mcmtt_opticalflow_tpu_torch.parallel.mesh import (Shards,
                                                        device_sharding, fetch,
                                                        join)
-from mcmtt_opticalflow_tpu_torch.utils import prng
+from mcmtt_opticalflow_tpu_torch.utils import prng, spans
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
 from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed, device_pool
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
@@ -168,6 +168,8 @@ class Track3DResult:
 _WIN_ROWS = (0, 1, 2, 3, 4)              # pts, raws, rmask, merr, lens
 _GRAPH_ROWS = (7, 9, 10)                 # tree_ids, pos_grid, have
 _SPLIT_ARGS = _WIN_ROWS + _GRAPH_ROWS + (11,)
+# the fused program's parts between FrameProgram's timing events
+DEVICE_PARTS = ("draw", "head", "bls", "tail")
 
 
 class FrameProgram:
@@ -304,6 +306,10 @@ class FrameProgram:
             if ip % self.BLOCK else None
         self.tail = Graphed(tail, home, pool)
         self._draw_args = (r, vmax, ip, home)
+        self._assoc = assoc
+        # CUDA events around the draw, head, BLS and tail of the last
+        # call, made only while torch.profiler records (else None)
+        self.marks = None
 
     def _split(self, i: int) -> bool:
         return isinstance(self.inputs[i], Shards)
@@ -399,6 +405,8 @@ class FrameProgram:
         if self.rows:
             self._make_joined()
             join(self._joined_rows(), self.draw.device, out=self.joined)
+        self.marks = [] if self.draw.on_card and spans.recording() else None
+        self._mark()
         if field_source is None:
             self.key.copy_(key, non_blocking=True)
             self.draw()
@@ -406,12 +414,29 @@ class FrameProgram:
             for dst, src in zip(self.fields,
                                 field_source.draw(*self._draw_args)):
                 dst.copy_(src)
+        self._mark()
         pack_a, _ = self.head()
+        self._mark()
         for _ in range(self.blocks):
             self.block()
         if self.rest is not None:
             self.rest()
-        return pack_a, self.tail()
+        self._mark()
+        pack_b = self.tail()
+        self._mark()
+        spans.count(self._assoc.timer, "graph.replays",
+                    sum(p is not None for p in self.rows)
+                    + (field_source is None) + 2 + self.blocks
+                    + (self.rest is not None))
+        return pack_a, pack_b
+
+    def _mark(self) -> None:
+        """Record a timing event on the home card's stream, while marks
+        are kept (outside any capture: capture() ran first)."""
+        if self.marks is not None:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record(torch.cuda.current_stream(self.draw.device))
+            self.marks.append(ev)
 
 
 class Associator3D:
@@ -533,8 +558,9 @@ class Associator3D:
         # memory pool every bucket's graphs share on each card
         self._programs: Dict[Tuple[int, int, int], FrameProgram] = {}
         self._graph_pools: Dict[torch.device, tuple] = {}
-        from mcmtt_opticalflow_tpu_torch.utils.timing import StageTimer
-        self.timer = StageTimer()
+        # StageTimer's sums, with the span tree, counters and device
+        # parts beside them (utils/spans.py)
+        self.timer = spans.SpanTimer()
 
         # window capacity for device scoring: covers re-smoothing reach
         self.win = max(2 * self.acfg.sg_span + 2,
@@ -2763,6 +2789,8 @@ class Associator3D:
             pool.sort(key=lambda t: (-reg.tracks[t].gt_prob, cost_of[t]))
             self.pool_dropped_last = len(pool) - vmax
             self.pool_dropped_total += self.pool_dropped_last
+            spans.count(self.timer, "solve.pool_dropped",
+                        self.pool_dropped_last)
             pool = pool[:vmax]
         else:
             self.pool_dropped_last = 0
@@ -2880,8 +2908,13 @@ class Associator3D:
                     merr.astype(np.float16), lens, row_map, host_base,
                     tree_ids, np.packbits(shared, axis=1),
                     pos_grid.astype(np.float16), have, pvalid, init_masks)
-            out = self._program(len(lens), nb, iters)(
-                host, k, self.field_source)
+            prog = self._program(len(lens), nb, iters)
+            out = prog(host, k, self.field_source)
+        # the solve's width: n of the vmax vertex slots the BLS runs at
+        for name, value in (("solve.frames", 1), ("solve.vertices", n),
+                            ("solve.slots", vmax),
+                            (f"solve.bucket.{len(lens)}x{nb}", 1)):
+            spans.count(self.timer, name, value)
         # new_track consumption point (the related-set expansion above was
         # this frame's only reader)
         for t in reg.tracks.values():
@@ -2892,7 +2925,7 @@ class Associator3D:
                     host_base=host_base, lens=lens, starts=starts,
                     init_masks=init_masks, tree_ids=tree_ids,
                     shared=shared, pos_grid=pos_grid, have=have,
-                    pvalid=pvalid)
+                    pvalid=pvalid, marks=prog.marks)
         # the download starts now, behind the solve on the device stream
         # (so before any later replay overwrites the program's outputs,
         # deferred or not), and overlaps the host work until
@@ -2912,6 +2945,8 @@ class Associator3D:
             prog = FrameProgram(self, nr, nb, iters, self._graph_pool)
             prog.capture()
             self._programs[(nr, nb, iters)] = prog
+            spans.count(self.timer, "graph.captures")
+            spans.count(self.timer, "graph.capture_s", prog.capture_s)
         return prog
 
     def _graph_pool(self, device):
@@ -2989,6 +3024,11 @@ class Associator3D:
             fetched = p["fetch"].get()
             ws, kb_masks, kb_scores = self._unpack_solve(
                 fetched, len(p["lens"]))
+        # the download has joined, so the solve's events have completed
+        marks = p["marks"]
+        if marks:
+            for name, a, b in zip(DEVICE_PARTS, marks, marks[1:]):
+                spans.part(self.timer, name, a.elapsed_time(b) / 1e3)
         with self.timer.stage("hyp.apply"):
             self._apply_window_scores(rescore, ws, lens, starts)
             self._finish_rescore(updated, candidates, seeds)

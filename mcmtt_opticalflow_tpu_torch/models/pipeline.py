@@ -41,6 +41,7 @@ from mcmtt_opticalflow_tpu_torch.parallel.mesh import (AsyncFetch, Shards,
                                                        cam_sharding,
                                                        shard_leaves)
 from mcmtt_opticalflow_tpu_torch.utils.device import resolve_device
+from mcmtt_opticalflow_tpu_torch.utils import spans
 from mcmtt_opticalflow_tpu_torch.utils.graphs import Graphed, device_pool
 from mcmtt_opticalflow_tpu_torch.utils.tree import tree_leaves, tree_map
 
@@ -284,6 +285,8 @@ class TrackingEngine:
                  for prog, box, msk in zip(self._progs2d,
                                            self._group_slices(boxes),
                                            self._group_slices(mask))]
+        spans.count(self.assoc.timer, "graph.replays",
+                    sum(p is not None for p in packs))
         return packs[0] if self.mesh is None else Shards(self._cam_split,
                                                          packs)
 
@@ -298,9 +301,23 @@ class TrackingEngine:
         """
         t0 = time.perf_counter()
         self.frame_idx = self.frame_idx + 1 if frame_idx is None else frame_idx
+        with spans.root(self.assoc.timer, self.frame_idx):
+            result = self._frame(frames_rgb, detections)
+        if result is None:           # pipeline still filling
+            return None
+        result.processing_time = time.perf_counter() - t0
+        self.timing.append(result.processing_time)
+        self.results.append(result)
+        return result
+
+    def _frame(self, frames_rgb, detections) -> Optional[Track3DResult]:
+        """process_frame's work under its `frame` root: this frame's 2D
+        step and, pipelined, the association of frame t-2 (the timer's
+        `frame` says which frame a span works on)."""
+        timer = self.assoc.timer
         boxes, mask = self._pad_detections(detections)
         f = np.asarray(frames_rgb)
-        with self.assoc.timer.stage("gray"):
+        with timer.stage("gray"):
             if f.dtype != np.uint8:
                 f = (np.clip(f, 0.0, 1.0) * 255.0 + 0.5).astype(np.uint8)
             if self._native_gray:
@@ -309,7 +326,7 @@ class TrackingEngine:
             else:
                 gray_u8 = ((f[..., 0].astype(np.uint16) + f[..., 1]
                             + f[..., 2]) // 3).astype(np.uint8)
-        with self.assoc.timer.stage("upload"):
+        with timer.stage("upload"):
             self._upload_gray(gray_u8)
 
         if self.pipelined:
@@ -319,24 +336,20 @@ class TrackingEngine:
             result = None
             if len(self._pending) == 2:
                 prev_idx, prev_fetch, prev_rgb = self._pending.pop(0)
-                with self.assoc.timer.stage("get2d"):
+                timer.frame = prev_idx
+                with timer.stage("get2d"):
                     ids_np, boxes_np, mask_np = _unpack2d(prev_fetch.get())
                 result = self.assoc.step_begin(prev_idx, ids_np, boxes_np,
                                                mask_np, prev_rgb)
                 self.assoc.step_finish(prev_idx)
-            with self.assoc.timer.stage("tracker2d"):
+                timer.frame = self.frame_idx
+            with timer.stage("tracker2d"):
                 packs = self._step2d(boxes, mask)
             self._pending.append((self.frame_idx, AsyncFetch(packs), f))
-            if result is None:       # pipeline still filling
-                return None
-        else:
-            with self.assoc.timer.stage("tracker2d"):
-                packs = self._step2d(boxes, mask)
-            result = self._associate(self.frame_idx, packs, f)
-        result.processing_time = time.perf_counter() - t0
-        self.timing.append(result.processing_time)
-        self.results.append(result)
-        return result
+            return result
+        with timer.stage("tracker2d"):
+            packs = self._step2d(boxes, mask)
+        return self._associate(self.frame_idx, packs, f)
 
     def _associate(self, frame_idx, packs, rgb) -> Track3DResult:
         with self.assoc.timer.stage("get2d"):
