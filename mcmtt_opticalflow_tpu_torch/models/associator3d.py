@@ -84,6 +84,25 @@ def _link_prob_batch(p1s: np.ndarray, p2s: np.ndarray, gaps: np.ndarray,
     return 0.5 * _erfc(4.0 * d / (max_speed * g) - 2.0)
 
 
+def _round_robin(group: np.ndarray, per_group: int,
+                 quota: int) -> np.ndarray:
+    """Indices into `group` in the order a round robin emits them: pass k
+    gives every group, by ascending group number, its k-th row (a
+    group's rows in index order) while k < per_group; the emission stops
+    after `quota` rows."""
+    n = len(group)
+    by_group = np.argsort(group, kind="stable")
+    g = group[by_group]
+    new = np.ones(n, bool)
+    new[1:] = g[1:] != g[:-1]
+    starts = np.flatnonzero(new)
+    rank = np.empty(n, np.int64)
+    rank[by_group] = np.arange(n) - np.repeat(
+        starts, np.diff(np.append(starts, n)))
+    rows = np.flatnonzero(rank < per_group)
+    return rows[np.lexsort((group[rows], rank[rows]))][:max(quota, 0)]
+
+
 def incompat_rows(tree_ids, pos_grid, have, cols, acfg):
     """[n, N] bool: the geometric INCOMPATIBILITY of n tracks (rows)
     against every track (`cols`: the same three arrays of all N tracks,
@@ -437,6 +456,137 @@ class FrameProgram:
             ev = torch.cuda.Event(enable_timing=True)
             ev.record(torch.cuda.current_stream(self.draw.device))
             self.marks.append(ev)
+
+
+def _prefix_blocks(sources: List[Track], keep: np.ndarray,
+                   src_of: np.ndarray, lens: np.ndarray):
+    """One block per per-position field for m candidates: candidate j
+    has lens[j] rows, of which the first keep[src_of[j]] are those of its
+    source track sources[src_of[j]] and the rest zeros.  Returns the
+    blocks and the [m + 1] row offsets."""
+    offs = np.zeros(len(lens) + 1, np.int64)
+    np.cumsum(lens, out=offs[1:])
+    pre = keep[src_of]
+    lead = np.arange(int(pre.sum())) - np.repeat(np.cumsum(pre) - pre, pre)
+    dst = np.repeat(offs[:-1], pre) + lead
+    src = np.repeat((np.cumsum(keep) - keep)[src_of], pre) + lead
+    blocks = {}
+    for name in Track._POS_ARRAYS:
+        rows = np.concatenate([getattr(t, name)[:k] for t, k
+                               in zip(sources, keep.tolist())], 0)
+        out = np.zeros((int(offs[-1]),) + rows.shape[1:], rows.dtype)
+        out[dst] = rows[src]
+        blocks[name] = out
+    return blocks, offs
+
+
+class _Candidates:
+    """A frame's branch candidates as columns, before any Track exists
+    (`Associator3D._branch_tracks`).  Candidate j is the j-th added and
+    takes the j-th id allocated; it branches `sources[src_of[j]]`, and
+    its per-position arrays are rows [offs[i], offs[i + 1]) of the
+    blocks of the `add` that brought it.
+    `Associator3D._apply_history_batch` gates the candidates on their
+    stacked last-tracklet state and `tracks` makes Tracks of the
+    survivors only."""
+
+    def __init__(self):
+        self.sources: List[Track] = []
+        self.ids: List[int] = []
+        # per add: (first candidate, {field: block}, [m + 1] row offsets)
+        self.parts: List[Tuple[int, dict, np.ndarray]] = []
+        # per add, [m] each: source, [m, C] combination, time_end,
+        # n_measured, cost memo and its presence
+        self._cols: List[tuple] = []
+
+    def __len__(self) -> int:
+        return len(self.ids)
+
+    def add(self, registry: TrackRegistry, sources: List[Track],
+            src_of: np.ndarray, combos: np.ndarray, time_end: np.ndarray,
+            n_measured: np.ndarray, blocks: dict, offs: np.ndarray,
+            cache: np.ndarray, has_cache: np.ndarray) -> None:
+        self.parts.append((len(self.ids), blocks, offs))
+        self._cols.append((src_of + len(self.sources), combos, time_end,
+                           n_measured, cache, has_cache))
+        self.sources += sources
+        self.ids += [registry.alloc_track_id() for _ in range(len(src_of))]
+
+    def stack(self) -> None:
+        """The gate's columns, which it updates in place: `combos` [n, C],
+        each history's last tracklet id `hist_last` [n, C] (-1: empty),
+        the last-tracklet state `last_t_end`, `last_t_loc`, `last_sens`,
+        `last_rgb` ([n, C, ...], a row each), `cost_rgb` [n], the cost
+        memo `cache` [n] where `has_cache` [n], and `appended` [n, C],
+        where the gate added the combination's tracklet to the history;
+        besides them `src_of`, `time_end`, `n_measured` [n]."""
+        (self.src_of, self.combos, self.time_end, self.n_measured,
+         self.cache, self.has_cache) = [np.concatenate(c)
+                                        for c in zip(*self._cols)]
+        src = self.sources
+        hist_last = np.asarray([[h[-1] if h else -1 for h in s.tid_hist]
+                                for s in src], np.int64)
+        self.hist_last = hist_last.reshape(len(src), -1)[self.src_of]
+        for name in ("last_t_end", "last_t_loc", "last_sens", "last_rgb"):
+            setattr(self, name,
+                    np.stack([getattr(s, name) for s in src])[self.src_of])
+        self.cost_rgb = np.asarray([s.cost_rgb for s in src],
+                                   np.float64)[self.src_of]
+        self.appended = np.zeros(self.combos.shape, bool)
+
+    def tracks(self, live: np.ndarray, frame_idx: int) -> List[Track]:
+        """Tracks of the candidates `live` (ascending) from the gated
+        columns.  Each is a child of its source; its tid_hist shares the
+        source's per-camera lists but those the gate appended to (copy
+        on append: a track's history never changes after its birth
+        frame).  Built via C-level __dict__ updates instead of the
+        30-kwarg dataclass constructor (~40 us a track at bench
+        density)."""
+        names = Track._POS_ARRAYS
+        views: Dict[str, list] = {name: [] for name in names}
+        for start, blocks, offs in self.parts:
+            js = live[(live >= start) & (live < start + len(offs) - 1)]
+            js = js - start
+            cut = list(map(slice, offs[js].tolist(), offs[js + 1].tolist()))
+            for name in names:
+                views[name] += map(blocks[name].__getitem__, cut)
+        srcs = [self.sources[i] for i in self.src_of[live].tolist()]
+        memo = [c if h else None for c, h in
+                zip(self.cache[live].tolist(),
+                    self.has_cache[live].tolist())]
+        last = ("last_t_end", "last_t_loc", "last_sens", "last_rgb")
+        keys = names + last + ("id", "parent", "combination", "time_end",
+                               "n_measured", "cost_rgb", "_cost_cache")
+        cols = [views[name] for name in names]
+        cols += [list(getattr(self, name)[live]) for name in last]
+        cols += [[self.ids[j] for j in live.tolist()], [s.id for s in srcs],
+                 list(map(tuple, self.combos[live].tolist())),
+                 self.time_end[live].tolist(),
+                 self.n_measured[live].tolist(),
+                 self.cost_rgb[live].tolist(), memo]
+        fixed = dict(time_generation=frame_idx, active=True, valid=True,
+                     new_track=True, current_best=False, num_outpoint=0,
+                     cost_exit=0.0, _cap=None)
+        out: List[Track] = []
+        for src, vals in zip(srcs, zip(*cols)):
+            tr = object.__new__(Track)
+            d = tr.__dict__
+            d.update(src.__dict__)
+            d.update(fixed)
+            d.update(zip(keys, vals))
+            d["children"] = []
+            d["_bufs"] = {}
+            d["tid_hist"] = list(src.tid_hist)
+            out.append(tr)
+        # _share_cache rides along: _hist_ver, bumped per append,
+        # invalidates it
+        ks, cs = np.nonzero(self.appended[live])
+        for k, c, t2 in zip(ks.tolist(), cs.tolist(),
+                            self.combos[live[ks], cs].tolist()):
+            tr = out[k]
+            tr.tid_hist[c] = tr.tid_hist[c] + [t2]
+            tr._hist_ver += 1
+        return out
 
 
 class Associator3D:
@@ -2142,10 +2292,10 @@ class Associator3D:
     # ------------------------------------------------------------------
     def _branch_tracks(self, frame_idx, seeds: List[int]):
         reg = self.registry
-        candidates: List[Track] = []
         # spatial (parent, combination) pairs accumulate as array chunks:
-        # each entry is ([m, C] int64 combination rows, aligned parents)
-        pair_chunks: List[Tuple[np.ndarray, List[Track]]] = []
+        # each entry is ([m, C] int64 combination rows, [m] int64
+        # positions of their parents in `parents`)
+        pair_chunks: List[Tuple[np.ndarray, np.ndarray]] = []
 
         # ---- spatial branching -------------------------------------------
         # Branch ALLOCATION must be fair across parents: with the real 2D
@@ -2165,8 +2315,9 @@ class Associator3D:
         budget = self.acfg.max_branches_per_frame
         est: List[int] = []
         yng: List[int] = []
+        seed_ids = set(seeds)
         for t in self.active_tracks:
-            if t in seeds:
+            if t in seed_ids:
                 continue
             tree = reg.trees.get(reg.tracks[t].tree_id)
             (yng if tree is not None and not tree.confirmed else est).append(t)
@@ -2176,7 +2327,9 @@ class Associator3D:
         order = [t for pair in zip(yng, est) for t in pair]
         order += yng[len(est):] + est[len(yng):]
         per_track = self.acfg.spatial_branches_per_track
-        parent_seq: List[int] = []
+        # the roots that contributed branch rows, in order (the round
+        # robin's parent sequence)
+        parents: List[Track] = []
         nc = self.num_cams
         full = [(1 << len(self.new_measurements[c])) - 1
                 for c in range(nc)]
@@ -2186,34 +2339,36 @@ class Associator3D:
         # map-prep or enumeration for the (usually large) tail of roots
         # the bound cuts off
         use_batch = self._combo_tables() is not None
+        spans.count(self.timer, "branch.rowwise", int(not use_batch))
         CHUNK = 128
         pos = 0
         while (pos < len(order)
                and sum(len(c) for c, _ in pair_chunks) < 8 * budget):
             chunk = order[pos:pos + CHUNK]
             pos += CHUNK
-            roots_maps: List[List[int]] = []
-            roots_tr: List[Track] = []
-            for tid in chunk:
-                tr = reg.tracks[tid]
-                combo = tr.combination
-                maps = list(full)
-                for c in range(nc):
-                    if combo[c] < 0:
-                        continue
-                    assoc = self.tracklets[c][combo[c]].assoc
-                    for c2 in range(nc):
-                        m = assoc.get(c2)
-                        if m is not None:
-                            maps[c2] &= m
-                roots_maps.append(maps)
-                roots_tr.append(tr)
+            roots_tr = [reg.tracks[tid] for tid in chunk]
             if use_batch:
                 bases_arr = np.asarray(
                     [tr.combination for tr in roots_tr], np.int64)
+                # each root's admissibility masks: the frame's full masks
+                # ANDed with its own tracklets' associability (no entry
+                # for a camera: no constraint), read once per distinct
+                # tracklet
+                maps_arr = np.tile(np.asarray(full, np.uint64),
+                                   (len(roots_tr), 1))
+                for c in range(nc):
+                    have = np.flatnonzero(bases_arr[:, c] >= 0)
+                    if not len(have):
+                        continue
+                    tids, inv = np.unique(bases_arr[have, c],
+                                          return_inverse=True)
+                    tks = self.tracklets[c]
+                    maps_arr[have] &= np.asarray(
+                        [[tks[t].assoc.get(c2, f) & f
+                          for c2, f in enumerate(full)]
+                         for t in tids.tolist()], np.uint64)[inv]
                 root_idx, combos_arr = self._generate_combinations_batch(
-                    bases_arr, np.asarray(roots_maps, np.uint64),
-                    2 * per_track)
+                    bases_arr, maps_arr, 2 * per_track)
                 # array-native selection: drop rows equal to the root's
                 # own combination and apply the pair bound with
                 # whole-root granularity — all without tolist/tuple
@@ -2234,16 +2389,31 @@ class Associator3D:
                     allowed_seg,
                     np.diff(np.append(seg_starts, len(root_idx))))
                 keep_rows = np.flatnonzero(nonbase & row_allowed)
+                root_pos = np.zeros(len(roots_tr), np.int64)
+                for k in np.flatnonzero(allowed_seg & (seg_counts > 0)):
+                    r = int(root_idx[seg_starts[k]])
+                    root_pos[r] = len(parents)
+                    parents.append(roots_tr[r])
                 if len(keep_rows):
                     pair_chunks.append((combos_arr[keep_rows],
-                                        [roots_tr[int(r)]
-                                         for r in root_idx[keep_rows]]))
-                for k in np.flatnonzero(allowed_seg & (seg_counts > 0)):
-                    parent_seq.append(
-                        roots_tr[int(root_idx[seg_starts[k]])].id)
+                                        root_pos[root_idx[keep_rows]]))
             else:
+                # masks may pass 64 bits here: Python ints
+                roots_maps: List[List[int]] = []
+                for tr in roots_tr:
+                    combo = tr.combination
+                    maps = list(full)
+                    for c in range(nc):
+                        if combo[c] < 0:
+                            continue
+                        assoc = self.tracklets[c][combo[c]].assoc
+                        for c2 in range(nc):
+                            m = assoc.get(c2)
+                            if m is not None:
+                                maps[c2] &= m
+                    roots_maps.append(maps)
                 rows: List[Tuple[int, ...]] = []
-                row_parents: List[Track] = []
+                row_pos: List[int] = []
                 total = sum(len(c) for c, _ in pair_chunks)
                 for i, tr in enumerate(roots_tr):
                     if total + len(rows) >= 8 * budget:
@@ -2257,84 +2427,52 @@ class Associator3D:
                     for br in branches:
                         if br != combo:
                             rows.append(br)
-                            row_parents.append(tr)
+                            row_pos.append(len(parents))
                             had = True
                     if had:
-                        parent_seq.append(tr.id)
+                        parents.append(tr)
                 if rows:
                     pair_chunks.append((np.asarray(rows, np.int64),
-                                        row_parents))
+                                        np.asarray(row_pos, np.int64)))
 
         self.timer.pop()
         # batch-reconstruct all spatial branch combinations (geometry
         # only — the visibility-ratio cost pass runs later, for the
-        # materialized survivors only), then batch the link probabilities
+        # chosen rows only), then batch the link probabilities
         self.timer.push("branch.spawn")
+        cands = _Candidates()
         if pair_chunks:
             all_combos = np.concatenate([c for c, _ in pair_chunks], 0)
-            all_parents: List[Track] = []
-            for _, ps in pair_chunks:
-                all_parents.extend(ps)
+            all_pos = np.concatenate([p for _, p in pair_chunks], 0)
         else:
             all_combos = np.zeros((0, nc), np.int64)
-            all_parents = []
+            all_pos = np.zeros(0, np.int64)
         r_point, r_locs, r_mask, r_merr, r_prob, r_ok = \
             self._reconstruct_batch(all_combos, skip_cost=True,
                                     as_arrays=True)
         ok_idx = np.flatnonzero(r_ok)
         if len(ok_idx):
-            # previous point per parent (cached per parent id — parents
-            # repeat across their branch rows)
-            prev_cache: Dict[int, np.ndarray] = {}
-            prev_rows = []
-            for i in ok_idx:
-                parent = all_parents[i]
-                p = prev_cache.get(parent.id)
-                if p is None:
-                    p = (parent.points[0] if parent.length < 2
-                         else parent.points[-2])
-                    prev_cache[parent.id] = p
-                prev_rows.append(p)
+            # previous point per parent, gathered to its branch rows
+            prev = np.stack([p.points[0] if p.length < 2 else p.points[-2]
+                             for p in parents])
+            ok_pos = all_pos[ok_idx]
             p_links = _link_prob_batch(
-                np.stack(prev_rows), r_point[ok_idx],
+                prev[ok_pos], r_point[ok_idx],
                 np.ones(len(ok_idx)), self.acfg.max_moving_speed)
-            groups: Dict[int, List[Tuple[int, float]]] = {}
-            pl_list = p_links.tolist()
-            pmin = self.acfg.min_linking_probability
-            for j, i in enumerate(ok_idx.tolist()):
-                pl = pl_list[j]
-                if pl < pmin:
-                    continue
-                groups.setdefault(all_parents[i].id, []).append((i, pl))
-            # round-robin selection: every parent gets its first branch
-            # before any parent gets its second
-            chosen: List[Tuple[int, float]] = []
-            ptr = {pid: 0 for pid in groups}
-            quota = budget - len(candidates)
-            progress = True
-            while len(chosen) < quota and progress:
-                progress = False
-                for pid in parent_seq:
-                    lst = groups.get(pid)
-                    if lst is None:
-                        continue
-                    k = ptr[pid]
-                    if k >= min(len(lst), per_track):
-                        continue
-                    ptr[pid] = k + 1
-                    progress = True
-                    chosen.append(lst[k])
-                    if len(chosen) >= quota:
-                        break
-            if chosen:
-                sel = np.asarray([i for i, _ in chosen])
+            linked = ~(p_links < self.acfg.min_linking_probability)
+            rows_l, pos_l = ok_idx[linked], ok_pos[linked]
+            pick = _round_robin(pos_l, per_track, budget)
+            if len(pick):
+                sel = rows_l[pick]
                 costs = self._recon_cost_batch(
                     r_point[sel], r_mask[sel], r_prob[sel])
-                candidates.extend(self._spawn_spatial_batch(
-                    frame_idx, [all_parents[i] for i in sel.tolist()],
+                src, src_of = np.unique(pos_l[pick], return_inverse=True)
+                self._spawn_spatial_batch(
+                    cands, [parents[i] for i in src.tolist()], src_of,
                     all_combos[sel], r_point[sel], r_locs[sel],
                     r_mask[sel], r_merr[sel], np.asarray(costs),
-                    np.asarray([pl for _, pl in chosen])))
+                    np.asarray(p_links[linked][pick], np.float64))
+        spans.count(self.timer, "branch.spatial", len(cands))
 
         self.timer.pop()
         # ---- temporal branching ------------------------------------------
@@ -2342,6 +2480,7 @@ class Associator3D:
         order_p = sorted(self.paused_tracks,
                          key=lambda t: (-reg.tracks[t].gt_prob, cost_of[t]))
         seed_trs = [reg.tracks[sid] for sid in seeds if sid in reg.tracks]
+        n_spatial = len(cands)
         if order_p and seed_trs:
             # the pair gate only needs a THRESHOLD, not the probability:
             # p = 0.5*erfc(4d/(ms*g) - 2) >= pmin  <=>
@@ -2360,7 +2499,7 @@ class Associator3D:
             row_ok = (gap_row >= 1) & (gap_row <= self.acfg.max_time_jump)
             # temporal branches get their OWN budget — a saturated spatial
             # pass must not cancel the paused tracks' resume candidates
-            budget = len(candidates) + self.acfg.max_branches_per_frame
+            budget = self.acfg.max_branches_per_frame
             if row_ok.any():
                 rows = np.flatnonzero(row_ok)
                 last_pts = np.stack([paused_trs[pi].points
@@ -2376,35 +2515,39 @@ class Associator3D:
                 # clamp: erfcinv makes r NEGATIVE when pmin > 0.5*erfc(-2)
                 # (~0.9977) — squaring would silently flip the gate open
                 ok = d2 <= (np.maximum(r, 0.0) ** 2)[:, None]
-                # row-major scan with the budget break of the original
-                # nested loop; each paused track takes only its CLOSEST
-                # few seeds (temporal_branches_per_track) so the global
-                # budget spreads across all paused tracks — at density,
-                # letting the best-ranked rows consume the budget on every
-                # feasible pairing starved later targets of their resume
+                # row-major scan under the budget; each paused track
+                # takes only its CLOSEST few seeds
+                # (temporal_branches_per_track) so the budget spreads
+                # across all paused tracks — at density, letting the
+                # best-ranked rows consume the budget on every feasible
+                # pairing starved later targets of their resume
                 # candidates (the r3 deferred-window MOTA inversion)
                 per_track = self.acfg.temporal_branches_per_track
+                pair_p: List[int] = []
+                pair_s: List[int] = []
                 for k, pi in enumerate(rows):
-                    if len(candidates) >= budget:
+                    if len(pair_s) >= budget:
                         break
-                    g = int(gap_row[pi])
                     feas = np.flatnonzero(ok[k])
                     if len(feas) > per_track:
                         sub = np.argsort(d2[k, feas],
                                          kind="stable")[:per_track]
                         feas = feas[sub]
-                    for si in feas:
-                        if len(candidates) >= budget:
-                            break
-                        cand = self._make_temporal_branch(
-                            frame_idx, paused_trs[pi], seed_trs[si], g)
-                        if cand is not None:
-                            candidates.append(cand)
+                    feas = feas[:budget - len(pair_s)].tolist()
+                    pair_p += [pi] * len(feas)
+                    pair_s += feas
+                if pair_s:
+                    src, src_of = np.unique(pair_p, return_inverse=True)
+                    self._spawn_temporal_batch(
+                        cands, [paused_trs[pi] for pi in src.tolist()],
+                        src_of, [seed_trs[si] for si in pair_s],
+                        gap_row[pair_p].astype(np.int64))
+        spans.count(self.timer, "branch.temporal", len(cands) - n_spatial)
 
         self.timer.pop()
-        # batched history/connectivity/RGB application decides the final
-        # candidate survivors
-        candidates = self._apply_history_batch(candidates, frame_idx)
+        # the batched history/connectivity/RGB gate decides the survivors,
+        # and only they become Tracks
+        candidates = self._apply_history_batch(cands, frame_idx)
         # The batched smoothing/scoring of this frame's updated tracks
         # (deferred from _update_tracks) + every branch candidate is fused
         # into the hypothesis solve (ONE device dispatch per frame).
@@ -2420,30 +2563,37 @@ class Associator3D:
         self._rescore_updated = updated
         self._rescore_candidates = candidates
 
-    def _spawn_spatial_batch(self, frame_idx, parents: List[Track],
+    def _spawn_spatial_batch(self, cands: _Candidates,
+                             parents: List[Track], src_of: np.ndarray,
                              combos, points, raws, rmasks, merrs,
-                             cost_recs, p_links) -> List[Track]:
-        """Materialize the chosen spatial-branch survivors in one batched
-        pass: each candidate is a full-length clone of its parent with the
-        LAST position row replaced by the branch reconstruction (ref
-        branch loop, Associator3D.cpp:1839-2237).  The per-candidate
-        formulation did 9 Python-level array copies per clone (~2100
-        np copies/frame at bench density); here each per-position array
-        copies once for ALL candidates via a single C-level concatenate,
-        and the last-row replacements land as one advanced-indexed write
-        per array.  Bit-identical to the per-candidate path."""
-        reg = self.registry
+                             cost_recs, p_links) -> None:
+        """Add the chosen spatial branches to `cands` in one batched pass:
+        candidate j is a full-length copy of its parent
+        parents[src_of[j]] with the LAST position row replaced by the
+        branch reconstruction (ref branch loop, Associator3D.cpp:
+        1839-2237).  Each per-position field is one block for all of
+        them, and the last-row replacements land as one advanced-indexed
+        write per field."""
         lens = np.fromiter((p.length for p in parents), np.int64,
                            len(parents))
-        offs = np.zeros(len(parents) + 1, np.int64)
-        np.cumsum(lens, out=offs[1:])
+        blocks, offs = _prefix_blocks(parents, lens, src_of, lens[src_of])
         last = offs[1:] - 1
-        blocks = {name: np.concatenate([getattr(p, name) for p in parents],
-                                       0) for name in Track._POS_ARRAYS}
         new_links = -np.log(np.maximum(p_links, 1e-300))
-        # cost-memo deltas read BEFORE the last-row overwrite
-        old_rec = blocks["cost_recon_pos"][last].copy()
-        old_lnk = blocks["cost_link_pos"][last].copy()
+        cost_recs = np.asarray(cost_recs, np.float64)
+        # cost-memo deltas read BEFORE the last-row overwrite; the parent's
+        # warm memo transfers with its exit cost reset to 0, then the
+        # last-row recon/link delta (the JAX package's grouping, which
+        # tests/test_torch_branching.py holds bit for bit)
+        delta = ((cost_recs - blocks["cost_recon_pos"][last])
+                 + (new_links - blocks["cost_link_pos"][last]))
+        memo = [p._cost_cache for p in parents]
+        has_cache = np.fromiter((m is not None for m in memo), bool,
+                                len(memo))[src_of]
+        cache = np.asarray([0.0 if m is None else m for m in memo],
+                           np.float64)[src_of]
+        exits = np.asarray([p.cost_exit for p in parents],
+                           np.float64)[src_of]
+        cache = np.where(has_cache, (cache - exits) + delta, 0.0)
         blocks["points"][last] = points
         blocks["smoothed"][last] = points
         blocks["raw_points"][last] = raws
@@ -2452,195 +2602,121 @@ class Associator3D:
         blocks["is_meas"][last] = True
         blocks["cost_recon_pos"][last] = cost_recs
         blocks["cost_link_pos"][last] = new_links
-        # per-camera last-tracklet state: one C-level stack per field —
-        # each candidate owns its (disjoint) row, replacing 4 np copies
-        # per clone
-        lt_end = np.stack([p.last_t_end for p in parents])
-        lt_loc = np.stack([p.last_t_loc for p in parents])
-        lt_sens = np.stack([p.last_sens for p in parents])
-        lt_rgb = np.stack([p.last_rgb for p in parents])
-        out: List[Track] = []
-        names = Track._POS_ARRAYS
-        offs_l = offs.tolist()
-        combos_l = np.asarray(combos).tolist()
-        for j, p in enumerate(parents):
-            tr = self._clone_track(p, reg.alloc_track_id(), frame_idx,
-                                   share_arrays=True, share_last=True)
-            a, b = offs_l[j], offs_l[j + 1]
-            d = tr.__dict__
-            for name in names:
-                d[name] = blocks[name][a:b]
-            d["last_t_end"] = lt_end[j]
-            d["last_t_loc"] = lt_loc[j]
-            d["last_sens"] = lt_sens[j]
-            d["last_rgb"] = lt_rgb[j]
-            if p._cost_cache is not None:
-                # same grouping as the scalar path (clone transfer, then
-                # the last-row recon/link delta) for bit-identical floats
-                tr._cost_cache = ((p._cost_cache - p.cost_exit)
-                                  + ((float(cost_recs[j]) - float(old_rec[j]))
-                                     + (float(new_links[j])
-                                        - float(old_lnk[j]))))
-            tr.combination = tuple(combos_l[j])
-            # tracklet history + connectivity + RGB applied by the
-            # caller's batched _apply_history_batch pass
-            out.append(tr)
-        return out
+        n_meas = np.fromiter((p.n_measured for p in parents), np.int64,
+                             len(parents))
+        cands.add(self.registry, parents, src_of,
+                  np.asarray(combos, np.int64),
+                  np.asarray([p.time_end for p in parents])[src_of],
+                  np.minimum(n_meas, lens)[src_of], blocks, offs, cache,
+                  has_cache)
 
-    def _make_temporal_branch(self, frame_idx, paused: Track,
-                              seed: Track, gap: int) -> Optional[Track]:
-        """Caller (_branch_tracks) has already gate-checked the gap range
-        and the batched link probability for this (paused, seed) pair."""
-        last_meas = paused.points[paused.n_measured - 1]
-        seed_pt = seed.points[0]
-        reg = self.registry
-        # build the branched arrays in ONE allocation each (clone of the
-        # measured prefix + interpolated gap + the seed position) — the
-        # clone-then-append formulation this replaces copied every array
-        # twice per candidate (ref interpolation loop :2104-2121)
-        ln = paused.n_measured
-        c = self.num_cams
-        delta = (seed_pt - last_meas) / gap
-        pts = last_meas[None] + delta[None] * np.arange(1, gap + 1)[:, None]
-        pts[-1] = seed_pt
-        vel = np.diff(np.vstack([paused.smoothed[ln - 1:ln], pts]), axis=0)
+    def _spawn_temporal_batch(self, cands: _Candidates,
+                              paused: List[Track], src_of: np.ndarray,
+                              seeds: List[Track], gaps: np.ndarray) -> None:
+        """Add the temporal branches (paused[src_of[j]] resumed by
+        seeds[j] after gaps[j] frames; the caller has gate-checked the gap
+        range and the link radius) to `cands` in one batched pass: each
+        candidate is its paused track's measured prefix, the gap
+        interpolated linearly, and the seed's position last (ref
+        interpolation loop :2104-2121).  Each per-position field is one
+        block for all of them."""
+        m = len(seeds)
+        keep = np.fromiter((p.n_measured for p in paused), np.int64,
+                           len(paused))
+        lns = keep[src_of]
+        blocks, offs = _prefix_blocks(paused, keep, src_of, lns + gaps)
+        # the gap rows, step k = 1..gap after the prefix
+        first_gap = np.cumsum(gaps) - gaps
+        last_gap = first_gap + gaps - 1
+        pair = np.repeat(np.arange(m), gaps)
+        step = np.arange(len(pair)) - first_gap[pair] + 1
+        dst_gap = offs[:-1][pair] + lns[pair] + step - 1
+        last = offs[1:] - 1
+        last_meas = np.stack([p.points[p.n_measured - 1]
+                              for p in paused])[src_of]
+        seed_pt = np.stack([s.points[0] for s in seeds])
+        delta = (seed_pt - last_meas) / gaps[:, None]
+        pts = last_meas[pair] + delta[pair] * step[:, None]
+        pts[last_gap] = seed_pt
+        prev = np.empty_like(pts)
+        prev[1:] = pts[:-1]
+        prev[first_gap] = np.stack([p.smoothed[p.n_measured - 1]
+                                    for p in paused])[src_of]
+        blocks["points"][dst_gap] = pts
+        blocks["smoothed"][dst_gap] = pts
+        blocks["velocity"][dst_gap] = pts - prev
+        blocks["raw_points"][last] = np.stack([s.raw_points[0]
+                                               for s in seeds])
+        blocks["raw_mask"][last] = np.stack([s.raw_mask[0] for s in seeds])
+        blocks["max_error"][last] = [s.max_error[0] for s in seeds]
+        blocks["is_meas"][last] = True
+        blocks["cost_recon_pos"][last] = [s.cost_recon_pos[0]
+                                          for s in seeds]
+        cands.add(self.registry, paused, src_of,
+                  np.asarray([s.combination for s in seeds], np.int64),
+                  np.asarray([s.time_end for s in seeds]), lns + gaps,
+                  blocks, offs, np.zeros(m), np.zeros(m, bool))
 
-        def blk(prefix, tail_shape, last_val, dtype=None):
-            out = np.zeros((ln + gap,) + tail_shape,
-                           prefix.dtype if dtype is None else dtype)
-            out[:ln] = prefix[:ln]
-            if last_val is not None:
-                out[-1] = last_val
-            return out
-
-        tr = self._clone_track(paused, reg.alloc_track_id(), frame_idx,
-                               length=ln, share_arrays=True)
-        tr.points = np.concatenate([paused.points[:ln], pts], 0)
-        tr.smoothed = np.concatenate([paused.smoothed[:ln], pts], 0)
-        tr.velocity = np.concatenate([paused.velocity[:ln], vel], 0)
-        tr.raw_points = blk(paused.raw_points, (c, 3), seed.raw_points[0])
-        tr.raw_mask = blk(paused.raw_mask, (c,), seed.raw_mask[0])
-        tr.max_error = blk(paused.max_error, (), seed.max_error[0])
-        tr.is_meas = blk(paused.is_meas, (), True)
-        tr.cost_recon_pos = blk(paused.cost_recon_pos, (),
-                                seed.cost_recon_pos[0])
-        tr.cost_link_pos = blk(paused.cost_link_pos, (), None)
-        tr.combination = seed.combination
-        tr.time_end = seed.time_end
-        tr.n_measured = tr.length
-        # tracklet history applied by the caller's batched pass
-        return tr
-
-    def _clone_track(self, src: Track, new_id: int, frame_idx: int,
-                     length: Optional[int] = None,
-                     share_arrays: bool = False,
-                     share_last: bool = False) -> Track:
-        """share_arrays=True skips the per-position array copies — the
-        caller promises to REPLACE every per-position array before the
-        track is used (the temporal-branch constructor builds them in one
-        pass).  share_last=True likewise skips the four last_t_* copies
-        (the batched spawner assigns stacked rows).
-
-        Built via a C-level __dict__ copy instead of the 30-kwarg
-        dataclass constructor: ~420 branch candidates clone per frame at
-        bench density and the Python-level __init__ alone was the single
-        largest host cost (~40 us/clone)."""
-        ln = src.length if length is None else length
-        tr = object.__new__(Track)
-        d = tr.__dict__
-        d.update(src.__dict__)
-        d["id"] = new_id
-        d["parent"] = src.id
-        d["children"] = []
-        d["tid_hist"] = [list(h) for h in src.tid_hist]
-        d["time_generation"] = frame_idx
-        d["n_measured"] = min(src.n_measured, ln)
-        d["active"] = True
-        d["valid"] = True
-        d["new_track"] = True
-        d["current_best"] = False
-        d["num_outpoint"] = 0
-        d["cost_exit"] = 0.0
-        d["_cap"] = None
-        d["_bufs"] = {}
-        # _share_cache rides along: the copied tid_hist has the same
-        # content, and the cache key (total hist length) invalidates it
-        # naturally on the clone's own appends
-        if not share_last:
-            d["last_t_end"] = src.last_t_end.copy()
-            d["last_t_loc"] = src.last_t_loc.copy()
-            d["last_sens"] = src.last_sens.copy()
-            d["last_rgb"] = src.last_rgb.copy()
-        if share_arrays:
-            d["_cost_cache"] = None
-        else:
-            for name in Track._POS_ARRAYS:
-                d[name] = getattr(src, name)[:ln].copy()
-            if ln == src.length and src._cost_cache is not None:
-                # full-prefix clone: identical per-position costs, exit
-                # reset to 0 — the parent's warm memo transfers by delta
-                d["_cost_cache"] = src._cost_cache - src.cost_exit
-            else:
-                d["_cost_cache"] = None
-        return tr
-
-    def _apply_history_batch(self, cands: List[Track],
+    def _apply_history_batch(self, cands: _Candidates,
                              frame_idx) -> List[Track]:
         """Tracklet-history append + connectivity gate + RGB cost for a
-        whole candidate batch (ref :1985-2031), one vectorised pass per
-        camera — the per-candidate scalar version cost ~15 ms/frame at
-        bench density.  Returns the surviving candidates."""
-        if not cands:
-            return cands
+        frame's branch candidates (ref :1985-2031), one vectorised pass
+        per camera over the candidates' stacked last-tracklet state.
+        Returns the survivors as Tracks, in candidate order; a candidate
+        the gate refuses is never built."""
+        n = len(cands)
+        if not n:
+            spans.count(self.timer, "branch.gate_dropped", 0)
+            return []
         acfg = self.acfg
         tabs = self._tracklet_tables()
-        ok = np.ones(len(cands), bool)
+        cands.stack()
+        combos, hist_last = cands.combos, cands.hist_last
+        lt_end, lt_loc = cands.last_t_end, cands.last_t_loc
+        lt_sens, lt_rgb = cands.last_sens, cands.last_rgb
+        cost_rgb, cache = cands.cost_rgb, cands.cache
+        ok = np.ones(n, bool)
         for c in range(self.num_cams):
-            idxs = [i for i, tr in enumerate(cands)
-                    if ok[i] and tr.combination[c] >= 0
-                    and (not tr.tid_hist[c]
-                         or tr.tid_hist[c][-1] != tr.combination[c])]
-            if not idxs:
+            t2 = combos[:, c]
+            idxs = np.flatnonzero(ok & (t2 >= 0) & (hist_last[:, c] != t2))
+            if not len(idxs):
                 continue
             tids, tl, _, _, ts_, rh, rt = tabs[c]
-            t2s = np.asarray([cands[i].combination[c] for i in idxs])
+            t2s = t2[idxs]
             pos = np.searchsorted(tids, t2s)
             loc = tl[pos]
             sens = ts_[pos]
-            first = np.asarray([not cands[i].tid_hist[c] for i in idxs])
-            last_end = np.asarray([cands[i].last_t_end[c] for i in idxs])
-            last_loc = np.stack([cands[i].last_t_loc[c] for i in idxs])
-            last_sens = np.asarray([cands[i].last_sens[c] for i in idxs])
-            last_rgb = np.stack([cands[i].last_rgb[c] for i in idxs])
-            gap = frame_idx - last_end
-            d = np.linalg.norm(last_loc - loc, axis=1)
+            first = hist_last[idxs, c] < 0
+            gap = frame_idx - lt_end[idxs, c]
+            d = np.linalg.norm(lt_loc[idxs, c] - loc, axis=1)
             thresh = np.maximum(acfg.cost_tracklet_link_min_dist,
                                 acfg.e_cal + acfg.e_det
-                                * (last_sens + sens))
+                                * (lt_sens[idxs, c] + sens))
             fail = (~first) & (gap <= 1) & (d > thresh)
-            n2 = ((last_rgb - rh[pos]) ** 2).sum(-1)
+            n2 = ((lt_rgb[idxs, c] - rh[pos]) ** 2).sum(-1)
             rgbc = np.where(
                 (n2 <= acfg.cost_rgb_min_dist) | first, 0.0,
                 acfg.cost_rgb_coef
                 * np.exp(-acfg.cost_rgb_decay
                          * (np.asarray(gap, np.float64) - 1.0))
                 * (n2 - acfg.cost_rgb_min_dist))
-            for k, i in enumerate(idxs):
-                if fail[k]:
-                    ok[i] = False
-                    continue
-                tr = cands[i]
-                tr.tid_hist[c].append(int(t2s[k]))
-                tr._hist_ver += 1
-                if rgbc[k]:
-                    tr.cost_rgb += float(rgbc[k])
-                    if tr._cost_cache is not None:
-                        tr._cost_cache += float(rgbc[k])
-                tr.last_rgb[c] = rt[pos[k]]
-                tr.last_t_loc[c] = loc[k]
-                tr.last_t_end[c] = frame_idx
-                tr.last_sens[c] = sens[k]
-        return [tr for i, tr in enumerate(cands) if ok[i]]
+            ok[idxs[fail]] = False
+            keep = ~fail
+            good = idxs[keep]
+            cands.appended[good, c] = True
+            # a zero cost adds nothing (a NaN does)
+            add = rgbc[keep]
+            nz = add != 0
+            cost_rgb[good[nz]] += add[nz]
+            memo = nz & cands.has_cache[good]
+            cache[good[memo]] += add[memo]
+            lt_rgb[good, c] = rt[pos[keep]]
+            lt_loc[good, c] = loc[keep]
+            lt_end[good, c] = frame_idx
+            lt_sens[good, c] = sens[keep]
+        live = np.flatnonzero(ok)
+        spans.count(self.timer, "branch.gate_dropped", n - len(live))
+        return cands.tracks(live, frame_idx)
 
     # ------------------------------------------------------------------
     # 7f. hypothesis formation (ref :2589-2834)

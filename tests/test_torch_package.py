@@ -194,14 +194,19 @@ def test_collect_k_best_has_not_drifted():
 
 
 # The definitions of models/associator3d.py that the port carries from
-# the JAX file unchanged (an `ast` comparison of the two files: 49 of
-# them, 1897 lines).  Deliberately different, and not checked: the device
+# the JAX file unchanged (an `ast` comparison of the two files: 44 of
+# them, 1426 lines).  Deliberately different, and not checked: the device
 # boundary the port rewrote for PyTorch and the mesh — `incompat_rows`,
 # `_compat_from`, `compat_matrix`, `FrameProgram`, and of `Associator3D`
 # `__init__`, `_build_device_fns`, `_rescore_and_solve`, `_score_graph`,
 # `_score_rows`, `_score_joined`, `_pack_k_best`, `_dev`, `_splits`,
 # `_cams`, `_on_rows`, `_rescore_tails`, `_form_hypotheses`, `_program`,
-# `_graph_pool`, `precompile`, `_unpack_solve`, `_collect_solve` — and
+# `_graph_pool`, `precompile`, `_unpack_solve`, `_collect_solve` — the
+# columnar branching (`_branch_tracks`, `_spawn_spatial_batch`,
+# `_apply_history_batch`, and the port's own `_round_robin`,
+# `_Candidates`, `_spawn_temporal_batch` in place of the JAX file's
+# `_make_temporal_branch` and `_clone_track`), held to the JAX
+# definitions by their outputs in tests/test_torch_branching.py — and
 # `_update_tracklets`, which differs by its two imports only
 # (test_update_tracklets_has_not_drifted).
 _CARRIED_ASSOCIATOR = [
@@ -223,9 +228,7 @@ _CARRIED_ASSOCIATOR = [
     "Associator3D._combo_tables", "Associator3D._generate_combinations_batch",
     "Associator3D._generate_seeds", "Associator3D._enumerate_seeds",
     "Associator3D._materialize_seeds", "Associator3D._admit_seeds",
-    "Associator3D._new_track_from_seed", "Associator3D._branch_tracks",
-    "Associator3D._spawn_spatial_batch", "Associator3D._make_temporal_branch",
-    "Associator3D._clone_track", "Associator3D._apply_history_batch",
+    "Associator3D._new_track_from_seed",
     "Associator3D._track_share_codes", "Associator3D._shared_matrix",
     "Associator3D._finish_rescore", "Associator3D._prune",
     "Associator3D._package_result", "Associator3D.result_at",
